@@ -1,0 +1,33 @@
+"""reak_tpu_torch — the PyTorch/CUDA port of ``reak_tpu``.
+
+A second package beside the JAX one, with the same module paths and function
+names (``reak_tpu_torch/kte/lanes.py::make_rollout_ltv_lanes`` ports
+``reak_tpu/kte/lanes.py::make_rollout_ltv_lanes``).  Arrays keep the JAX
+package's lanes layout at every public function: the scenario batch is the
+last axis.  Every Pallas kernel of the JAX package that the port has reached
+is a hand-written CUDA kernel here (``reak_tpu_torch/csrc``), bound through
+``reak_tpu_torch/ops``; each wrapper launches its kernel on CUDA tensors and
+takes its plain torch version on CPU tensors.
+
+Ported so far: the flagship batched KTE-MPC solve,
+``reak_tpu_torch.ctrl.mpc.make_kte_mpc`` on fixed-base chains with
+``sqp_iters=1``.
+
+Importing the package changes no global torch state and needs neither CUDA
+nor a compiler; the kernels are built at their first launch.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+
+def enable_full_precision() -> None:
+    """Keep float32 matrix products and convolutions in full float32.
+
+    The counterpart of ``reak_tpu.enable_full_precision``: on an NVIDIA card
+    the risk is TF32, which keeps about three decimal digits and would break
+    the ≤1e-4 parity bars.  Explicit opt-in, never run at import time:
+    drivers such as ``chip_smoke.py`` call it."""
+    _torch.backends.cuda.matmul.allow_tf32 = False
+    _torch.backends.cudnn.allow_tf32 = False

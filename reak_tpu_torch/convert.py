@@ -1,0 +1,45 @@
+"""Carry parameters across from the JAX package to the port.
+
+Both functions duck-type their argument: anything with the fields of
+``ChainSpec`` (or ``MPCProblem``) as numbers, tuples, numpy arrays or arrays
+that ``numpy.asarray`` reads.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from reak_tpu_torch.ctrl.mpc import MPCProblem
+from reak_tpu_torch.kte.spec import ChainSpec
+
+
+def spec_from(obj) -> ChainSpec:
+    """The port's ``ChainSpec`` with the fields of ``obj``."""
+    return ChainSpec.build(
+        joint_types=tuple(int(t) for t in obj.joint_types),
+        axes=np.asarray(obj.axes, np.float64),
+        offsets_pos=np.asarray(obj.offsets_pos, np.float64),
+        offsets_quat=np.asarray(obj.offsets_quat, np.float64),
+        com_pos=np.asarray(obj.com_pos, np.float64),
+        masses=np.asarray(obj.masses, np.float64),
+        inertias=np.asarray(obj.inertias, np.float64).reshape(-1, 3, 3),
+        stiffness=np.asarray(obj.stiffness, np.float64),
+        rest_q=np.asarray(obj.rest_q, np.float64),
+        damping=np.asarray(obj.damping, np.float64),
+        stiction_vel=np.asarray(obj.stiction_vel, np.float64),
+        slip_vel=np.asarray(obj.slip_vel, np.float64),
+        stiction_coef=np.asarray(obj.stiction_coef, np.float64),
+        slip_coef=np.asarray(obj.slip_coef, np.float64),
+        gravity=np.asarray(obj.gravity, np.float64),
+        backlash=np.asarray(obj.backlash, np.float64),
+        name=str(obj.name),
+    )
+
+
+def problem_from(obj, device, dtype) -> MPCProblem:
+    """The port's ``MPCProblem`` with the weights and bounds of ``obj``, as
+    tensors of ``dtype`` on ``device``."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return MPCProblem(Q=t(obj.Q), R=t(obj.R), QN=t(obj.QN),
+                      u_min=t(obj.u_min), u_max=t(obj.u_max),
+                      horizon=int(obj.horizon))

@@ -1,0 +1,103 @@
+"""The whole-solve PDIP kernel: every Mehrotra iteration of the box-
+constrained LTV-MPC QP in one launch — the Hopper port of the Pallas kernel
+``reak_tpu/ops/pdip_whole_pallas.py::make_whole_pdip``.
+
+``make_whole_pdip(H, n, m, iters, with_xref, with_uref)`` returns
+``fn(A (H,n,n,B), Bm (H,n,m,B), c (H,n,B), [x_ref (H,n,B|1)],
+[u_ref (H,m,B|1)], x0 (n,B), Q (n,n), QN (n,n), R (m,m), lb (m,), ub (m,))
+→ (u (H,m,B), xs (H,n,B))``.  On CUDA tensors it launches
+``csrc/pdip_whole.cu``; on CPU tensors it takes the plain version,
+``solve_plain`` (the scan path of ``ctrl/riccati_soa``).
+
+The kernel keeps its working set in a device-memory scratch buffer, not in
+on-chip memory, so unlike the TPU kernel it covers every horizon.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from reak_tpu_torch.ctrl.riccati_soa import _fused_scan as solve_plain
+from reak_tpu_torch.ops import _build
+
+MAX_N, MAX_M = 16, 8  # csrc/pdip_whole.cu NMAX, MMAX
+
+# launches of the kernel since the count was last set to 0
+launches = 0
+
+
+def scratch_values(H: int, n: int, m: int) -> int:
+    """Scratch values per scenario: K (H,m,n), packed factors (H,m,m),
+    u, sl, su, zl, zu, w1, w2 (H,m), xs, dxs (H,n)."""
+    return H * (m * n + m * m + 7 * m + 2 * n)
+
+
+# A, Bm, c, x_ref, u_ref, x0, Q, QN, R, lb, ub, u, xs, scratch (pointers),
+# H, n, m, B, iters, stream
+_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+SIGNATURES = {"reak_pdip_whole_f32": _ARGS, "reak_pdip_whole_f64": _ARGS}
+
+
+def make_whole_pdip(H: int, n: int, m: int, iters: int,
+                    with_xref: bool = False, with_uref: bool = False):
+    """The complete box-constrained LTV-MPC solve in one launch (see
+    module)."""
+    if n > MAX_N or m > MAX_M:
+        raise NotImplementedError(
+            f"the whole-solve kernel takes n <= {MAX_N}, m <= {MAX_M}")
+
+    def fn(A, Bm, c, *rest):
+        global launches
+        rest = list(rest)
+        x_ref = rest.pop(0) if with_xref else None
+        u_ref = rest.pop(0) if with_uref else None
+        x0, Q, QN, R, lb, ub = rest
+        if A.device.type == "cpu":
+            return solve_plain(A, Bm, c, Q, QN, R, x0, lb, ub, x_ref=x_ref,
+                               u_ref=u_ref, iters=iters)
+        if not A.is_cuda:
+            raise ValueError(f"A on {A.device}: expected a CUDA tensor")
+        B = A.shape[-1]
+        dtype, device = A.dtype, A.device
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"A is {dtype}: expected float32 or float64")
+        shapes = {"A": (A, (H, n, n, B)), "Bm": (Bm, (H, n, m, B)),
+                  "c": (c, (H, n, B)), "x0": (x0, (n, B)), "Q": (Q, (n, n)),
+                  "QN": (QN, (n, n)), "R": (R, (m, m)), "lb": (lb, (m,)),
+                  "ub": (ub, (m,))}
+        for name, (t, shape) in shapes.items():
+            if t.device != device or t.dtype != dtype:
+                raise ValueError(f"{name} is {t.dtype} on {t.device}: "
+                                 f"expected {dtype} on {device}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}: "
+                                 f"expected {shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        refs = []
+        for name, ref, shape in (("x_ref", x_ref, (H, n, B)),
+                                 ("u_ref", u_ref, (H, m, B))):
+            if ref is None:
+                refs.append(None)
+                continue
+            if ref.device != device or ref.dtype != dtype:
+                raise ValueError(f"{name} is {ref.dtype} on {ref.device}: "
+                                 f"expected {dtype} on {device}")
+            refs.append(ref.expand(shape).contiguous())
+        u = torch.empty(H, m, B, dtype=dtype, device=device)
+        xs = torch.empty(H, n, B, dtype=dtype, device=device)
+        scratch = torch.empty(scratch_values(H, n, m) * B, dtype=dtype,
+                              device=device)
+        lib = _build.load("pdip_whole", SIGNATURES)
+        launch = (lib.reak_pdip_whole_f32 if dtype == torch.float32
+                  else lib.reak_pdip_whole_f64)
+        p = lambda t: None if t is None else _build.ptr(t)
+        rc = launch(p(A), p(Bm), p(c), p(refs[0]), p(refs[1]), p(x0), p(Q),
+                    p(QN), p(R), p(lb), p(ub), p(u), p(xs), p(scratch),
+                    H, n, m, B, iters, _build.stream_ptr(device))
+        _build.check(lib, rc, "pdip_whole kernel")
+        launches += 1
+        return u, xs
+
+    return fn

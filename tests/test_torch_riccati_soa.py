@@ -1,0 +1,102 @@
+"""The port's plain whole-solve PDIP (reak_tpu_torch.ctrl.riccati_soa, the
+plain version of the CUDA kernel) against the JAX package's whole-solve
+Pallas kernel run in interpret mode, on the same numpy inputs at f64, in the
+regulator, x_ref and x_ref + u_ref modes.  Shapes and monkeypatching as in
+tests/test_riccati_soa.py::test_pdip_whole_solve_kernel_matches_scan.
+Bar: ≤1e-9 absolute on u and xs."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reak_tpu_torch.ctrl import riccati_soa
+from reak_tpu_torch.ops import pdip_whole
+
+torch.set_num_threads(1)
+
+MODES = {"regulator": (), "x_ref": ("x_ref",), "x_ref+u_ref": ("x_ref",
+                                                               "u_ref")}
+
+
+def _problem(rng, H=6, n=4, m=2, B=4):
+    return dict(
+        A=rng.standard_normal((H, n, n, B)) * 0.1 + np.eye(n)[None, :, :, None],
+        Bm=rng.standard_normal((H, n, m, B)) * 0.2,
+        c=rng.standard_normal((H, n, B)) * 0.05,
+        x0=rng.standard_normal((n, B)),
+        Q=np.eye(n), QN=np.eye(n) * 5.0, R=np.eye(m) * 0.1,
+        lb=np.full(m, -1.5), ub=np.full(m, 1.5),
+        x_ref=rng.standard_normal((H, n, B)) * 0.1,
+        u_ref=rng.standard_normal((H, m, B)) * 0.1)
+
+
+def _args(p, conv):
+    return [conv(p[k]) for k in ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb",
+                                 "ub")]
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_plain_pdip_matches_jax_whole_kernel(rng, monkeypatch, mode):
+    import reak_tpu.ops.pdip_whole_pallas as pwp
+    from reak_tpu.ctrl.riccati_soa import \
+        solve_box_mpc_riccati_soa_fused as jax_fused
+
+    monkeypatch.setattr(pwp, "_TILE", 2)
+    monkeypatch.setattr(pwp, "FORCE_INTERPRET", True)
+    p = _problem(rng)
+    refs = {k: p[k] for k in MODES[mode]}
+    u_j, x_j = jax_fused(*_args(p, jnp.asarray), iters=6, use_kernels="whole",
+                         **{k: jnp.asarray(v) for k, v in refs.items()})
+    u_t, x_t = riccati_soa.solve_box_mpc_riccati_soa_fused(
+        *_args(p, torch.as_tensor), iters=6,
+        **{k: torch.as_tensor(v) for k, v in refs.items()})
+    assert np.max(np.abs(u_t.numpy() - np.asarray(u_j))) <= 1e-9
+    assert np.max(np.abs(x_t.numpy() - np.asarray(x_j))) <= 1e-9
+    # the instance has active box constraints
+    assert np.any(np.abs(u_t.numpy()) > 1.5 - 1e-6)
+
+
+@pytest.mark.parametrize("use_kernels", ["whole", "never"])
+def test_cpu_dispatch_is_the_plain_scan(rng, use_kernels):
+    """On CPU tensors "whole" goes through the kernel's wrapper, which takes
+    the plain scan: the same numbers as "never", and no launch counted."""
+    p = _problem(rng)
+    args = _args(p, torch.as_tensor)
+    before = pdip_whole.launches
+    u1, x1 = riccati_soa.solve_box_mpc_riccati_soa_fused(
+        *args, iters=4, use_kernels=use_kernels)
+    u2, x2 = riccati_soa._fused_scan(*args, iters=4)
+    assert torch.equal(u1, u2) and torch.equal(x1, x2)
+    assert pdip_whole.launches == before
+
+
+def test_per_pass_kernels_are_not_ported(rng):
+    p = _problem(rng)
+    with pytest.raises(NotImplementedError):
+        riccati_soa.solve_box_mpc_riccati_soa_fused(
+            *_args(p, torch.as_tensor), use_kernels="passes")
+
+
+def test_lanes_algebra_matches_numpy(rng):
+    """The one copy of the lanes algebra against numpy einsum."""
+    X = rng.standard_normal((3, 4, 5))
+    Y = rng.standard_normal((4, 2, 5))
+    Z = rng.standard_normal((3, 2, 5))
+    v = rng.standard_normal((4, 5))
+    w = rng.standard_normal((3, 5))
+    t = torch.as_tensor
+    np.testing.assert_allclose(riccati_soa._mm(t(X), t(Y)).numpy(),
+                               np.einsum("ikb,kjb->ijb", X, Y), rtol=1e-13)
+    np.testing.assert_allclose(riccati_soa._mTm(t(X), t(Z)).numpy(),
+                               np.einsum("kib,kjb->ijb", X, Z), rtol=1e-13)
+    np.testing.assert_allclose(riccati_soa._mv(t(X), t(v)).numpy(),
+                               np.einsum("ikb,kb->ib", X, v), rtol=1e-13)
+    np.testing.assert_allclose(riccati_soa._mTv(t(X), t(w)).numpy(),
+                               np.einsum("kib,kb->ib", X, w), rtol=1e-13)
+    G = rng.standard_normal((4, 4, 5))
+    G = np.einsum("ikb,jkb->ijb", G, G) + 2.0 * np.eye(4)[:, :, None]
+    rhs = rng.standard_normal((4, 3, 5))
+    got = riccati_soa._chol_solve_lanes(t(G), t(rhs)).numpy()
+    want = np.linalg.solve(np.moveaxis(G, -1, 0), np.moveaxis(rhs, -1, 0))
+    np.testing.assert_allclose(np.moveaxis(got, -1, 0), want, rtol=1e-10,
+                               atol=1e-12)
