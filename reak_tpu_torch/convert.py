@@ -1,8 +1,9 @@
 """Carry parameters across from the JAX package to the port.
 
-Both functions duck-type their argument: anything with the fields of
-``ChainSpec`` (or ``MPCProblem``) as numbers, tuples, numpy arrays or arrays
-that ``numpy.asarray`` reads.  Nothing here imports JAX.
+Each function duck-types its argument: anything with the fields of
+``ChainSpec``, ``MPCProblem`` or ``SatelliteParams`` as numbers, tuples,
+numpy arrays or arrays that ``numpy.asarray`` reads.  Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from reak_tpu_torch.ctrl.mpc import MPCProblem
+from reak_tpu_torch.ctrl.ss_systems import SatelliteParams, satellite3D
 from reak_tpu_torch.kte.spec import ChainSpec
 
 
@@ -43,3 +45,10 @@ def problem_from(obj, device, dtype) -> MPCProblem:
     return MPCProblem(Q=t(obj.Q), R=t(obj.R), QN=t(obj.QN),
                       u_min=t(obj.u_min), u_max=t(obj.u_max),
                       horizon=int(obj.horizon))
+
+
+def satellite_from(obj) -> SatelliteParams:
+    """The port's ``SatelliteParams`` (float64 CPU tensors) with the mass
+    and inertia of ``obj``."""
+    return satellite3D(mass=float(np.asarray(obj.mass)),
+                       inertia=np.array(obj.inertia, np.float64))

@@ -28,7 +28,10 @@
 // scenario through every iteration and every stage.  The reverse pass
 // holds V (n, n), V·A, V·B, F, K and G per stage: at n = 12, m = 6 that is
 // far over 255 registers, so those arrays spill to local memory (L1-cached).
-// That is accepted in this first version.  The per-scenario reductions (mu,
+// That is accepted in this first version.  Two instances are built: (16, 8)
+// for the fixed-base arms (n = 12, m = 6) and (24, 12) for the floating arm's
+// tangent (n = 24, m = 12), whose arrays come to ~2.4k values per thread
+// (~9.6 KB in f32, ~19 KB in f64) of local memory.  The per-scenario reductions (mu,
 // mu_aff, the step lengths) run over (H, m) only, the division in the step
 // rule is guarded, sigma = (mu_aff / max(mu, 1e-30))³, the last stage uses
 // QN, and the affine and corrector passes share each stage's factor — as
@@ -37,9 +40,6 @@
 
 namespace reak {
 namespace {
-
-constexpr int NMAX = 16;  // state width
-constexpr int MMAX = 8;   // input width
 
 template <typename T>
 struct Lanes {
@@ -58,7 +58,11 @@ __device__ inline T max_step_term(T v, T dv) {
   return neg ? -v / (neg ? dv : T(-1)) : T(INFINITY);
 }
 
-template <typename T>
+// NMAX, MMAX bound the state and input widths: they size the per-thread
+// arrays of the reverse pass (V, V·A, V·B, F, K, the factor), so each
+// instance is built for one bound and the wrapper picks the smallest that
+// holds (n, m).
+template <typename T, int NMAX, int MMAX>
 __global__ void pdip_whole_kernel(
     const T* __restrict__ A_, const T* __restrict__ Bm_,
     const T* __restrict__ c_, const T* __restrict__ xr_,
@@ -425,7 +429,7 @@ __global__ void pdip_whole_kernel(
   rollout(xs_out);
 }
 
-template <typename T>
+template <typename T, int NMAX, int MMAX>
 int launch(const void* A, const void* Bm, const void* c, const void* xr,
            const void* ur, const void* x0, const void* Q, const void* QN,
            const void* R, const void* lb, const void* ub, void* u_out,
@@ -434,7 +438,7 @@ int launch(const void* A, const void* Bm, const void* c, const void* xr,
   if (H < 1 || n < 1 || n > NMAX || m < 1 || m > MMAX || B < 1 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 32;  // one warp per block spreads B=8192 over 256 blocks
-  pdip_whole_kernel<T><<<(B + threads - 1) / threads, threads, 0,
+  pdip_whole_kernel<T, NMAX, MMAX><<<(B + threads - 1) / threads, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(c), static_cast<const T*>(xr),
@@ -451,25 +455,23 @@ int launch(const void* A, const void* Bm, const void* c, const void* xr,
 
 extern "C" {
 
-int reak_pdip_whole_f32(const void* A, const void* Bm, const void* c,
-                        const void* xr, const void* ur, const void* x0,
-                        const void* Q, const void* QN, const void* R,
-                        const void* lb, const void* ub, void* u_out,
-                        void* xs_out, void* scratch, int H, int n, int m,
-                        int B, int iters, void* stream) {
-  return reak::launch<float>(A, Bm, c, xr, ur, x0, Q, QN, R, lb, ub, u_out,
-                             xs_out, scratch, H, n, m, B, iters, stream);
-}
+// One entry point per (bound, type): reak_pdip_whole_<NMAX>x<MMAX>_<type>.
+#define REAK_PDIP_ENTRY(NM, MM, T, SUFFIX)                                   \
+  int reak_pdip_whole_##NM##x##MM##_##SUFFIX(                                \
+      const void* A, const void* Bm, const void* c, const void* xr,          \
+      const void* ur, const void* x0, const void* Q, const void* QN,         \
+      const void* R, const void* lb, const void* ub, void* u_out,            \
+      void* xs_out, void* scratch, int H, int n, int m, int B, int iters,    \
+      void* stream) {                                                        \
+    return reak::launch<T, NM, MM>(A, Bm, c, xr, ur, x0, Q, QN, R, lb, ub,   \
+                                   u_out, xs_out, scratch, H, n, m, B,       \
+                                   iters, stream);                           \
+  }
 
-int reak_pdip_whole_f64(const void* A, const void* Bm, const void* c,
-                        const void* xr, const void* ur, const void* x0,
-                        const void* Q, const void* QN, const void* R,
-                        const void* lb, const void* ub, void* u_out,
-                        void* xs_out, void* scratch, int H, int n, int m,
-                        int B, int iters, void* stream) {
-  return reak::launch<double>(A, Bm, c, xr, ur, x0, Q, QN, R, lb, ub, u_out,
-                              xs_out, scratch, H, n, m, B, iters, stream);
-}
+REAK_PDIP_ENTRY(16, 8, float, f32)
+REAK_PDIP_ENTRY(16, 8, double, f64)
+REAK_PDIP_ENTRY(24, 12, float, f32)
+REAK_PDIP_ENTRY(24, 12, double, f64)
 
 const char* reak_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

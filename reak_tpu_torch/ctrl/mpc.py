@@ -1,13 +1,15 @@
 """Batched KTE-MPC (port of the lanes branch of ``reak_tpu/ctrl/mpc.py``).
 
-One solve: the lanes rollout + LTV linearization of a fixed-base chain
+One SQP pass: the lanes rollout + LTV linearization of a fixed-base chain
 (kte/lanes.py), then the box-constrained Riccati interior-point QP
-(ctrl/riccati_soa.py).  On CUDA tensors both phases run as hand-written
-kernels (ops/kte_step.py, ops/pdip_whole.py); on CPU tensors they run as the
-plain torch versions of those kernels.
+(ctrl/riccati_soa.py); with several passes, a per-scenario line search on
+the true RK4 cost (kte/lanes.make_rollout_lanes).  On CUDA tensors every
+phase runs through hand-written kernels (ops/kte_step.py, ops/pdip_whole.py,
+ops/chol_lanes.py); on CPU tensors through their plain torch versions.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -49,6 +51,29 @@ def to_lanes(ref, width: int, horizon: int, dtype, device):
     return ref.permute(1, 2, 0)  # (H, w, B)
 
 
+def make_traj_cost(spec, problem: MPCProblem, dt: float):
+    """``cost(x0s (B, n), ul (H, m, B), xr_l, ur_l) → (B,)``: the true
+    nonlinear trajectory cost of an input sequence, an RK4 rollout
+    (kte/lanes.make_rollout_lanes) priced with the problem's quadratic stage
+    costs; a non-finite cost becomes +inf.  ``xr_l``/``ur_l`` are lanes
+    references (H, w, 1|B) or None."""
+    roll = lanes.make_rollout_lanes(spec, dt)
+
+    def cost(x0s, ul, xr_l=None, ur_l=None):
+        xs = roll(x0s, ul)                                  # (H, n, B)
+        dx = xs if xr_l is None else xs - xr_l
+        du = ul if ur_l is None else ul - ur_l
+        Q, QN, R = (torch.as_tensor(a, dtype=xs.dtype, device=xs.device)
+                    for a in (problem.Q, problem.QN, problem.R))
+        qx = torch.einsum("hib,ij,hjb->b", dx[:-1], Q, dx[:-1])
+        qn = torch.einsum("ib,ij,jb->b", dx[-1], QN, dx[-1])
+        ru = torch.einsum("hib,ij,hjb->b", du, R, du)
+        c = 0.5 * (qx + qn + ru)
+        return torch.where(torch.isfinite(c), c, torch.full_like(c, math.inf))
+
+    return cost, roll
+
+
 def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
                  sqp_iters: int = 1, qp_layout: str = "lanes",
                  rollout: str = "auto", sqp_linesearch: bool = True):
@@ -66,15 +91,19 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
     The QP always takes ``solve_box_mpc_riccati_soa_fused`` with its "auto"
     dispatch: the whole-solve kernel for CUDA tensors, the plain scan for CPU.
 
-    Not ported yet: ``sqp_iters > 1`` (its SQP line search prices candidates
-    with an RK4 rollout that needs the batched Cholesky kernel of
-    ``ops/chol_lanes.py``), ``qp_layout="vmap"`` and ``rollout="register"``.
-    ``sqp_linesearch`` only matters when ``sqp_iters > 1``.
+    ``sqp_linesearch`` (only with ``sqp_iters > 1``): after each QP, per
+    scenario, the steps α ∈ {1, ½, ¼} from the previous inputs towards the
+    QP's are priced by their true RK4 cost (``make_traj_cost``); the
+    cheapest is taken if it is strictly below the previous inputs' cost
+    (ties keep the earlier candidate), else the previous inputs are kept —
+    so the true cost never rises.  The returned xs is then the RK4 trajectory
+    of the accepted inputs, not the QP model's prediction.  Without it each
+    pass takes the full QP step.
+
+    Not ported yet: ``qp_layout="vmap"`` and ``rollout="register"``.
     """
-    if sqp_iters != 1:
-        raise NotImplementedError(
-            "sqp_iters > 1 needs the SQP line search, which comes with the "
-            "port of the chol_lanes kernel")
+    if sqp_iters < 1:
+        raise ValueError(f"sqp_iters={sqp_iters}: expected at least 1")
     if qp_layout != "lanes":
         raise NotImplementedError(f"qp_layout={qp_layout!r} is not ported")
     if rollout not in ("auto", "fused", "lanes"):
@@ -84,6 +113,9 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
     m = problem.R.shape[-1]
     roll_fused = lanes.make_rollout_ltv_fullfused(spec, dt, H)
     roll_lanes = lanes.make_rollout_ltv_lanes(spec, dt, H)
+    linesearch = sqp_linesearch and sqp_iters > 1
+    if linesearch:
+        traj_cost, roll_nom = make_traj_cost(spec, problem, dt)
 
     def pick_roll(x0s):
         if rollout == "lanes":
@@ -96,12 +128,29 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
         dtype, device = x0s.dtype, x0s.device
         xr_l = to_lanes(x_ref, n, H, dtype, device)
         ur_l = to_lanes(u_ref, m, H, dtype, device)
-        A_l, B_l, c_l, _ = pick_roll(x0s)(x0s, us_init)
-        ul, xl = solve_box_mpc_riccati_soa_fused(
-            A_l, B_l, c_l, problem.Q, problem.QN, problem.R,
-            x0s.T.contiguous(), problem.u_min, problem.u_max, iters=qp_iters,
-            x_ref=xr_l, u_ref=ur_l,
-        )
-        return ul.permute(2, 0, 1), xl.permute(2, 0, 1)
+        roll = pick_roll(x0s)
+        x0_l = x0s.T.contiguous()
+        us = us_init  # (B, H, m)
+        for _ in range(sqp_iters):
+            A_l, B_l, c_l, _ = roll(x0s, us)
+            ul, xl = solve_box_mpc_riccati_soa_fused(
+                A_l, B_l, c_l, problem.Q, problem.QN, problem.R, x0_l,
+                problem.u_min, problem.u_max, iters=qp_iters,
+                x_ref=xr_l, u_ref=ur_l,
+            )
+            if linesearch:
+                u_prev = us.permute(1, 2, 0)  # (H, m, B)
+                best_u = u_prev
+                best_J = traj_cost(x0s, u_prev, xr_l, ur_l)
+                for alpha in (1.0, 0.5, 0.25):
+                    u_a = u_prev + alpha * (ul - u_prev)
+                    J_a = traj_cost(x0s, u_a, xr_l, ur_l)
+                    take = J_a < best_J
+                    best_J = torch.where(take, J_a, best_J)
+                    best_u = torch.where(take[None, None, :], u_a, best_u)
+                ul = best_u
+                xl = roll_nom(x0s, ul)  # the true trajectory of the choice
+            us = ul.permute(2, 0, 1)
+        return us, xl.permute(2, 0, 1)
 
     return solve

@@ -1,5 +1,5 @@
 """Dense-lanes KTE rollout + LTV linearization (port of
-``reak_tpu/kte/lanes.py``, fixed-base part).
+``reak_tpu/kte/lanes.py``).
 
 The same math as the register form (kte/soa.py) in the batch-LAST ("lanes")
 layout, with the small structural dims (body, dof, xyz) stacked into tensor
@@ -10,7 +10,12 @@ becomes a Python loop.
 
 ``make_rollout_ltv_lanes``'s step is the plain version of the hand-written
 rollout-step kernel (``ops/kte_step.py``); ``make_rollout_ltv_fullfused``
-is the rollout over that kernel.
+is the rollout over that kernel.  The RK4 rollout that prices the SQP line
+search (``make_rollout_lanes``) and the free-base step and linearization
+(``make_kte_manifold_lanes``) solve with M through the batched Cholesky
+kernels (``ops/chol_lanes.py``): one right-hand side through ``solve_lanes``,
+several through ``solve_lanes_multi``.  Their solves stand outside every
+``torch.func`` transform, since a kernel launch needs real tensors.
 """
 from __future__ import annotations
 
@@ -20,29 +25,13 @@ from torch.func import jvp, vmap
 
 from reak_tpu_torch.ctrl.riccati_soa import _chol_solve_lanes, _mm, _mv
 from reak_tpu_torch.kte.soa import _fk_soa
-from reak_tpu_torch.kte.spec import ChainSpec, JointType, PRISMATIC, FIXED
+from reak_tpu_torch.kte.spec import (ChainSpec, JointType, REVOLUTE,
+                                     PRISMATIC, FIXED, FREE)
+from reak_tpu_torch.math import rot_lanes as rl
+from reak_tpu_torch.ops import chol_lanes
 
-
-# ---------------------------------------------------------------------------
-# lanes-layout vector helpers: component axis at -2, batch axis last
-# ---------------------------------------------------------------------------
-
-
-def _cross_l(a, b):
-    """Cross product over axis -2 (size 3); a, b (..., 3, B) broadcastable."""
-    ax, ay, az = a[..., 0, :], a[..., 1, :], a[..., 2, :]
-    bx, by, bz = b[..., 0, :], b[..., 1, :], b[..., 2, :]
-    return torch.stack(
-        [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-2
-    )
-
-
-def _qrot_inv_l(q, v):
-    """Rotate v by q⁻¹: q (..., 4, B), v (..., 3, B) → (..., 3, B)."""
-    w = q[..., 0:1, :]
-    qv = -q[..., 1:4, :]  # conjugate
-    t = 2.0 * _cross_l(qv, v)
-    return v + w * t + _cross_l(qv, t)
+def _const(a, like):
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
 def _bcast_stack(items, batch_shape, dtype, device):
@@ -63,16 +52,47 @@ def _bcast_stack(items, batch_shape, dtype, device):
 # ---------------------------------------------------------------------------
 
 
+def _terms_from_jacobians(spec: ChainSpec, jac_map, q, qd, q_rate):
+    """(M, f) without the passive joint elements, from the per-body
+    Jacobians ``jac_map(q) → (Jv (nb, nv, 3, B) world, Jw (nb, nv, 3, B)
+    body)``: M = Σ m Jvᵀ Jv + Jwᵀ I Jw, f = Jᵀ of the gravity, bias and
+    gyroscopic forces.  One jvp along ``q_rate`` (the configuration rate of
+    q̇) gives the J̇q̇ bias accelerations (kte/dynamics.py trick)."""
+    nb = spec.n_joints
+    masses = _const(np.asarray(spec.masses), q)
+    I_all = _const(np.asarray(spec.inertias).reshape(nb, 3, 3), q)
+
+    def vel_map(qq):
+        Jv, Jw = jac_map(qq)
+        v = torch.einsum("bkcz,kz->bcz", Jv, qd)
+        w = torch.einsum("bkcz,kz->bcz", Jw, qd)
+        return v, w, Jv, Jw
+
+    (v, w, Jv, Jw), (a_b, al_b, _, _) = jvp(vel_map, (q,), (q_rate,))
+    M = torch.einsum("b,bkcz,blcz->klz", masses, Jv, Jv) + torch.einsum(
+        "bkrz,brc,blcz->klz", Jw, I_all, Jw
+    )
+    a_tot = a_b - _const(np.asarray(spec.gravity), q)[None, :, None]
+    f_lin = -masses[:, None, None] * a_tot
+    Iw = torch.einsum("brc,bcz->brz", I_all, w)
+    Ial = torch.einsum("brc,bcz->brz", I_all, al_b)
+    f_ang = -(Ial + rl.cross_l(w, Iw))
+    f = torch.einsum("bkcz,bcz->kz", Jv, f_lin) + torch.einsum(
+        "bkcz,bcz->kz", Jw, f_ang
+    )
+    return M, f
+
+
 def make_terms_lanes(spec: ChainSpec):
     """terms(q, qd) → (M (nv, nv, B), f (nv, B)); q, qd (nv, B).
 
     M = JᵀMcmJ twist-shaped mass, f = applied-minus-bias generalized force
     (ref mass_matrix_calculator.cpp:80-287, inertia.cpp:111-121), assembled
-    as einsums over stacked (body, dof, xyz) axes.  Fixed-base chains only:
-    free-base chains raise ``NotImplementedError`` (slice 2)."""
+    as einsums over stacked (body, dof, xyz) axes.  Free-base (quaternion)
+    chains route through the generic per-joint block assembly; q is then
+    (nq, B) with the [p(3), quat(4)] packing of the FREE joint."""
     if spec.has_free_base:
-        raise NotImplementedError(
-            "free-base chains are not ported yet (slice 2)")
+        return _make_terms_lanes_generic(spec)
     nb = spec.n_joints
     nv = spec.nv
 
@@ -85,15 +105,9 @@ def make_terms_lanes(spec: ChainSpec):
     is_pri_np = np.array(
         [1.0 if JointType(spec.joint_types[i]) == PRISMATIC else 0.0 for i in jidx]
     )
-    masses_np = np.asarray(spec.masses)
-    I_np = np.asarray(spec.inertias).reshape(nb, 3, 3)
-    grav_np = np.asarray(spec.gravity)
     stiff_np = np.array([spec.stiffness[i] for i in jidx])
     rest_np = np.array([spec.rest_q[i] for i in jidx])
     damp_np = np.array([spec.damping[i] for i in jidx])
-
-    def const(a, like):
-        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
     def jac_map(q):
         """q (nv, B) → Jv (nb, nv, 3, B) world, Jw (nb, nv, 3, B) body."""
@@ -105,49 +119,122 @@ def make_terms_lanes(spec: ChainSpec):
         anchors = stack([fkr.anchors[i] for i in jidx])
         axes_g = stack([fkr.axes_g[i] for i in jidx])
 
-        mask = const(mask_np, q)[:, :, None, None]
-        is_pri = const(is_pri_np, q)[None, :, None, None]
+        mask = _const(mask_np, q)[:, :, None, None]
+        is_pri = _const(is_pri_np, q)[None, :, None, None]
 
         r = coms[:, None] - anchors[None]  # (nb, nv, 3, B)
-        Jv_rev = _cross_l(axes_g[None], r)
+        Jv_rev = rl.cross_l(axes_g[None], r)
         Jv = (is_pri * axes_g[None] + (1.0 - is_pri) * Jv_rev) * mask
-        ax_rev = axes_g * (1.0 - const(is_pri_np, q)[:, None, None])
-        Jw = _qrot_inv_l(quats[:, None], ax_rev[None]) * mask
+        ax_rev = axes_g * (1.0 - _const(is_pri_np, q)[:, None, None])
+        Jw = rl.qrot_inv_l(quats[:, None], ax_rev[None]) * mask
         return Jv, Jw
 
-    def vel_map(q, qd):
-        Jv, Jw = jac_map(q)
-        v = torch.einsum("bkcz,kz->bcz", Jv, qd)
-        w = torch.einsum("bkcz,kz->bcz", Jw, qd)
-        return v, w, Jv, Jw
-
     def terms(q, qd):
-        masses = const(masses_np, q)
-        I_all = const(I_np, q)
-        # one jvp gives the J̇q̇ bias accelerations (kte/dynamics.py trick)
-        (v, w, Jv, Jw), (a_b, al_b, _, _) = jvp(
-            lambda qq: vel_map(qq, qd), (q,), (qd,)
-        )
-        M = torch.einsum("b,bkcz,blcz->klz", masses, Jv, Jv) + torch.einsum(
-            "bkrz,brc,blcz->klz", Jw, I_all, Jw
-        )
-        a_tot = a_b - const(grav_np, q)[None, :, None]
-        f_lin = -masses[:, None, None] * a_tot
-        Iw = torch.einsum("brc,bcz->brz", I_all, w)
-        Ial = torch.einsum("brc,bcz->brz", I_all, al_b)
-        f_ang = -(Ial + _cross_l(w, Iw))
-        f = torch.einsum("bkcz,bcz->kz", Jv, f_lin) + torch.einsum(
-            "bkcz,bcz->kz", Jw, f_ang
-        )
+        M, f = _terms_from_jacobians(spec, jac_map, q, qd, qd)
         # passive joint springs/dampers (smooth part, hot path)
         f = (
             f
-            - const(stiff_np, q)[:, None] * (q - const(rest_np, q)[:, None])
-            - const(damp_np, q)[:, None] * qd
+            - _const(stiff_np, q)[:, None] * (q - _const(rest_np, q)[:, None])
+            - _const(damp_np, q)[:, None] * qd
         )
         return M, f
 
     return terms
+
+
+def _make_terms_lanes_generic(spec: ChainSpec):
+    """Free-base-capable lanes terms: per-joint Jacobian column blocks
+    (FREE joints contribute 6 columns — 3 pre-frame linear + 3 base-body
+    angular, matching kte/dynamics.jacobians of the JAX package)
+    concatenated on the dof axis, then the same einsum mass/bias assembly
+    as the fixed-base path.  The J̇q̇ jvp runs along the configuration rate
+    (the quaternion rate ½ q⊗(0, ω_body) on the base)."""
+    nb = spec.n_joints
+    nv = spec.nv
+    nq = spec.nq
+
+    # per-dof passive-element constants (zeros on FREE dofs) + config index
+    stiff_np = np.zeros(nv)
+    damp_np = np.zeros(nv)
+    rest_np = np.zeros(nv)
+    qsel_np = np.zeros(nv, np.int64)
+    ci = vi = 0
+    for i, jt in enumerate(spec.joint_types):
+        jt = JointType(jt)
+        if jt == FIXED:
+            continue
+        if jt == FREE:
+            ci += 7
+            vi += 6
+            continue
+        stiff_np[vi] = spec.stiffness[i]
+        damp_np[vi] = spec.damping[i]
+        rest_np[vi] = spec.rest_q[i]
+        qsel_np[vi] = ci
+        ci += 1
+        vi += 1
+
+    def jac_map(q):
+        """q (nq, B) → Jv (nb, nv, 3, B) world, Jw (nb, nv, 3, B) body."""
+        batch = q.shape[1:]
+        fkr = _fk_soa(spec, tuple(q[i] for i in range(nq)))
+        stack = lambda items: _bcast_stack(items, batch, q.dtype, q.device)
+        coms = stack(fkr.com)      # (nb, 3, B)
+        quats = stack(fkr.quat)    # (nb, 4, B)
+        basis = torch.eye(3, dtype=q.dtype, device=q.device)[:, :, None] \
+            .expand((3, 3) + batch)
+        blocks_v, blocks_w = [], []
+        for i, jt in enumerate(spec.joint_types):
+            jt = JointType(jt)
+            if jt == FIXED:
+                continue
+            mask = _const((np.arange(nb) >= i).astype(np.float64),
+                          q)[:, None, None, None]
+            anch = stack([fkr.anchors[i]])              # (1, 3, B)
+            r = coms[:, None] - anch[None]              # (nb, 1, 3, B)
+            if jt == REVOLUTE:
+                a = stack([fkr.axes_g[i]])[None]
+                Jv_blk = rl.cross_l(a, r) * mask
+                Jw_blk = rl.qrot_inv_l(quats[:, None], a.expand(r.shape)) * mask
+            elif jt == PRISMATIC:
+                a = stack([fkr.axes_g[i]])[None]
+                Jv_blk = a.expand(r.shape) * mask
+                Jw_blk = torch.zeros_like(Jv_blk)
+            else:  # FREE: 3 pre-frame linear + 3 base-body angular columns
+                lin_axes = rl.qrot_l(stack([fkr.pre_quat[i]]), basis)
+                ang_axes = rl.qrot_l(stack([fkr.quat[i]]), basis)  # (3,3,B)
+                full = (nb, 3, 3) + batch
+                Jv_lin = lin_axes[None].expand(full) * mask
+                Jw_lin = torch.zeros(full, dtype=q.dtype, device=q.device)
+                ang_b = ang_axes[None].expand(full)
+                Jv_ang = rl.cross_l(ang_b, r.expand(full)) * mask
+                Jw_ang = rl.qrot_inv_l(quats[:, None], ang_b) * mask
+                Jv_blk = torch.cat([Jv_lin, Jv_ang], dim=1)
+                Jw_blk = torch.cat([Jw_lin, Jw_ang], dim=1)
+            blocks_v.append(Jv_blk)
+            blocks_w.append(Jw_blk)
+        return torch.cat(blocks_v, dim=1), torch.cat(blocks_w, dim=1)
+
+    def terms(q, qd):
+        M, f = _terms_from_jacobians(spec, jac_map, q, qd,
+                                     _config_rate_l(q, qd))
+        qsel = torch.as_tensor(qsel_np, device=q.device)
+        f = (
+            f
+            - _const(stiff_np, q)[:, None]
+            * (q.index_select(0, qsel) - _const(rest_np, q)[:, None])
+            - _const(damp_np, q)[:, None] * qd
+        )
+        return M, f
+
+    return terms
+
+
+def _config_rate_l(q, qd):
+    """(nq, B) tangent of a free-base configuration along qd (lanes form of
+    kte/dynamics.config_rate: the base quaternion moves at ½ q⊗(0, ω))."""
+    qdot = rl.qdot_from_omega_l(q[3:7], qd[3:6])
+    return torch.cat([qd[0:3], qdot, qd[6:]], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +334,139 @@ def make_rollout_ltv_fullfused(spec: ChainSpec, dt: float, horizon: int,
 
     step = kte_step.make_step_lanes(spec, dt, order=order)
     return lambda x0, us: _scan_rollout(step, x0, us)
+
+
+def _rk4(rate, x, u, dt):
+    k1 = rate(x, u)
+    k2 = rate(x + 0.5 * dt * k1, u)
+    k3 = rate(x + 0.5 * dt * k2, u)
+    k4 = rate(x + dt * k3, u)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def make_rollout_lanes(spec: ChainSpec, dt: float):
+    """Nominal-only lanes rollout (RK4) of a fixed-base chain: prices the
+    candidate input sequences of the SQP line search at 4 terms
+    evaluations per step.  ``fn(x0 (B, n), us_l (H, m, B)) → xs (H, n, B)``
+    (x_1..x_H).  Each stage solves with M through ``chol_lanes.solve_lanes``
+    (the kernel on CUDA tensors)."""
+    if spec.has_free_base:
+        raise ValueError("free-base chains use make_kte_manifold_lanes")
+    nv = spec.nv
+    terms = make_terms_lanes(spec)
+
+    def rate(x, u):
+        qd = x[nv:]
+        M, f = terms(x[:nv], qd)
+        return torch.cat([qd, chol_lanes.solve_lanes(M, f + u)], dim=0)
+
+    def rollout(x0, us_l):
+        x = x0.T.contiguous()
+        xs = []
+        for t in range(us_l.shape[0]):
+            x = _rk4(rate, x, us_l[t], dt)
+            xs.append(x)
+        return torch.stack(xs, dim=0)
+
+    return rollout
+
+
+def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
+                            order: int = 4):
+    """Free-base KTE chain on the lanes path: returns ``(step, ltv)`` for
+    ctrl/manifold_lanes.make_scenario_mpc_lanes.
+
+    * ``step(x (nq+nv, B), u (nu, B)) → x'`` — RK4 + base-quaternion
+      renormalization (the math of ctrl/systems.kte_discrete of the JAX
+      package; ref manipulator_model.cpp:292-355);
+    * ``ltv(x, u) → (A_d (2nv, 2nv, B), B_d (2nv, nu, B), c_d (2nv, B))`` —
+      the error-state series LTV in the tangent chart e = [δp, δθ, δq_arm |
+      δq̇] of the state retraction: the (M, f) assembly in that chart, its
+      2nv unit-tangent jvps, ∂q̈ = M⁻¹(∂f − ∂M q̈), the exponential series
+      with the −[ω̄]× attitude-error transport block; c_d = −B_d ū.
+
+    ``actuated`` (nv, nu) maps the inputs onto the generalized forces
+    (identity when None).  Every solve with M goes through
+    ``ops/chol_lanes``, outside the jvps."""
+    if not spec.has_free_base:
+        raise ValueError("fixed-base chains use make_rollout_ltv_lanes")
+    nq = spec.nq
+    nv = spec.nv
+    d = 2 * nv
+    terms = make_terms_lanes(spec)
+    act_np = None if actuated is None else np.asarray(actuated, np.float64)
+    nu = nv if act_np is None else act_np.shape[1]
+
+    def tau_of(u):
+        if act_np is None:
+            return u
+        return torch.einsum("vu,uz->vz", _const(act_np, u), u)
+
+    def state_rate(x, tau):
+        q, qd = x[:nq], x[nq:]
+        M, f = terms(q, qd)
+        qdd = chol_lanes.solve_lanes(M, f + tau)
+        return torch.cat([_config_rate_l(q, qd), qdd], dim=0)
+
+    def step(x, u):
+        xn = _rk4(state_rate, x, tau_of(u), dt)
+        quat = xn[3:7]
+        quat = quat / torch.sqrt(torch.sum(quat * quat, dim=0, keepdim=True))
+        return torch.cat([xn[0:3], quat, xn[7:]], dim=0)
+
+    def retract(x, e):
+        """Lanes form of kte.dynamics.state_retraction.retract."""
+        p = x[0:3] + e[0:3]
+        quat = rl.qmul_l(x[3:7], rl.q_exp_l(e[3:6]))
+        arm = x[7:nq] + e[6:nv]
+        qd = x[nq:] + e[nv:]
+        return torch.cat([p, quat, arm, qd], dim=0)
+
+    def ltv(x, u):
+        dtype, device = x.dtype, x.device
+        batch = x.shape[1:]
+        qd = x[nq:]
+
+        def terms_e(e):
+            xe = retract(x, e)
+            return terms(xe[:nq], xe[nq:])
+
+        e0 = torch.zeros((d,) + batch, dtype=dtype, device=device)
+        M, f = terms_e(e0)
+        qdd = chol_lanes.solve_lanes(M, f + tau_of(u))
+
+        basis = torch.eye(d, dtype=dtype, device=device)[:, :, None] \
+            .expand((d, d) + batch)
+        dM, df = vmap(lambda t: jvp(terms_e, (e0,), (t,))[1])(basis)
+        # dM (d, nv, nv, B), df (d, nv, B)
+        rhs = df - torch.einsum("dklz,lz->dkz", dM, qdd)
+        rhs_t = rhs.permute(1, 0, 2)            # (nv, d, B)
+        S_u = (torch.eye(nv, dtype=dtype, device=device)[:, :, None]
+               .expand((nv, nv) + batch) if act_np is None else
+               _const(act_np, x)[:, :, None].expand((nv, nu) + batch))
+        sol = chol_lanes.solve_lanes_multi(M, torch.cat([rhs_t, S_u], dim=1))
+        dqdd = sol[:, :d]                       # (nv, d, B)
+        Minv_S = sol[:, d:]                     # (nv, nu, B)
+
+        # attitude-error transport: δθ̇ = −ω̄×δθ + δω (invariant-EKF error
+        # kinematics; ctrl/systems.kte_manifold_ltv_linearizer)
+        Sblk = torch.zeros((nv, nv) + batch, dtype=dtype, device=device)
+        Sblk[3:6, 3:6] = -rl.skew_l(qd[3:6])
+        eye_v = torch.eye(nv, dtype=dtype, device=device)[:, :, None] \
+            .expand((nv, nv) + batch)
+        A_c = torch.cat([torch.cat([Sblk, eye_v], dim=1), dqdd], dim=0)
+        B_c = torch.cat([torch.zeros((nv, nu) + batch, dtype=dtype,
+                                     device=device), Minv_S], dim=0)
+
+        eye_d = torch.eye(d, dtype=dtype, device=device)[:, :, None]
+        S = eye_d * dt
+        term = eye_d * dt
+        for k in range(2, order + 1):
+            term = (dt / k) * _mm(A_c, term)
+            S = S + term
+        A_d = eye_d + _mm(A_c, S)
+        B_d = _mm(S, B_c)
+        c_d = -_mv(B_d, u)
+        return A_d, B_d, c_d
+
+    return step, ltv

@@ -1,13 +1,38 @@
 """Named robot chain builders (port of ``reak_tpu/kte/models.py``).
 
-Only the flagship arm is ported so far; the rest of the zoo follows with
-the later slices.
+Ported so far: the flagship arm, the planar 2-link arm and the two
+free-base chains of the scenario MPC; the rest of the zoo follows with the
+later slices.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from reak_tpu_torch.kte.spec import ChainSpec, REVOLUTE
+from reak_tpu_torch.kte.spec import ChainSpec, REVOLUTE, FREE
+
+
+def _z(n):
+    return np.tile(np.array([0.0, 0.0, 1.0]), (n, 1))
+
+
+def planar_2link(
+    l1=0.4, l2=0.3, m1=2.0, m2=1.0, com_ratio=0.5, rod_inertia=True, gravity=9.81
+) -> ChainSpec:
+    """Planar 2-link arm with distributed-mass links (BASELINE config 2)."""
+    inert = np.zeros((2, 3, 3))
+    if rod_inertia:
+        inert[0, 2, 2] = m1 * l1 * l1 / 12.0
+        inert[1, 2, 2] = m2 * l2 * l2 / 12.0
+    return ChainSpec.build(
+        joint_types=[REVOLUTE, REVOLUTE],
+        axes=_z(2),
+        offsets_pos=[[0.0, 0.0, 0.0], [l1, 0.0, 0.0]],
+        com_pos=[[com_ratio * l1, 0.0, 0.0], [com_ratio * l2, 0.0, 0.0]],
+        masses=[m1, m2],
+        inertias=inert,
+        gravity=(0.0, -gravity, 0.0),
+        name="planar_2link",
+    )
 
 
 def manip_3r3r(
@@ -73,4 +98,53 @@ def manip_3r3r(
         inertias=inert,
         gravity=(0.0, 0.0, -gravity),
         name="manip_3R3R",
+    )
+
+
+def free_floating_3d(
+    mass=100.0, inertia_diag=(50.0, 60.0, 70.0), gravity=0.0
+) -> ChainSpec:
+    """Free-floating rigid platform (satellite) — single FREE joint
+    (ref: free_floating_platform.hpp:175 manip_free_floater_3D_kinematics)."""
+    inert = np.zeros((1, 3, 3))
+    inert[0] = np.diag(inertia_diag)
+    return ChainSpec.build(
+        joint_types=[FREE],
+        masses=[mass],
+        inertias=inert,
+        gravity=(0.0, 0.0, -gravity),
+        name="free_floating_3D",
+    )
+
+
+def floating_arm(
+    base_mass=200.0,
+    base_inertia=(80.0, 90.0, 100.0),
+    arm_builder=manip_3r3r,
+    **kw,
+) -> ChainSpec:
+    """Free-floating base carrying a serial arm (chaser-satellite style,
+    BASELINE config 4; ref: free_floating_platform.hpp + kte chain mounting).
+    The arm is built without gravity when its builder takes one."""
+    if "gravity" in arm_builder.__code__.co_varnames:
+        arm = arm_builder(gravity=0.0, **kw)
+    else:
+        arm = arm_builder(**kw)
+    axes = np.vstack([[0.0, 0.0, 1.0], np.asarray(arm.axes)])
+    offs = np.vstack([[0.0, 0.0, 0.0], np.asarray(arm.offsets_pos)])
+    com = np.vstack([[0.0, 0.0, 0.0], np.asarray(arm.com_pos)])
+    masses = np.concatenate([[base_mass], np.asarray(arm.masses)])
+    inert = np.concatenate(
+        [np.diag(base_inertia)[None],
+         np.asarray(arm.inertias).reshape(-1, 3, 3)], axis=0
+    )
+    return ChainSpec.build(
+        joint_types=[FREE] + list(arm.joint_types),
+        axes=axes,
+        offsets_pos=offs,
+        com_pos=com,
+        masses=masses,
+        inertias=inert,
+        gravity=(0.0, 0.0, 0.0),
+        name="floating_arm",
     )

@@ -4,7 +4,7 @@ Vectors are 3-tuples and quaternions 4-tuples whose entries are tensors of
 the batch shape (scenario batch last) or Python floats; chain constants stay
 Python floats, so a literal zero or one costs nothing.  Only what the lanes
 terms (``kte/lanes.make_terms_lanes``) call is ported: the quaternion helpers
-and ``_fk_soa`` for fixed-base chains.
+and ``_fk_soa``.
 """
 from __future__ import annotations
 
@@ -73,8 +73,9 @@ class _SoaFk(NamedTuple):
 
 
 def _fk_soa(spec: ChainSpec, q):
-    """q: tuple of nv tensors (batch-last).  Fixed-base chains only: a FREE
-    joint raises ``NotImplementedError`` (the free-base slice ports it)."""
+    """q: tuple of nq tensors (batch-last; nq = nv for fixed-base chains,
+    nv + 1 with a free base: [p(3), quat(4)] per FREE joint, ref
+    free_joints.hpp:165 packing)."""
     p = (0.0, 0.0, 0.0)
     Q = (1.0, 0.0, 0.0, 0.0)
     coms, quats, anchors, axes_g, types, pre_quats = [], [], [], [], [], []
@@ -108,13 +109,24 @@ def _fk_soa(spec: ChainSpec, q):
             axes_g.append(a_g)
             types.append(PRISMATIC)
             p = _add(p, _scale(qi, a_g))
+        elif jt == FREE:
+            # 6-DoF joint: q = [pos(3) in pre-frame coords, quat(4)]
+            # (ref: free_joints.hpp:165 — end = base * coordinate frame)
+            dp = (q[ci], q[ci + 1], q[ci + 2])
+            p = _add(p, _qrot(Q, dp))
+            qf = (q[ci + 3], q[ci + 4], q[ci + 5], q[ci + 6])
+            inv_n = torch.rsqrt(qf[0] * qf[0] + qf[1] * qf[1]
+                                + qf[2] * qf[2] + qf[3] * qf[3])
+            qf = tuple(x * inv_n for x in qf)
+            Q = _qmul(Q, qf)
+            ci += 7
+            anchors.append(p)
+            axes_g.append((0.0, 0.0, 0.0))
+            types.append(FREE)
         elif jt == FIXED:
             anchors.append(p)
             axes_g.append((0.0, 0.0, 0.0))
             types.append(FIXED)
-        elif jt == FREE:
-            raise NotImplementedError(
-                "free-base chains are not ported yet (slice 2)")
         else:
             raise NotImplementedError(f"soa path: joint type {jt}")
         com = _const_vec(spec.com_pos[i])

@@ -10,7 +10,9 @@ constrained LTV-MPC QP in one launch — the Hopper port of the Pallas kernel
 ``solve_plain`` (the scan path of ``ctrl/riccati_soa``).
 
 The kernel keeps its working set in a device-memory scratch buffer, not in
-on-chip memory, so unlike the TPU kernel it covers every horizon.
+on-chip memory, so unlike the TPU kernel it covers every horizon.  It is
+built in two instances, one per bound on (n, m); the wrapper takes the
+smallest that holds the problem.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 from reak_tpu_torch.ctrl.riccati_soa import _fused_scan as solve_plain
 from reak_tpu_torch.ops import _build
 
-MAX_N, MAX_M = 16, 8  # csrc/pdip_whole.cu NMAX, MMAX
+# the (NMAX, MMAX) instances of csrc/pdip_whole.cu, smallest first
+INSTANCES = ((16, 8), (24, 12))
 
 # launches of the kernel since the count was last set to 0
 launches = 0
@@ -36,16 +39,33 @@ def scratch_values(H: int, n: int, m: int) -> int:
 # A, Bm, c, x_ref, u_ref, x0, Q, QN, R, lb, ub, u, xs, scratch (pointers),
 # H, n, m, B, iters, stream
 _ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-SIGNATURES = {"reak_pdip_whole_f32": _ARGS, "reak_pdip_whole_f64": _ARGS}
+
+
+def entry_point(bound, dtype) -> str:
+    """The C function of one instance and type."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return f"reak_pdip_whole_{bound[0]}x{bound[1]}_{suffix}"
+
+
+SIGNATURES = {entry_point(b, d): _ARGS for b in INSTANCES
+              for d in (torch.float32, torch.float64)}
+
+
+def instance_for(n: int, m: int):
+    """The smallest (NMAX, MMAX) instance that holds (n, m)."""
+    for bound in INSTANCES:
+        if n <= bound[0] and m <= bound[1]:
+            return bound
+    raise NotImplementedError(
+        f"the whole-solve kernel takes n <= {INSTANCES[-1][0]}, "
+        f"m <= {INSTANCES[-1][1]}; got n={n}, m={m}")
 
 
 def make_whole_pdip(H: int, n: int, m: int, iters: int,
                     with_xref: bool = False, with_uref: bool = False):
     """The complete box-constrained LTV-MPC solve in one launch (see
     module)."""
-    if n > MAX_N or m > MAX_M:
-        raise NotImplementedError(
-            f"the whole-solve kernel takes n <= {MAX_N}, m <= {MAX_M}")
+    bound = instance_for(n, m)
 
     def fn(A, Bm, c, *rest):
         global launches
@@ -90,8 +110,7 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
         scratch = torch.empty(scratch_values(H, n, m) * B, dtype=dtype,
                               device=device)
         lib = _build.load("pdip_whole", SIGNATURES)
-        launch = (lib.reak_pdip_whole_f32 if dtype == torch.float32
-                  else lib.reak_pdip_whole_f64)
+        launch = getattr(lib, entry_point(bound, dtype))
         p = lambda t: None if t is None else _build.ptr(t)
         rc = launch(p(A), p(Bm), p(c), p(refs[0]), p(refs[1]), p(x0), p(Q),
                     p(QN), p(R), p(lb), p(ub), p(u), p(xs), p(scratch),

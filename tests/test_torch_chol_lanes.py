@@ -1,0 +1,96 @@
+"""The port's batched Cholesky solves (reak_tpu_torch.ops.chol_lanes, whose
+CPU path is the plain recurrence ``ctrl/riccati_soa._chol_solve_lanes``)
+against the JAX package's Pallas kernels K3a/K3b run in interpret mode and
+its standard-layout ``chol_lanes.solve``, on the same numpy inputs at f64.
+At the floating arm's shape (n=12, k=36) the interpreter takes minutes, so
+there the reference is the JAX package's own unrolled recurrence
+(``ctrl/riccati_soa._chol_solve_lanes`` off the TPU), the code the kernel
+mirrors operation for operation.  Bar: ≤1e-12 relative to the largest entry
+of the reference."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reak_tpu.ops import chol_lanes as jchol
+from reak_tpu_torch.ops import chol_lanes
+
+torch.set_num_threads(1)
+
+B = 1024  # one TPU tile of scenarios
+
+
+def _spd(rng, n, batch=B):
+    """G Gᵀ + 3I per scenario, as bench.py:193-195 makes it."""
+    g = rng.standard_normal((n, n, batch))
+    return np.einsum("ikz,jkz->ijz", g, g) + 3.0 * np.eye(n)[:, :, None]
+
+
+def _assert_rel(got, want, rel=1e-12):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+    assert err <= rel, f"relative error {err:.3e} > {rel:.0e}"
+
+
+@pytest.mark.parametrize("n", [6, 12])
+def test_solve_lanes_matches_pallas_kernel(rng, n):
+    G, r = _spd(rng, n), rng.standard_normal((n, B))
+    want = jchol.solve_lanes(jnp.asarray(G), jnp.asarray(r), interpret=True)
+    before = dict(chol_lanes.launches)
+    got = chol_lanes.solve_lanes(torch.as_tensor(G), torch.as_tensor(r))
+    _assert_rel(got.numpy(), want)
+    assert chol_lanes.launches == before  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("n,k", [(6, 1), (6, 18), (12, 1), (12, 36)])
+def test_solve_lanes_multi_matches_pallas_kernel(rng, n, k):
+    from reak_tpu.ctrl.riccati_soa import _chol_solve_lanes
+
+    G, r = _spd(rng, n), rng.standard_normal((n, k, B))
+    if (n, k) == (12, 36):
+        want = _chol_solve_lanes(jnp.asarray(G), jnp.asarray(r))
+    else:
+        want = jchol.solve_lanes_multi(jnp.asarray(G), jnp.asarray(r),
+                                       interpret=True)
+    before = dict(chol_lanes.launches)
+    got = chol_lanes.solve_lanes_multi(torch.as_tensor(G),
+                                       torch.as_tensor(r))
+    _assert_rel(got.numpy(), want)
+    assert chol_lanes.launches == before
+
+
+@pytest.mark.parametrize("n", [6, 12])
+def test_standard_layout_solve_matches_jax(rng, n):
+    G = np.moveaxis(_spd(rng, n), -1, 0)  # (B, n, n)
+    r = rng.standard_normal((B, n))
+    want = jchol.solve(jnp.asarray(G), jnp.asarray(r))
+    got = chol_lanes.solve(torch.as_tensor(G), torch.as_tensor(r))
+    _assert_rel(got.numpy(), want)
+
+
+def test_right_hand_sides_from_expanded_views(rng):
+    """The call sites build right-hand sides from expanded views (an
+    identity block beside the jvp columns): the CPU path takes them as they
+    are and solves each column."""
+    n, batch = 6, 5
+    G = torch.as_tensor(_spd(rng, n, batch))
+    eye = torch.eye(n, dtype=torch.float64)[:, :, None].expand(n, n, batch)
+    inv = chol_lanes.solve_lanes_multi(G, eye)
+    want = np.linalg.inv(np.moveaxis(G.numpy(), -1, 0))
+    np.testing.assert_allclose(np.moveaxis(inv.numpy(), -1, 0), want,
+                               rtol=1e-10, atol=1e-13)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(rng):
+    """Off the CPU the wrapper checks device and size before it builds or
+    launches anything (a meta tensor stands in for a device tensor)."""
+    G = torch.empty(17, 17, 4, dtype=torch.float64, device="meta")
+    r = torch.empty(17, 4, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        chol_lanes.solve_lanes(G, r)
+    G_cpu = torch.as_tensor(_spd(rng, 3, 4))
+    with pytest.raises(ValueError):
+        chol_lanes.solve_lanes_multi(G_cpu, torch.empty(3, 2, 4,
+                                                        device="meta",
+                                                        dtype=torch.float64))

@@ -110,10 +110,16 @@ def test_convert_round_trip():
 
 
 def test_free_base_chain_is_not_ported():
+    """The rollout-step kernel is the fixed-base flagship's, as in the JAX
+    package: it refuses a free-base chain, whose terms take the generic
+    lanes assembly instead (tests/test_torch_kte_free.py)."""
     spec = convert.spec_from(jmodels.manip_3r3r())
     free = spec.__class__.build(joint_types=[3], masses=[1.0])
-    with pytest.raises(NotImplementedError):
-        lanes.make_terms_lanes(free)
+    M, f = lanes.make_terms_lanes(free)(
+        torch.tensor([[0.0], [0.0], [0.0], [1.0], [0.0], [0.0], [0.0]],
+                     dtype=torch.float64), torch.zeros(6, 1,
+                                                       dtype=torch.float64))
+    assert M.shape == (6, 6, 1) and f.shape == (6, 1)
     with pytest.raises(NotImplementedError):
         kte_step.make_step_lanes(free, 0.01)
     assert spec.nv == 6

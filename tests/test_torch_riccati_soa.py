@@ -100,3 +100,42 @@ def test_lanes_algebra_matches_numpy(rng):
     want = np.linalg.solve(np.moveaxis(G, -1, 0), np.moveaxis(rhs, -1, 0))
     np.testing.assert_allclose(np.moveaxis(got, -1, 0), want, rtol=1e-10,
                                atol=1e-12)
+
+
+def test_wide_instance_matches_jax_scan(rng):
+    """Fault F6: the whole-solve kernel was capped at n ≤ 16, m ≤ 8, while
+    the JAX package's takes the floating arm's tangent (24, 12).  The
+    wrapper now builds for it; on CPU tensors it is the plain scan, held to
+    the JAX package's scan (the reference its own tests hold the Pallas
+    kernel to) at f64."""
+    from reak_tpu.ctrl.riccati_soa import \
+        solve_box_mpc_riccati_soa_fused as jax_fused
+
+    H, n, m = 4, 24, 12
+    p = _problem(rng, H=H, n=n, m=m)
+    whole = pdip_whole.make_whole_pdip(H, n, m, iters=8, with_xref=True)
+    a = _args(p, torch.as_tensor)
+    before = pdip_whole.launches
+    u_t, x_t = whole(*a[:3], torch.as_tensor(p["x_ref"]), a[6], *a[3:6],
+                     *a[7:])
+    assert pdip_whole.launches == before
+    u_j, x_j = jax_fused(*_args(p, jnp.asarray), iters=8, use_kernels="never",
+                         x_ref=jnp.asarray(p["x_ref"]))
+    assert np.max(np.abs(u_t.numpy() - np.asarray(u_j))) <= 1e-9
+    assert np.max(np.abs(x_t.numpy() - np.asarray(x_j))) <= 1e-9
+    assert np.any(np.abs(u_t.numpy()) > 1.5 - 1e-6)
+
+
+@pytest.mark.parametrize("nm,bound", [((12, 6), (16, 8)), ((16, 8), (16, 8)),
+                                      ((16, 9), (24, 12)),
+                                      ((24, 12), (24, 12))])
+def test_smallest_instance_that_holds_the_problem(nm, bound):
+    """The flagship (12, 6) keeps the (16, 8) instance."""
+    assert pdip_whole.instance_for(*nm) == bound
+    assert pdip_whole.entry_point(bound, torch.float32) in pdip_whole.SIGNATURES
+
+
+@pytest.mark.parametrize("nm", [(25, 6), (12, 13)])
+def test_beyond_the_widest_instance_raises(nm):
+    with pytest.raises(NotImplementedError):
+        pdip_whole.make_whole_pdip(4, *nm, iters=2)
