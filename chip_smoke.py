@@ -15,15 +15,23 @@ version on the card, and drives the port's main paths through the kernels:
 - the free-base satellite scenario MPC
   ``ctrl.manifold_lanes.make_sat_scenario_mpc_lanes`` (H=20, B=8192);
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
-  m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``.
+  m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
+- the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
+  core kernel and the per-pass PDIP kernels:
+  ``kte.lanes.make_rollout_ltv_fused`` then
+  ``ctrl.riccati_soa.solve_box_mpc_riccati_soa_fused(use_kernels="passes")``,
+  and the satellite solve on the per-pass kernels.
 
 It checks the port at f64 against the independent C++ oracle
 ``native/mpc_oracle.cpp`` and against its own plain f64 solves, and times
 the solves and the kernels with CUDA events.  The plain f64 CPU references
 run in a child process (``--cpu-reference``) beside the card's phases.
 Each phase prints one JSON line; the card's name and power limit follow as
-``nvidia-smi`` prints them, then one JSON line of the kernels, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
+``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
+with its launches on the main paths, its time per launch beside its plain
+version's, the least time the card could take for the same work, and the
+time of one PyTorch call computing the same function where there is one),
+and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no last line; with no CUDA device it exits 1 at
 once.  Imports no JAX.
 """
@@ -36,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DT = 0.01
@@ -45,6 +54,10 @@ FLAGSHIP_W = np.concatenate([np.full(6, 10.0), np.full(6, 1.0)])
 SAT_B, SAT_H, SAT_DT = 8192, 20, 0.1
 FA_B, FA_H, FA_DT = 2048, 16, 0.02
 N_REF = 256  # scenarios of the plain f64 CPU references
+H_LONG = 256  # the long-horizon path: past the TPU kernel's VMEM bound
+# NVIDIA's published peaks of one H100 SXM at 700 W: HBM3 bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
 
 def emit(obj):
@@ -80,6 +93,80 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """fn() once, with its time in ms by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the arithmetic of the aten calls beneath it: one operation per
+    output element of an elementwise call, one per input element of a
+    reduction, 2·m·n·k for a matrix product; views, copies and fills count
+    nothing."""
+    ELEMENTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "rsqrt", "sqrt",
+                   "sin", "cos", "exp", "pow", "reciprocal", "maximum",
+                   "minimum", "clamp", "clamp_min", "clamp_max", "where",
+                   "lt", "le", "gt", "ge", "eq", "ne", "addcmul"}
+    REDUCTIONS = {"sum", "amin", "amax", "min", "max", "mean"}
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in self.ELEMENTWISE:
+            self.ops += out.numel()
+        elif name in self.REDUCTIONS:
+            self.ops += args[0].numel()
+        elif name in ("mm", "bmm"):
+            self.ops += 2 * args[0].numel() * args[1].shape[-1]
+        return out
+
+
+def ops_per_scenario(fn, make_args):
+    """Arithmetic operations per scenario of ``fn`` (a plain version), from
+    its aten calls on CPU tensors at 2 and 4 scenarios:
+    (ops(4) − ops(2)) / 2, so work that does not scale with the batch drops
+    out.  ``make_args(batch)`` gives the arguments."""
+    counts = []
+    for batch in (2, 4):
+        args = make_args(batch)
+        with _OpCount() as c:
+            fn(*args)
+        counts.append(c.ops)
+    return (counts[1] - counts[0]) / 2
+
+
+def cpu_args(args, batch, nb):
+    """``args`` for a count on the CPU: the first nb scenarios of each
+    scenario-last tensor (last axis ``batch``), the others whole; f64."""
+    return tuple((t[..., :nb] if t.dim() > 1 and t.shape[-1] == batch
+                  else t).double().cpu() for t in args)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved, ops):
+    """The least time in ms the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over their peak rate,
+    and which of the two it is."""
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
 
 
 def bench_states(rng, batch):
@@ -235,7 +322,8 @@ def smoke(reak_tpu_torch, child, ref_path):
                                      ss_systems)
     from reak_tpu_torch.kte import lanes, models
     from reak_tpu_torch.math import rot_lanes
-    from reak_tpu_torch.ops import _build, chol_lanes, kte_step, pdip_whole
+    from reak_tpu_torch.ops import (_build, chol_lanes, kte_core, kte_step,
+                                    pdip_whole, riccati_bwd)
 
     def cpu_references():
         rc = child.wait(timeout=900)
@@ -245,14 +333,19 @@ def smoke(reak_tpu_torch, child, ref_path):
 
     def reset_counts():
         kte_step.launches = 0
+        kte_core.launches = 0
         pdip_whole.launches = 0
-        for key in chol_lanes.launches:
-            chol_lanes.launches[key] = 0
+        for per_entry in (chol_lanes.launches, riccati_bwd.launches):
+            for key in per_entry:
+                per_entry[key] = 0
 
     def counts():
         return {"kte_step": kte_step.launches,
+                "kte_core": kte_core.launches,
                 "pdip_whole": pdip_whole.launches,
-                **{f"chol_lanes.{k}": v for k, v in chol_lanes.launches.items()}}
+                **{f"chol_lanes.{k}": v for k, v in chol_lanes.launches.items()},
+                **{f"riccati_bwd.{k}": v
+                   for k, v in riccati_bwd.launches.items()}}
 
     # ---- phase 1: device -------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -267,26 +360,36 @@ def smoke(reak_tpu_torch, child, ref_path):
 
     # ---- phase 2: build --------------------------------------------------
     t0 = time.perf_counter()
-    sources = {"kte_step": kte_step.SIGNATURES,
+    # K1 and K5 are two instances of one kernel in csrc/kte_step.cu
+    sources = {"kte_step": {**kte_step.SIGNATURES, **kte_core.SIGNATURES},
                "pdip_whole": pdip_whole.SIGNATURES,
-               "chol_lanes": chol_lanes.SIGNATURES}
+               "chol_lanes": chol_lanes.SIGNATURES,
+               "riccati_bwd": riccati_bwd.SIGNATURES}
     _build.build_all(sources)
     for name, signatures in sources.items():
         _build.load(name, signatures)
-    # registers and stack frame of the kernels the main paths launch most
-    # (ptxas -v); the whole report lands beside each library
+    # registers and stack frame of each kernel instance the paths launch
+    # (ptxas -v), as {key: (library, mangled-name fragment)}; the whole
+    # report lands beside each library
+    wide = ("IfLi16ELi8E", "IdLi16ELi8E", "IfLi24ELi12E", "IdLi24ELi12E")
+    wanted = {f"pdip_whole<{w}>": ("pdip_whole", f"pdip_whole_kernel{w}")
+              for w in wide}
+    wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
+                   for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E")})
+    wanted.update({f"{key}<{t}>": ("kte_step", f"kte_step_kernelI{t}Lb{i}E")
+                   for i, key in enumerate(("kte_step", "kte_core"))
+                   for t in "fd"})
+    wanted.update({f"riccati_bwd.{e}<{w}>": ("riccati_bwd", f"{e}_kernel{w}")
+                   for e in riccati_bwd.launches for w in wide})
     ptxas = {}
-    for name, kernels in (("pdip_whole", ("IfLi16ELi8E", "IdLi16ELi8E",
-                                          "IfLi24ELi12E", "IdLi24ELi12E")),
-                          ("chol_lanes", ("IfLi6E", "IdLi6E", "IfLi12E",
-                                          "IdLi12E"))):
+    for key, (name, fragment) in wanted.items():
         lines = _build.ptxas_report(name).splitlines()
         for i, line in enumerate(lines):
-            hit = [k for k in kernels if f"kernel{k}" in line]
-            if hit and "Compiling entry" in line:
-                ptxas[f"{name}<{hit[0]}>"] = " | ".join(
+            if "Compiling entry" in line and fragment in line:
+                ptxas[key] = " | ".join(
                     s.replace("ptxas info    :", "").strip()
                     for s in lines[i + 2:i + 4])
+    check(len(ptxas) == len(wanted), "a kernel instance missing from ptxas")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas})
 
@@ -320,16 +423,57 @@ def smoke(reak_tpu_torch, child, ref_path):
         check(k1["f32_abs"][nm] <= 2.0 * k1["plain_f32_abs"][nm],
               f"K1 f32 {nm} error above twice the plain f32 error")
 
+    # ---- K5 against its plain version, B=8192, one launch -----------------
+    core_k = kte_core.make_core_lanes(spec)
+    core_p = kte_core.make_core_plain(spec)
+    c_ref64 = core_p(on(x_np, f64), on(u_np, f64))
+    c_k64 = core_k(on(x_np, f64), on(u_np, f64))
+    c_k32 = core_k(on(x_np, f32), on(u_np, f32))
+    c_p32 = core_p(on(x_np, f32), on(u_np, f32))
+    torch.cuda.synchronize()
+    k5 = {"phase": "k5_vs_plain", "B": B, "f64_rel": {}, "f32_abs": {},
+          "plain_f32_abs": {}}
+    for nm, a64, a32, b32, r in zip(("qdd", "dqdd", "minv"), c_k64, c_k32,
+                                    c_p32, c_ref64):
+        k5["f64_rel"][nm] = rel_err(a64, r)
+        k5["f32_abs"][nm] = abs_err(a32, r)
+        k5["plain_f32_abs"][nm] = abs_err(b32, r)
+        check(k5["f64_rel"][nm] <= 1e-9, f"K5 f64 {nm} relative error")
+        check(k5["f32_abs"][nm] <= 2.0 * k5["plain_f32_abs"][nm],
+              f"K5 f32 {nm} error above twice the plain f32 error")
+    k5_max_abs = max(abs_err(a, r) for a, r in zip(c_k64, c_ref64))
+
     # ---- phase 4: K2 against its plain version at the flagship shape -----
     roll_k = lanes.make_rollout_ltv_fullfused(spec, DT, H)
     u0_64 = torch.zeros(B, H, M, dtype=f64, device=dev)
-    A64, B64, c64, _ = roll_k(on(x0_np, f64), u0_64)
+    A64, B64, c64, xs64 = roll_k(on(x0_np, f64), u0_64)
+    # the K5 rollout computes the same function as the K1 rollout
+    r5 = lanes.make_rollout_ltv_fused(spec, DT, H)(on(x0_np, f64), u0_64)
+    k5["rollout_H"] = H
+    k5["rollout_vs_k1_rollout_f64_rel"] = {
+        nm: rel_err(a, r) for nm, a, r in zip(("A", "B", "c", "xs"), r5,
+                                              (A64, B64, c64, xs64))}
+    emit(k5)
+    for nm, e in k5["rollout_vs_k1_rollout_f64_rel"].items():
+        check(e <= 1e-9, f"K5 rollout {nm} against the K1 rollout")
+    del r5, xs64
     x0T64 = on(x0_np.T, f64)
     refs_np = {"x_ref": 0.05 * rng.standard_normal((H, N, B)),
                "u_ref": 0.5 * rng.standard_normal((H, M, B))}
     k2 = {"phase": "k2_vs_plain", "H": H, "n": N, "m": M, "iters": ITERS,
           "B": B, "modes": {}}
-    k2_max_abs = 0.0
+    k4 = {"phase": "k4_vs_plain", "H": H, "n": N, "m": M, "iters": ITERS,
+          "B": B, "modes": {}}
+    k2_max_abs = k4_max_abs = 0.0
+
+    def k4_case(u_k, x_k, u_k32, x_k32, u_p, x_p, u_p32, x_p32):
+        """The per-pass solve against the plain scan, as K2 is held."""
+        return {"f64_rel": {"u": rel_err(u_k, u_p), "xs": rel_err(x_k, x_p)},
+                "f32_abs": {"u": abs_err(u_k32, u_p), "xs": abs_err(x_k32,
+                                                                    x_p)},
+                "plain_f32_abs": {"u": abs_err(u_p32, u_p),
+                                  "xs": abs_err(x_p32, x_p)}}
+
     for mode, keys in (("regulator", ()), ("x_ref", ("x_ref",)),
                        ("x_ref+u_ref", ("x_ref", "u_ref"))):
         out = {}
@@ -340,10 +484,13 @@ def smoke(reak_tpu_torch, child, ref_path):
             kw = {k: on(refs_np[k], dt) for k in keys}
             out[dt] = [riccati_soa.solve_box_mpc_riccati_soa_fused(
                 *args, iters=ITERS, use_kernels=uk, **kw)
-                for uk in ("whole", "never")]
+                for uk in ("whole", "never", "passes")]
         torch.cuda.synchronize()
-        (uk64, xk64), (up64, xp64) = out[f64]
-        (uk32, xk32), (up32, xp32) = out[f32]
+        (uk64, xk64), (up64, xp64), (uq64, xq64) = out[f64]
+        (uk32, xk32), (up32, xp32), (uq32, xq32) = out[f32]
+        k4["modes"][mode] = k4_case(uq64, xq64, uq32, xq32, up64, xp64, up32,
+                                    xp32)
+        k4_max_abs = max(k4_max_abs, abs_err(uq64, up64), abs_err(xq64, xp64))
         res = {"f64_rel": {"u": rel_err(uk64, up64), "xs": rel_err(xk64, xp64)},
                "f32_abs": {"u": abs_err(uk32, up64), "xs": abs_err(xk32, xp64)},
                "plain_f32_abs": {"u": abs_err(up32, up64),
@@ -355,7 +502,67 @@ def smoke(reak_tpu_torch, child, ref_path):
             check(res["f32_abs"][o] <= 2.0 * res["plain_f32_abs"][o],
                   f"K2 {mode} f32 {o} error above twice the plain f32 error")
     emit(k2)
-    del A64, B64, c64, out
+
+    # ---- K4a/K4b/K4c alone against their plain passes, flagship shape -----
+    # phase 4's f64 LTV with stage costs q, inputs u_eff, a positive barrier
+    # diagonal D, right-hand sides and gains k drawn from the seed; K and G
+    # of the passes after the first come from the plain f64 fused pass
+    pass_np = {"q": rng.standard_normal((H, N, B)),
+               "u_eff": rng.standard_normal((H, M, B)),
+               "D": rng.uniform(0.5, 2.0, (H, M, B)),
+               "rhs": rng.standard_normal((H, M, B)),
+               "k": rng.standard_normal((H, M, B)),
+               "dx0": rng.standard_normal((N, B))}
+
+    def pass_args(dt, A_, B_, arrays, KG=None):
+        """The arguments of each pass in type dt; the vector and forward
+        passes take KG = (K, G)."""
+        prob = flagship_problem(mpc, dev, dt)
+        t = {k: on(v, dt) for k, v in arrays.items()}
+        A_, B_ = A_.to(dt), B_.to(dt)
+        args = {"fused_backward": (A_, B_, t["q"], t["u_eff"], t["D"],
+                                   prob.Q, prob.QN, prob.R)}
+        if KG is not None:
+            K_, G_ = (a.to(dt) for a in KG)
+            args["vector_backward"] = (A_, B_, t["rhs"], K_, G_)
+            args["forward"] = (A_, B_, K_, t["k"], t["dx0"])
+        return args
+
+    plain_pass = {"fused_backward": riccati_soa.fused_backward_plain,
+                  "vector_backward": riccati_soa.vector_backward_plain,
+                  "forward": riccati_soa.forward_plain}
+    KG64 = riccati_soa.fused_backward_plain(
+        *pass_args(f64, A64, B64, pass_np)["fused_backward"])[1:3]
+    k4["passes_alone"] = {}
+    for entry, plain in plain_pass.items():
+        res = {}
+        for dt in (f64, f32):
+            a = pass_args(dt, A64, B64, pass_np, KG64)[entry]
+            k_out, p_out = getattr(riccati_bwd, entry)(*a), plain(*a)
+            res[dt] = ((k_out,) if torch.is_tensor(k_out) else k_out,
+                       (p_out,) if torch.is_tensor(p_out) else p_out)
+        torch.cuda.synchronize()
+        (k64s, p64s), (k32s, p32s) = res[f64], res[f32]
+        case = {"f64_rel": [rel_err(a, r) for a, r in zip(k64s, p64s)],
+                "f32_abs": [abs_err(a, r) for a, r in zip(k32s, p64s)],
+                "plain_f32_abs": [abs_err(a, r) for a, r in zip(p32s, p64s)]}
+        k4["passes_alone"][entry] = case
+        k4_max_abs = max([k4_max_abs] + [abs_err(a, r)
+                                         for a, r in zip(k64s, p64s)])
+        for i, e in enumerate(case["f64_rel"]):
+            check(e <= 1e-9, f"K4 {entry} output {i} f64 relative")
+            check(case["f32_abs"][i] <= 2.0 * case["plain_f32_abs"][i],
+                  f"K4 {entry} output {i} f32 error above twice the plain "
+                  "f32 error")
+    # per launch at the flagship shape, f32
+    a32 = pass_args(f32, A64, B64, pass_np, KG64)
+    k4["flagship_shape_ms"] = {
+        e: cuda_ms(lambda: getattr(riccati_bwd, e)(*a32[e]), reps=10)
+        for e in plain_pass}
+    k4["flagship_shape_plain_ms"] = {
+        e: cuda_ms(lambda: plain_pass[e](*a32[e]), reps=1)
+        for e in plain_pass}
+    del A64, B64, c64, out, KG64, a32
 
     # ---- K3a/K3b against their plain version -----------------------------
     # G SPD as bench.py:193-195 makes it (G Gᵀ + 3I); shapes of the main
@@ -401,6 +608,16 @@ def smoke(reak_tpu_torch, child, ref_path):
             k3_cases[key]["ms"] = cuda_ms(lambda: kern(g, r), reps=50)
             k3_cases[key]["plain_ms"] = cuda_ms(
                 lambda: riccati_soa._chol_solve_lanes(g, r), reps=5)
+            # one PyTorch call computing the same solves (standard layout)
+            g_std = g.permute(2, 0, 1).contiguous()
+            r_std = r.permute(2, 0, 1).contiguous()
+            k3_cases[key]["library_ms"] = cuda_ms(
+                lambda: torch.linalg.solve(g_std, r_std), reps=20)
+            k3_cases[key]["bytes"] = nbytes(g, r, r)
+            k3_cases[key]["ops"] = batch * ops_per_scenario(
+                riccati_soa._chol_solve_lanes,
+                lambda nb: (torch.eye(n, dtype=f64)[:, :, None].repeat(
+                    1, 1, nb), torch.ones(n, k, nb, dtype=f64)))
     emit({"phase": "k3_vs_plain", "cases": k3_cases})
     k3_err = {e: max(v["f64_abs"] for c, v in k3_cases.items()
                      if c.startswith(e + "(") or (e == "solve_lanes"
@@ -437,10 +654,20 @@ def smoke(reak_tpu_torch, child, ref_path):
                                    p.u_max)]
         out[dt] = [riccati_soa.solve_box_mpc_riccati_soa_fused(
             *args, x_ref=ew.to(dt), iters=ITERS, use_kernels=uk)
-            for uk in ("whole", "never")]
+            for uk in ("whole", "never", "passes")]
     torch.cuda.synchronize()
-    (uk64, xk64), (up64, xp64) = out[f64]
-    (uk32, xk32), (up32, xp32) = out[f32]
+    (uk64, xk64), (up64, xp64), (uq64, xq64) = out[f64]
+    (uk32, xk32), (up32, xp32), (uq32, xq32) = out[f32]
+    k4["wide"] = {"H": FA_H, "n": 2 * nv_fa, "m": nv_fa, "B": FA_B,
+                  "mode": "x_ref", **k4_case(uq64, xq64, uq32, xq32, up64,
+                                             xp64, up32, xp32)}
+    k4_max_abs = max(k4_max_abs, abs_err(uq64, up64), abs_err(xq64, xp64))
+    for case in [k4["wide"]] + list(k4["modes"].values()):
+        for o in ("u", "xs"):
+            check(case["f64_rel"][o] <= 1e-9, f"K4 solve f64 {o} relative")
+            check(case["f32_abs"][o] <= 2.0 * case["plain_f32_abs"][o],
+                  f"K4 solve f32 {o} error above twice the plain f32 error")
+    emit(k4)
     k2w = {"phase": "k2_wide_vs_plain", "H": FA_H, "n": 2 * nv_fa,
            "m": nv_fa, "iters": ITERS, "B": FA_B, "mode": "x_ref",
            "f64_rel": {"u": rel_err(uk64, up64), "xs": rel_err(xk64, xp64)},
@@ -538,17 +765,6 @@ def smoke(reak_tpu_torch, child, ref_path):
     check(kte_step.launches > before[0] and pdip_whole.launches > before[1],
           "the oracle solve did not go through both kernels")
 
-    def timed(fn):
-        """fn() once, with its time in ms by CUDA events."""
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return result, start.elapsed_time(end)
-
     # ---- the satellite scenario MPC (bench.py:223-263) -------------------
     params, prob_sat32, xr_sat32 = sat_config(mpc, ss_systems, dev, f32)
     _, prob_sat64, xr_sat64 = sat_config(mpc, ss_systems, dev, f64)
@@ -581,7 +797,36 @@ def smoke(reak_tpu_torch, child, ref_path):
           "satellite outputs are not finite")
     check(sat["max_abs_u_vs_plain_f64"] <= 1e-3,
           "satellite f32 controls more than 1e-3 from the plain f64 solve")
-    del us_sat_p, xs_sat
+
+    # ---- the satellite solve on the per-pass kernels ----------------------
+    sat32p = manifold_lanes.make_sat_scenario_mpc_lanes(
+        params, prob_sat32, SAT_DT, qp_iters=ITERS, sqp_iters=2,
+        use_kernels="passes")
+    reset_counts()
+    (us_satp, xs_satp), t_satp = timed(lambda: sat32p(
+        x0_sat.to(f32), xr_sat32, u0_sat.to(f32)))
+    main_runs["free_base_sat_passes"] = counts()
+    satp = {"phase": "free_base_sat_passes", "B": SAT_B, "H": SAT_H,
+            "sqp_iters": 2, "iters": ITERS, "dtype": "float32",
+            "launches": main_runs["free_base_sat_passes"], "ms": t_satp,
+            "solves_per_s": SAT_B / t_satp * 1e3,
+            "max_abs_u_vs_plain_f64": abs_err(us_satp, us_sat_p),
+            "max_abs_u_vs_whole_f32": abs_err(us_satp, us_sat),
+            "active_bounds": int((us_satp.abs() > 20.0 - 1e-4).sum())}
+    emit(satp)
+    for name in riccati_bwd.launches:
+        check(satp["launches"][f"riccati_bwd.{name}"] > 0,
+              f"the satellite solve on the passes did not launch {name}")
+    check(tuple(us_satp.shape) == (SAT_B, SAT_H, 6)
+          and tuple(xs_satp.shape) == (SAT_B, SAT_H, 13)
+          and bool(torch.isfinite(us_satp).all())
+          and bool(torch.isfinite(xs_satp).all()),
+          "satellite outputs on the passes are not finite or of the wrong "
+          "shape")
+    check(satp["max_abs_u_vs_plain_f64"] <= 1e-3,
+          "satellite f32 controls on the passes more than 1e-3 from the "
+          "plain f64 solve")
+    del us_sat_p, xs_sat, xs_satp
 
     # ---- the flagship with two SQP passes and the line search -----------
     solve2 = mpc.make_kte_mpc(spec, prob32, DT, qp_iters=ITERS, sqp_iters=2)
@@ -652,6 +897,154 @@ def smoke(reak_tpu_torch, child, ref_path):
     check(err_fa <= 1e-3,
           "floating-arm f32 controls more than 1e-3 from the CPU f64 solve")
 
+    # ---- the flagship chain at H=256 on K5 and K4a-c ---------------------
+    # bench.py:139-149's phase split, composed from the public functions, at
+    # a horizon past the TPU kernel's VMEM bound (the JAX package itself
+    # runs its per-pass kernels there); B=8192, f32, zero warm start
+    HL = H_LONG
+    roll_L = lanes.make_rollout_ltv_fused(spec, DT, HL)
+    prob_L = {dt: flagship_problem(mpc, dev, dt, horizon=HL)
+              for dt in (f32, f64)}
+    x0_L = {dt: on(x0_np, dt) for dt in (f32, f64)}
+    u0_L = {dt: torch.zeros(B, HL, M, dtype=dt, device=dev)
+            for dt in (f32, f64)}
+
+    def pdip_L(seqs, dt, uk):
+        p = prob_L[dt]
+        return riccati_soa.solve_box_mpc_riccati_soa_fused(
+            seqs[0], seqs[1], seqs[2], p.Q, p.QN, p.R,
+            x0_L[dt].T.contiguous(), p.u_min, p.u_max, iters=ITERS,
+            use_kernels=uk)
+
+    reset_counts()
+    seqs32, t_roll_L = timed(lambda: roll_L(x0_L[f32], u0_L[f32]))
+    (u_L, xs_L), t_pdip_L = timed(lambda: pdip_L(seqs32, f32, "passes"))
+    main_runs["long_horizon_passes"] = counts()
+    lh = {"phase": "long_horizon_passes", "B": B, "H": HL, "iters": ITERS,
+          "dtype": "float32", "launches": main_runs["long_horizon_passes"],
+          "rollout_ms": t_roll_L, "pdip_ms": t_pdip_L,
+          "full_ms": t_roll_L + t_pdip_L,
+          "solves_per_s": B / (t_roll_L + t_pdip_L) * 1e3}
+    check(lh["launches"]["kte_core"] > 0
+          and all(lh["launches"][f"riccati_bwd.{e}"] > 0
+                  for e in riccati_bwd.launches),
+          f"the long-horizon path did not launch K5 and K4a-c: "
+          f"{lh['launches']}")
+    check(lh["launches"]["kte_step"] == 0
+          and lh["launches"]["pdip_whole"] == 0,
+          f"the long-horizon path launched K1 or K2: {lh['launches']}")
+    check(tuple(u_L.shape) == (HL, M, B) and tuple(xs_L.shape) == (HL, N, B)
+          and bool(torch.isfinite(u_L).all())
+          and bool(torch.isfinite(xs_L).all()),
+          "long-horizon outputs are not finite or of the wrong shape")
+    # the reference: the plain f64 PDIP on the f64 K5 rollout; beside it
+    # the plain f32 PDIP and K2 on the same f32 rollout as the passes, and
+    # both kernels at f64 on the f64 rollout
+    seqs64 = roll_L(x0_L[f64], u0_L[f64])
+    u_L64, xs_L64 = pdip_L(seqs64, f64, "never")
+    for route in ("passes", "whole"):
+        u_k, xs_k = pdip_L(seqs64, f64, route)
+        # the trajectory each route returns is the rollout of its controls
+        xs_of_u = riccati_soa.rollout_affine_soa(*seqs64[:3],
+                                                 x0_L[f64].T, u_k)
+        lh[f"{route}_f64_rel"] = {"u": rel_err(u_k, u_L64),
+                                  "xs": rel_err(xs_k, xs_L64),
+                                  "xs_vs_rollout_of_u": rel_err(xs_k,
+                                                                xs_of_u)}
+    # how far the f32 rollout drifts from the f64 one over the horizon
+    lh["rollout_f32_max_abs_xs_vs_f64"] = abs_err(seqs32[3], seqs64[3])
+    del seqs64, u_k, xs_k, xs_of_u, xs_L64
+    (u_Lp32, _), lh["plain_pdip_ms"] = timed(
+        lambda: pdip_L(seqs32, f32, "never"))
+    u_Lw, _ = pdip_L(seqs32, f32, "whole")
+    torch.cuda.synchronize()
+    lh["max_abs_u_vs_plain_f64"] = abs_err(u_L, u_L64)
+    lh["whole_max_abs_u_vs_plain_f64"] = abs_err(u_Lw, u_L64)
+    lh["plain_f32_max_abs_u_vs_plain_f64"] = abs_err(u_Lp32, u_L64)
+    # the repo's 1e-3 bar, or twice the plain f32 PDIP's own error where
+    # that misses it at this horizon
+    lh["bar"] = max(1e-3, 2.0 * lh["plain_f32_max_abs_u_vs_plain_f64"])
+    # the PDIP's own f32 error, apart from the rollout's: the plain f64 PDIP
+    # on the f32 rollout's LTV, the same bar against it
+    u_Ld, _ = pdip_L([t.double() for t in seqs32[:3]], f64, "never")
+    torch.cuda.synchronize()
+    lh["same_ltv"] = {"max_abs_u_vs_plain_f64": abs_err(u_L, u_Ld),
+                      "whole_max_abs_u_vs_plain_f64": abs_err(u_Lw, u_Ld),
+                      "plain_f32_max_abs_u_vs_plain_f64": abs_err(u_Lp32,
+                                                                  u_Ld)}
+    # the share of scenarios whose f32 controls stay within 1e-3 of f64
+    within = lambda u, ref: float(((u.double() - ref).abs().amax(dim=(0, 1))
+                                   <= 1e-3).double().mean())
+    lh["share_within_1e-3"] = {
+        "passes": within(u_L, u_L64), "whole": within(u_Lw, u_L64),
+        "plain_f32": within(u_Lp32, u_L64),
+        "same_ltv_passes": within(u_L, u_Ld),
+        "same_ltv_whole": within(u_Lw, u_Ld),
+        "same_ltv_plain_f32": within(u_Lp32, u_Ld)}
+    lh["max_abs_u"] = float(u_L.abs().max())
+    lh["active_bounds"] = int((u_L.abs() > 40.0 - 1e-4).sum())
+    lh["pdip_passes_ms"] = cuda_ms(lambda: pdip_L(seqs32, f32, "passes"),
+                                   reps=3)
+    lh["pdip_whole_ms"] = cuda_ms(lambda: pdip_L(seqs32, f32, "whole"),
+                                  reps=3)
+    lh["rollout_ms_mean"] = cuda_ms(lambda: roll_L(x0_L[f32], u0_L[f32]),
+                                    reps=2)
+    emit(lh)
+    # at f64 each route's controls match the plain PDIP's (≤1e-9).  Over
+    # 256 stages this LTV amplifies f64 rounding ~1e8-fold (K2's in-kernel
+    # rollout and torch's rollout of the same controls differ by ~1e-8
+    # relative), so each trajectory is held to the rollout of its own
+    # controls at 1e-6, which still catches a wrong trajectory
+    for route in ("passes", "whole"):
+        check(lh[f"{route}_f64_rel"]["u"] <= 1e-9,
+              f"long-horizon {route} f64 u relative to the plain PDIP")
+        check(lh[f"{route}_f64_rel"]["xs_vs_rollout_of_u"] <= 1e-6,
+              f"long-horizon {route} f64 xs against the rollout of its u")
+    check(lh["max_abs_u_vs_plain_f64"] <= lh["bar"],
+          "long-horizon f32 controls on the passes beyond the bar from the "
+          "plain f64 PDIP")
+    check(lh["whole_max_abs_u_vs_plain_f64"] <= lh["bar"],
+          "long-horizon f32 controls on K2 beyond the bar from the plain "
+          "f64 PDIP")
+    del u_L64, u_Lp32, u_Lw, u_Ld
+
+    # each K4 entry and K5 per launch at this shape, f32, beside its plain
+    # version and its bound; the pass inputs drawn as above
+    A_L, B_L = seqs32[0], seqs32[1]
+    long_np = {"q": rng.standard_normal((HL, N, B)),
+               "u_eff": rng.standard_normal((HL, M, B)),
+               "D": rng.uniform(0.5, 2.0, (HL, M, B)),
+               "rhs": rng.standard_normal((HL, M, B)),
+               "k": rng.standard_normal((HL, M, B)),
+               "dx0": rng.standard_normal((N, B))}
+    _, K_L, G_L, _ = riccati_bwd.fused_backward(
+        *pass_args(f32, A_L, B_L, long_np)["fused_backward"])
+    pf = pass_args(f32, A_L, B_L, long_np, (K_L, G_L))
+    pass_rows = {}
+    for e, plain in plain_pass.items():
+        outs = getattr(riccati_bwd, e)(*pf[e])
+        outs = (outs,) if torch.is_tensor(outs) else outs
+        pass_rows[e] = {
+            "ms": cuda_ms(lambda: getattr(riccati_bwd, e)(*pf[e]), reps=5),
+            "plain_ms": cuda_ms(lambda: plain(*pf[e]), reps=1),
+            "bytes": nbytes(*pf[e], *outs),
+            "ops": B * ops_per_scenario(
+                plain, lambda nb: cpu_args(pf[e], B, nb))}
+        del outs
+    del pf, K_L, G_L, A_L, B_L, seqs32
+    x32, u32 = on(x_np, f32), on(u_np, f32)
+    k5_ms = cuda_ms(lambda: core_k(x32, u32), reps=20)
+    k5_plain_ms = cuda_ms(lambda: core_p(x32, u32), reps=2)
+    emit({"phase": "times_long_horizon", "card": card, "B": B, "H": HL,
+          "dtype": "float32", "passes_per_launch": pass_rows,
+          "passes_flagship_shape_ms": k4["flagship_shape_ms"],
+          "passes_flagship_shape_plain_ms": k4["flagship_shape_plain_ms"],
+          "kte_core_launch_ms": k5_ms, "plain_core_ms": k5_plain_ms,
+          "rollout_ms": lh["rollout_ms_mean"],
+          "pdip_passes_ms": lh["pdip_passes_ms"],
+          "pdip_whole_ms": lh["pdip_whole_ms"],
+          "plain_pdip_ms": lh["plain_pdip_ms"]})
+
     # ---- phase 7: times on the card -------------------------------------
     t_full = cuda_ms(lambda: solve(x0_32, u0_32), reps=5)
     t_roll = cuda_ms(lambda: roll_k(x0_32, u0_32), reps=5)
@@ -667,6 +1060,21 @@ def smoke(reak_tpu_torch, child, ref_path):
     xk, uk = x0_32.T.contiguous(), u0_32[:, 0].T.contiguous()
     t_step = cuda_ms(lambda: step_k(xk, uk), reps=20)
     t_step_p = cuda_ms(lambda: step_p(xk, uk), reps=3, warmup=0)
+    # what each timed launch must move and compute, for its bound: inputs
+    # and outputs of the call; operations of its plain version per scenario
+    # (the K3 rows were filled in their phase, the K4 rows above)
+    k1_moved = nbytes(xk, uk, *step_k(xk, uk))
+    k1_ops = B * ops_per_scenario(step_p, lambda nb: cpu_args((xk, uk), B,
+                                                              nb))
+    k2_args = (A32, B32, c32, prob32.Q, prob32.QN, prob32.R, x0T32,
+               prob32.u_min, prob32.u_max)
+    k2_moved = nbytes(*k2_args, *pdip("whole"))
+    k2_ops = B * ops_per_scenario(
+        lambda *a: riccati_soa._fused_scan(*a, iters=ITERS),
+        lambda nb: cpu_args(k2_args, B, nb))
+    k5_moved = nbytes(x32, u32, *core_k(x32, u32))
+    k5_ops = B * ops_per_scenario(core_p, lambda nb: cpu_args((x32, u32), B,
+                                                              nb))
     emit({"phase": "times", "card": card, "B": B, "H": H, "iters": ITERS,
           "dtype": "float32", "full_ms": t_full, "solves_per_s": B / t_full
           * 1e3, "rollout_ms": t_roll, "pdip_ms": t_pdip,
@@ -687,33 +1095,48 @@ def smoke(reak_tpu_torch, child, ref_path):
           "k2_wide_ms": k2w["ms"], "k2_wide_plain_ms": k2w["plain_ms"]})
 
     # launches over the main-path runs (flagship one and two passes,
-    # satellite, floating arm), each counted from 0
+    # satellite on K2 and on the passes, floating arm, the long-horizon
+    # flagship), each counted from 0
     total = {k: sum(run[k] for run in main_runs.values())
              for k in launches}
+
+    def row(name, source, replaces, err, ms, plain_ms, moved, ops,
+            library_ms=None, count=None):
+        bound_ms, bound_by = bound(moved, ops)
+        return {"name": name, "route": "cuda",
+                "source": f"reak_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": total[count or name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    k3_rows = [row(f"chol_lanes.{entry}", "chol_lanes.cu",
+                   f"reak_tpu/ops/chol_lanes.py:{line}", k3_err[entry],
+                   case["ms"], case["plain_ms"], case["bytes"], case["ops"],
+                   case["library_ms"])
+               for entry, line, case in (("solve_lanes", 68, k3a_case),
+                                         ("solve_lanes_multi", 130,
+                                          k3b_case))]
+    k4_rows = [row(f"riccati_bwd.{e}", "riccati_bwd.cu",
+                   f"reak_tpu/ops/riccati_bwd_pallas.py:{line}", k4_max_abs,
+                   pass_rows[e]["ms"], pass_rows[e]["plain_ms"],
+                   pass_rows[e]["bytes"], pass_rows[e]["ops"])
+               for e, line in (("fused_backward", 79),
+                               ("vector_backward", 182), ("forward", 236))]
     print(card, flush=True)
+    # each ms is one launch in f32: K1 and K5 at B=8192; K2 at the flagship
+    # shape (H=50); K3a at the line-search shape (6, 1, 8192), K3b at the
+    # floating-arm LTV shape (12, 36, 2048); K4a-c at H=256, B=8192
     emit({"kernels": [
-        {"name": "kte_step", "route": "cuda",
-         "source": "reak_tpu_torch/csrc/kte_step.cu",
-         "replaces": "reak_tpu/ops/kte_core_pallas.py:215",
-         "launches": total["kte_step"], "max_abs_err": k1_max_abs,
-         "ms": t_roll, "plain_ms": t_roll_p},
-        {"name": "pdip_whole", "route": "cuda",
-         "source": "reak_tpu_torch/csrc/pdip_whole.cu",
-         "replaces": "reak_tpu/ops/pdip_whole_pallas.py:226",
-         "launches": total["pdip_whole"], "max_abs_err": k2_max_abs,
-         "ms": t_pdip, "plain_ms": t_pdip_p},
-        {"name": "chol_lanes.solve_lanes", "route": "cuda",
-         "source": "reak_tpu_torch/csrc/chol_lanes.cu",
-         "replaces": "reak_tpu/ops/chol_lanes.py:68",
-         "launches": total["chol_lanes.solve_lanes"],
-         "max_abs_err": k3_err["solve_lanes"],
-         "ms": k3a_case["ms"], "plain_ms": k3a_case["plain_ms"]},
-        {"name": "chol_lanes.solve_lanes_multi", "route": "cuda",
-         "source": "reak_tpu_torch/csrc/chol_lanes.cu",
-         "replaces": "reak_tpu/ops/chol_lanes.py:130",
-         "launches": total["chol_lanes.solve_lanes_multi"],
-         "max_abs_err": k3_err["solve_lanes_multi"],
-         "ms": k3b_case["ms"], "plain_ms": k3b_case["plain_ms"]},
+        row("kte_step", "kte_step.cu", "reak_tpu/ops/kte_core_pallas.py:215",
+            k1_max_abs, t_step, t_step_p, k1_moved, k1_ops),
+        row("pdip_whole", "pdip_whole.cu",
+            "reak_tpu/ops/pdip_whole_pallas.py:226", k2_max_abs, t_pdip,
+            t_pdip_p, k2_moved, k2_ops),
+        *k3_rows, *k4_rows,
+        row("kte_core.make_core_lanes", "kte_step.cu",
+            "reak_tpu/ops/kte_core_pallas.py:88", k5_max_abs, k5_ms,
+            k5_plain_ms, k5_moved, k5_ops, count="kte_core"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

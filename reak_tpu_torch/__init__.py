@@ -10,8 +10,12 @@ is a hand-written CUDA kernel here (``reak_tpu_torch/csrc``), bound through
 takes its plain torch version on CPU tensors.
 
 Ported so far: the flagship batched KTE-MPC solve,
-``reak_tpu_torch.ctrl.mpc.make_kte_mpc`` on fixed-base chains with
-``sqp_iters=1``.
+``reak_tpu_torch.ctrl.mpc.make_kte_mpc`` on fixed-base chains (one or
+several SQP passes), the free-base scenario MPC
+(``reak_tpu_torch.ctrl.manifold_lanes``), and the long-horizon chain on the
+rollout core and the per-pass PDIP (``kte.lanes.make_rollout_ltv_fused``,
+``ctrl.riccati_soa.solve_box_mpc_riccati_soa_fused(use_kernels="passes")``);
+every Pallas kernel of the JAX package has its CUDA counterpart.
 
 Importing the package changes no global torch state and needs neither CUDA
 nor a compiler; the kernels are built at their first launch.

@@ -1,6 +1,8 @@
 // Rollout step + LTV linearization of a fixed-base KTE chain, one launch per
 // step: the hand-written Hopper port of the Pallas kernel
-// reak_tpu/ops/kte_core_pallas.py::make_step_lanes.
+// reak_tpu/ops/kte_core_pallas.py::make_step_lanes (K1) and, as a second
+// instance of the same kernel that stops before the series, of
+// ::make_core_lanes (K5: x, u → q̈ (nv, B), ∂q̈/∂x (nv, n, B), M⁻¹ (nv, nv, B)).
 //
 // What it computes, per scenario b (lanes layout, scenario last):
 //   x (n, B), u (nv, B) → Ad (n, n, B), Bd (n, nv, B), cd (n, B), x_new (n, B)
@@ -14,7 +16,7 @@
 // Each scenario reads 3 nv values and writes n² + n nv + 2n, but evaluates
 // the chain's kinematics n times in hyper-dual arithmetic.
 //
-// Design: the Pallas body gets its derivatives from jax.linearize/jax.jvp; a
+// Design: the Pallas body takes its derivatives by jax.linearize/jax.jvp; a
 // CUDA kernel has no autodiff.  So each block holds S scenarios × n
 // threads; thread (s, d) evaluates (M, f) in hyper-dual numbers
 // (hyperdual.cuh): the inner tangent ε carries the J̇q̇ jvp along q̇, the
@@ -31,6 +33,13 @@
 // joints.  The per-joint kinematics in hyper-dual form does not fit in
 // registers and spills to local memory (L1-cached); making that fast is
 // later work.
+//
+// K5 is the instance kCoreOnly = true: thread (s, d) writes its column of
+// ∂q̈/∂x (and, for d < nv, column d of M⁻¹; thread d = 0 also q̈) straight
+// to device memory in the TPU kernel's layout and returns before the
+// series, with no shared memory and no barrier.  It moves 18 values in and
+// 114 out per scenario (528 B in f32) and, like K1, is bound by the
+// arithmetic of the n hyper-dual evaluations.
 #include <cuda_runtime.h>
 
 #include "hyperdual.cuh"
@@ -118,7 +127,9 @@ __device__ inline void chol_apply(T L[MAXJ][MAXJ], const T inv_d[MAXJ],
   }
 }
 
-template <typename T>
+// kCoreOnly (K5) reuses the output pointers: Ad ← ∂q̈/∂x (nv, n, B),
+// Bd ← M⁻¹ (nv, nv, B), cd ← q̈ (nv, B); xn, dt and order are not read.
+template <typename T, bool kCoreOnly>
 __global__ void kte_step_kernel(const T* __restrict__ x,
                                 const T* __restrict__ u,
                                 const T* __restrict__ chain, int nj, int nv,
@@ -295,6 +306,20 @@ __global__ void kte_step_kernel(const T* __restrict__ x,
     rhs[k] = t;
   }
   chol_apply(L, inv_d, nv, rhs, col);
+  if constexpr (kCoreOnly) {
+    if (live) {
+      for (int k = 0; k < nv; ++k) Ad[(k * n + d) * B + b] = col[k];
+      if (d == 0)
+        for (int k = 0; k < nv; ++k) cd[k * B + b] = qdd[k];
+    }
+    if (d < nv) {
+      for (int k = 0; k < nv; ++k) rhs[k] = T(k == d);
+      chol_apply(L, inv_d, nv, rhs, col);
+      if (live)
+        for (int k = 0; k < nv; ++k) Bd[(k * nv + d) * B + b] = col[k];
+    }
+    return;
+  }
   for (int k = 0; k < nv; ++k) SM(k * n + d) = col[k];
   if (d < nv) {
     for (int k = 0; k < nv; ++k) rhs[k] = T(k == d);
@@ -374,11 +399,28 @@ int launch(const void* x, const void* u, const void* chain, int nj, int nv,
   while (ns > 1 && per * ns > 48 * 1024) ns /= 2;
   dim3 block(ns, n);
   dim3 grid((B + ns - 1) / ns);
-  kte_step_kernel<T><<<grid, block, per * ns,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kte_step_kernel<T, false><<<grid, block, per * ns,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(u),
       static_cast<const T*>(chain), nj, nv, dt, order, static_cast<T*>(Ad),
       static_cast<T*>(Bd), static_cast<T*>(cd), static_cast<T*>(xn), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_core(const void* x, const void* u, const void* chain, int nj,
+                int nv, void* qdd, void* dqdd, void* minv, int B,
+                void* stream) {
+  if (nj < 1 || nj > MAXJ || nv < 1 || nv > nj || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ns = 16;
+  dim3 block(ns, 2 * nv);
+  dim3 grid((B + ns - 1) / ns);
+  kte_step_kernel<T, true><<<grid, block, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(u),
+      static_cast<const T*>(chain), nj, nv, 0.0, 1, static_cast<T*>(dqdd),
+      static_cast<T*>(minv), static_cast<T*>(qdd), nullptr, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,6 +441,20 @@ int reak_kte_step_f64(const void* x, const void* u, const void* chain, int nj,
                       void* cd, void* xn, int B, void* stream) {
   return reak::launch<double>(x, u, chain, nj, nv, dt, order, Ad, Bd, cd, xn,
                               B, stream);
+}
+
+int reak_kte_core_f32(const void* x, const void* u, const void* chain, int nj,
+                      int nv, void* qdd, void* dqdd, void* minv, int B,
+                      void* stream) {
+  return reak::launch_core<float>(x, u, chain, nj, nv, qdd, dqdd, minv, B,
+                                  stream);
+}
+
+int reak_kte_core_f64(const void* x, const void* u, const void* chain, int nj,
+                      int nv, void* qdd, void* dqdd, void* minv, int B,
+                      void* stream) {
+  return reak::launch_core<double>(x, u, chain, nj, nv, qdd, dqdd, minv, B,
+                                   stream);
 }
 
 const char* reak_cuda_error_string(int code) {

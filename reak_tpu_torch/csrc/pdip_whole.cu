@@ -38,18 +38,10 @@
 // in the TPU kernel.
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
+
 namespace reak {
 namespace {
-
-template <typename T>
-struct Lanes {
-  // element (h, i, j) of a per-scenario (H, r, c) array, scenario b
-  T* p;
-  int r, c, B;
-  __device__ T& operator()(int h, int i, int j, int b) const {
-    return p[((static_cast<long long>(h) * r + i) * c + j) * B + b];
-  }
-};
 
 template <typename T>
 __device__ inline T max_step_term(T v, T dv) {

@@ -12,7 +12,8 @@ every array:
     (``sat_error_ltv_lanes``) or the chain's series LTV;
   * the box QP is ``ctrl/riccati_soa.solve_box_mpc_riccati_soa_fused`` with
     x_ref = tangent reference errors: on CUDA tensors the whole-solve kernel
-    (``ops/pdip_whole.py``) in its x_ref mode.
+    (``ops/pdip_whole.py``) in its x_ref mode, or with
+    ``use_kernels="passes"`` the per-pass kernels (``ops/riccati_bwd.py``).
 
 Error-state convention (ctrl/ss_systems.sat3D_retraction of the JAX
 package): tangent e = [δp (global), δθ (body, right-mult), δv (global),
@@ -195,15 +196,17 @@ def make_scenario_mpc_lanes(
     (S,) or (H, S), us_init (B, H, m)) → (us (B, H, m), xs (B, H, S))``.
 
     ``use_kernels`` goes to the QP: "auto" (the whole-solve kernel on CUDA
-    tensors, the plain scan on CPU), "whole" or "never" (the plain scan on
-    any device).  "passes" (the per-pass kernels) is not ported.
+    tensors, the plain scan on CPU), "whole", "passes" (the per-pass
+    kernels, ``ops/riccati_bwd.py``) or "never" (the plain scan on any
+    device).
 
     ``sqp_linesearch``: per-scenario backtracking over α ∈ {1, ½, ¼} on the
     true manifold tracking cost (one exact nominal rollout per candidate);
     off by default.
     """
-    if use_kernels not in ("auto", "whole", "never"):
-        raise NotImplementedError(f"use_kernels={use_kernels!r} is not ported")
+    if use_kernels not in ("auto", "whole", "passes", "never"):
+        raise ValueError(f"use_kernels={use_kernels!r}: expected 'auto', "
+                         "'whole', 'passes' or 'never'")
     Hh = problem.horizon
     d = tangent_dim
 

@@ -10,7 +10,10 @@ becomes a Python loop.
 
 ``make_rollout_ltv_lanes``'s step is the plain version of the hand-written
 rollout-step kernel (``ops/kte_step.py``); ``make_rollout_ltv_fullfused``
-is the rollout over that kernel.  The RK4 rollout that prices the SQP line
+is the rollout over that kernel.  The step's core (``make_core_ltv_lanes``)
+is the plain version of the core kernel (``ops/kte_core.py``), and
+``make_rollout_ltv_fused`` is the rollout over that kernel with the
+exponential series in torch.  The RK4 rollout that prices the SQP line
 search (``make_rollout_lanes``) and the free-base step and linearization
 (``make_kte_manifold_lanes``) solve with M through the batched Cholesky
 kernels (``ops/chol_lanes.py``): one right-hand side through ``solve_lanes``,
@@ -242,16 +245,17 @@ def _config_rate_l(q, qd):
 # ---------------------------------------------------------------------------
 
 
-def make_step_ltv_lanes(spec: ChainSpec, dt: float, order: int = 4):
-    """One rollout step with its LTV linearization, lanes layout:
-    ``step(x (n, B), u (nv, B)) → (Ad (n, n, B), Bd (n, nv, B), cd (n, B),
-    x_new (n, B))`` — the step of ``make_rollout_ltv_lanes`` and the plain
-    version of the kernel in ``ops/kte_step.py``."""
+def make_core_ltv_lanes(spec: ChainSpec):
+    """The core of a rollout step, lanes layout: ``core(x (n, B), u (nv, B))
+    → (qdd (nv, B), dqdd (nv, n, B), Minv (nv, nv, B))`` — the (M, f)
+    assembly, its n unit-tangent jvps, q̈ = M⁻¹(f + u),
+    ∂q̈/∂x = M⁻¹(∂f − ∂M q̈) and M⁻¹.  The plain version of the core kernel
+    (``ops/kte_core.py``; the JAX package's ``make_core_lanes_xla``)."""
     nv = spec.nv
     n = 2 * nv
     terms = make_terms_lanes(spec)
 
-    def step(x, u):
+    def core(x, u):
         dtype, device = x.dtype, x.device
         batch = x.shape[1:]
 
@@ -259,12 +263,11 @@ def make_step_ltv_lanes(spec: ChainSpec, dt: float, order: int = 4):
             return terms(xx[:nv], xx[nv:])
 
         M, f = terms_flat(x)
-        qd = x[nv:]
         qdd = _chol_solve_lanes(M, (f + u)[:, None, :])[:, 0]  # (nv, B)
 
         # all n unit-tangent pulls in one vmapped pass
-        eye_n = torch.eye(n, dtype=dtype, device=device)
-        basis = eye_n[:, :, None].expand((n, n) + batch)
+        basis = torch.eye(n, dtype=dtype, device=device)[:, :, None] \
+            .expand((n, n) + batch)
         dM, df = vmap(lambda t: jvp(terms_flat, (x,), (t,))[1])(basis)
         # dM (n, nv, nv, B), df (n, nv, B)
         rhs = df - torch.einsum("dklz,lz->dkz", dM, qdd)  # (n, nv, B)
@@ -272,31 +275,48 @@ def make_step_ltv_lanes(spec: ChainSpec, dt: float, order: int = 4):
         eye_nv = torch.eye(nv, dtype=dtype, device=device)[:, :, None] \
             .expand((nv, nv) + batch)
         sol = _chol_solve_lanes(M, torch.cat([rhs_t, eye_nv], dim=1))
-        dqdd = sol[:, :n]  # (nv, n, B): ∂q̈_k/∂x_d
-        Minv = sol[:, n:]  # (nv, nv, B)
+        return qdd, sol[:, :n], sol[:, n:]  # ∂q̈_k/∂x_d, M⁻¹
 
-        # continuous A = [[0, I], [∂q̈/∂q, ∂q̈/∂q̇]], B = [[0], [M⁻¹]]
-        top = torch.cat([torch.zeros(nv, nv, dtype=dtype, device=device),
-                         torch.eye(nv, dtype=dtype, device=device)], dim=1)
-        A_c = torch.cat([top[:, :, None].expand((nv, n) + batch), dqdd], dim=0)
-        B_c = torch.cat([torch.zeros((nv, nv) + batch, dtype=dtype,
-                                     device=device), Minv], dim=0)
-        f0 = torch.cat([qd, qdd], dim=0)  # (n, B)
+    return core
 
-        # S = Σ_{k=1..order} dt^k A^{k-1}/k!;  Ad = I + A S;  Bd = S B
-        eye3 = eye_n[:, :, None]
-        S = eye3 * dt
-        term = eye3 * dt
-        for k in range(2, order + 1):
-            term = (dt / k) * _mm(A_c, term)
-            S = S + term
-        Ad = eye3 + _mm(A_c, S)
-        Bd = _mm(S, B_c)
-        x_new = x + _mv(S, f0)
-        cd = x_new - _mv(Ad, x) - _mv(Bd, u)
-        return Ad, Bd, cd, x_new
 
-    return step
+def _series_ltv(x, u, qdd, dqdd, Minv, dt: float, order: int):
+    """The step's tail: the continuous A = [[0, I], [∂q̈/∂x]], B = [[0],
+    [M⁻¹]] about x, discretized by the order-``order`` exponential series
+    S = Σ_{k=1..order} dt^k A^{k-1}/k!, Ad = I + A S, Bd = S B,
+    x_new = x + S [q̇; q̈], cd = x_new − Ad x − Bd u."""
+    nv = qdd.shape[0]
+    n = 2 * nv
+    dtype, device = x.dtype, x.device
+    batch = x.shape[1:]
+    top = torch.cat([torch.zeros(nv, nv, dtype=dtype, device=device),
+                     torch.eye(nv, dtype=dtype, device=device)], dim=1)
+    A_c = torch.cat([top[:, :, None].expand((nv, n) + batch), dqdd], dim=0)
+    B_c = torch.cat([torch.zeros((nv, nv) + batch, dtype=dtype,
+                                 device=device), Minv], dim=0)
+    f0 = torch.cat([x[nv:], qdd], dim=0)  # (n, B)
+
+    eye_n = torch.eye(n, dtype=dtype, device=device)[:, :, None]
+    S = eye_n * dt
+    term = eye_n * dt
+    for k in range(2, order + 1):
+        term = (dt / k) * _mm(A_c, term)
+        S = S + term
+    Ad = eye_n + _mm(A_c, S)
+    Bd = _mm(S, B_c)
+    x_new = x + _mv(S, f0)
+    cd = x_new - _mv(Ad, x) - _mv(Bd, u)
+    return Ad, Bd, cd, x_new
+
+
+def make_step_ltv_lanes(spec: ChainSpec, dt: float, order: int = 4):
+    """One rollout step with its LTV linearization, lanes layout:
+    ``step(x (n, B), u (nv, B)) → (Ad (n, n, B), Bd (n, nv, B), cd (n, B),
+    x_new (n, B))`` — the step of ``make_rollout_ltv_lanes`` and the plain
+    version of the kernel in ``ops/kte_step.py``: the core
+    (``make_core_ltv_lanes``) and the exponential series."""
+    core = make_core_ltv_lanes(spec)
+    return lambda x, u: _series_ltv(x, u, *core(x, u), dt, order)
 
 
 def _scan_rollout(step, x0, us):
@@ -333,6 +353,19 @@ def make_rollout_ltv_fullfused(spec: ChainSpec, dt: float, horizon: int,
     from reak_tpu_torch.ops import kte_step
 
     step = kte_step.make_step_lanes(spec, dt, order=order)
+    return lambda x0, us: _scan_rollout(step, x0, us)
+
+
+def make_rollout_ltv_fused(spec: ChainSpec, dt: float, horizon: int,
+                           order: int = 4):
+    """Rollout with the step core (q̈, ∂q̈/∂x, M⁻¹) in one kernel launch per
+    step (``ops/kte_core.make_core_lanes``, K5) and the exponential series in
+    torch; same contract as make_rollout_ltv_lanes.  On CPU tensors the core
+    wrapper takes the plain core."""
+    from reak_tpu_torch.ops import kte_core
+
+    core = kte_core.make_core_lanes(spec)
+    step = lambda x, u: _series_ltv(x, u, *core(x, u), dt, order)
     return lambda x0, us: _scan_rollout(step, x0, us)
 
 

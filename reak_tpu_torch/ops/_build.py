@@ -86,16 +86,17 @@ def build(name: str) -> Path:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use, with
     ``signatures`` ({function: argtypes}, each returning a CUDA error
-    code) declared on it."""
+    code) declared on it.  Several wrappers may share one library, each
+    declaring its own functions."""
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
         lib.reak_cuda_error_string.argtypes = [ctypes.c_int]
         lib.reak_cuda_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

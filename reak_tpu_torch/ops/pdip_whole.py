@@ -51,13 +51,14 @@ SIGNATURES = {entry_point(b, d): _ARGS for b in INSTANCES
               for d in (torch.float32, torch.float64)}
 
 
-def instance_for(n: int, m: int):
-    """The smallest (NMAX, MMAX) instance that holds (n, m)."""
+def instance_for(n: int, m: int, what: str = "the whole-solve kernel"):
+    """The smallest (NMAX, MMAX) instance that holds (n, m); the per-pass
+    kernels (``ops/riccati_bwd.py``) are built for the same bounds."""
     for bound in INSTANCES:
         if n <= bound[0] and m <= bound[1]:
             return bound
     raise NotImplementedError(
-        f"the whole-solve kernel takes n <= {INSTANCES[-1][0]}, "
+        f"{what} takes n <= {INSTANCES[-1][0]}, "
         f"m <= {INSTANCES[-1][1]}; got n={n}, m={m}")
 
 

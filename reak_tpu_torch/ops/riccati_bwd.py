@@ -1,0 +1,133 @@
+"""The per-pass PDIP kernels: each of the three horizon passes of one
+Mehrotra iteration in one launch — the Hopper port of the Pallas kernels
+``reak_tpu/ops/riccati_bwd_pallas.py::make_fused_backward`` (K4a),
+``::make_vector_backward`` (K4b) and ``::make_forward`` (K4c), all three in
+``csrc/riccati_bwd.cu``.
+
+- ``fused_backward(A (H,n,n,B), Bm (H,n,m,B), q (H,n,B), u_eff (H,m,B),
+  D (H,m,B), Q (n,n), QN (n,n), R (m,m)) → (grad (H,m,B), K (H,m,n,B),
+  G (H,m,m,B), k (H,m,B))``: the cost-gradient adjoint, the Riccati matrix
+  recursion and the affine vector recursion in one reverse pass;
+- ``vector_backward(A, Bm, rhs (H,m,B), K, G) → k (H,m,B)``: the corrector's
+  vector reverse pass, factoring each G again;
+- ``forward(A, Bm, K, k, dx0 (n,B)) → (du (H,m,B), dx (H,n,B))``: the
+  closed-loop forward pass.
+
+On CUDA tensors each wrapper launches its kernel; on CPU tensors it takes
+its plain version in ``ctrl/riccati_soa`` (``fused_backward_plain``,
+``vector_backward_plain``, ``forward_plain``), the passes of the plain scan.
+The kernels are built for the whole-solve kernel's (NMAX, MMAX) bounds,
+(16, 8) and (24, 12); the wrappers take the smallest that holds (n, m).
+Inputs are made contiguous before a launch (a layout step, not a
+fallback); any B ≥ 1 is taken.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from reak_tpu_torch.ctrl.riccati_soa import (forward_plain,
+                                             fused_backward_plain,
+                                             vector_backward_plain)
+from reak_tpu_torch.ops import _build
+from reak_tpu_torch.ops.pdip_whole import INSTANCES, instance_for
+
+# launches of each kernel entry since the counts were last set to 0
+launches = {"fused_backward": 0, "vector_backward": 0, "forward": 0}
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGS = {
+    # A, Bm, q, u_eff, D, Q, QN, R, grad, K, G, k, H, n, m, B, stream
+    "fused_backward": [_VP] * 12 + [_CI] * 4 + [_VP],
+    # A, Bm, rhs, K, G, k, H, n, m, B, stream
+    "vector_backward": [_VP] * 6 + [_CI] * 4 + [_VP],
+    # A, Bm, K, k, dx0, du, dx, H, n, m, B, stream
+    "forward": [_VP] * 7 + [_CI] * 4 + [_VP],
+}
+
+
+def entry_point(entry: str, bound, dtype) -> str:
+    """The C function of one pass, instance and type."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return f"reak_riccati_{entry}_{bound[0]}x{bound[1]}_{suffix}"
+
+
+SIGNATURES = {entry_point(e, b, d): args for e, args in _ARGS.items()
+              for b in INSTANCES for d in (torch.float32, torch.float64)}
+
+
+def _launch(entry, named, outs, H, n, m):
+    """Check ``named`` ({name: (tensor, shape)}) against the first tensor's
+    CUDA device and type, launch ``entry`` on them and ``outs``."""
+    first = next(iter(named.values()))[0]
+    device, dtype = first.device, first.dtype
+    if not first.is_cuda:
+        raise ValueError(f"inputs on {device}: expected CUDA tensors")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"inputs are {dtype}: expected float32 or float64")
+    ins = []
+    for name, (t, shape) in named.items():
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}: expected "
+                             f"{dtype} on {device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}: expected "
+                             f"{shape}")
+        ins.append(t.contiguous())
+    bound = instance_for(n, m, what="the per-pass kernels")
+    B = first.shape[-1]
+    lib = _build.load("riccati_bwd", SIGNATURES)
+    rc = getattr(lib, entry_point(entry, bound, dtype))(
+        *(_build.ptr(t) for t in ins + list(outs)), H, n, m, B,
+        _build.stream_ptr(device))
+    _build.check(lib, rc, f"riccati_bwd {entry} kernel")
+    launches[entry] += 1
+
+
+def _empty(like, *shape):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def fused_backward(A, Bm, q, u_eff, D, Q, QN, R):
+    """K4a: one reverse pass → (grad, K, G, k) (see module)."""
+    if A.device.type == "cpu":
+        return fused_backward_plain(A, Bm, q, u_eff, D, Q, QN, R)
+    H, n, B = A.shape[0], A.shape[1], A.shape[-1]
+    m = Bm.shape[2]
+    outs = (_empty(A, H, m, B), _empty(A, H, m, n, B), _empty(A, H, m, m, B),
+            _empty(A, H, m, B))
+    _launch("fused_backward",
+            {"A": (A, (H, n, n, B)), "Bm": (Bm, (H, n, m, B)),
+             "q": (q, (H, n, B)), "u_eff": (u_eff, (H, m, B)),
+             "D": (D, (H, m, B)), "Q": (Q, (n, n)), "QN": (QN, (n, n)),
+             "R": (R, (m, m))}, outs, H, n, m)
+    return outs
+
+
+def vector_backward(A, Bm, rhs, K, G):
+    """K4b: the corrector's vector reverse pass → k (see module)."""
+    if A.device.type == "cpu":
+        return vector_backward_plain(A, Bm, rhs, K, G)
+    H, n, B = A.shape[0], A.shape[1], A.shape[-1]
+    m = Bm.shape[2]
+    k = _empty(A, H, m, B)
+    _launch("vector_backward",
+            {"A": (A, (H, n, n, B)), "Bm": (Bm, (H, n, m, B)),
+             "rhs": (rhs, (H, m, B)), "K": (K, (H, m, n, B)),
+             "G": (G, (H, m, m, B))}, (k,), H, n, m)
+    return k
+
+
+def forward(A, Bm, K, k, dx0):
+    """K4c: the closed-loop forward pass → (du, dx) (see module)."""
+    if A.device.type == "cpu":
+        return forward_plain(A, Bm, K, k, dx0)
+    H, n, B = A.shape[0], A.shape[1], A.shape[-1]
+    m = Bm.shape[2]
+    outs = (_empty(A, H, m, B), _empty(A, H, n, B))
+    _launch("forward",
+            {"A": (A, (H, n, n, B)), "Bm": (Bm, (H, n, m, B)),
+             "K": (K, (H, m, n, B)), "k": (k, (H, m, B)),
+             "dx0": (dx0, (n, B))}, outs, H, n, m)
+    return outs

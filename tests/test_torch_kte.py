@@ -1,5 +1,6 @@
 """The port's lanes KTE terms and rollout (reak_tpu_torch.kte) against the JAX
-package on the same numpy inputs, f64 on the CPU.
+package on the same numpy inputs, f64 on the CPU, and the rollout over the
+core kernel (``make_rollout_ltv_fused``) against the same JAX reference.
 
 The JAX side of the rollout is ``make_rollout_ltv_lanes``, the plain
 reference that ``tests/test_ops_pallas.py`` holds the step kernel equal to
@@ -15,7 +16,7 @@ from reak_tpu.ctrl import mpc as jmpc
 from reak_tpu.kte import lanes as jlanes, models as jmodels
 from reak_tpu_torch import convert
 from reak_tpu_torch.kte import lanes, models
-from reak_tpu_torch.ops import kte_step
+from reak_tpu_torch.ops import kte_core, kte_step
 
 torch.set_num_threads(1)
 
@@ -46,16 +47,46 @@ def test_terms_lanes_match_jax(rng):
     _assert_rel(f_t, f_j)
 
 
-def test_rollout_ltv_lanes_matches_jax(rng):
+@pytest.fixture(scope="module")
+def rollout_case():
+    """B=4, H=2 inputs (numpy seed 42) and the JAX package's
+    ``make_rollout_ltv_lanes`` of them, computed once for the tests that
+    share it."""
+    rng = np.random.default_rng(42)
     B, H = 4, 2
     x0 = _states(rng, B)
     us = rng.uniform(-2.0, 2.0, (B, H, 6))
     roll_j = jlanes.make_rollout_ltv_lanes(jmodels.manip_3r3r(), 0.01, H)
     out_j = roll_j(jnp.asarray(x0), jnp.asarray(us))
-    out_t = lanes.make_rollout_ltv_lanes(models.manip_3r3r(), 0.01, H)(
+    return x0, us, [np.asarray(o) for o in out_j]
+
+
+def test_rollout_ltv_lanes_matches_jax(rollout_case):
+    x0, us, out_j = rollout_case
+    out_t = lanes.make_rollout_ltv_lanes(models.manip_3r3r(), 0.01,
+                                         us.shape[1])(
         torch.as_tensor(x0), torch.as_tensor(us))
     for got, want in zip(out_t, out_j):
         _assert_rel(got, want)
+
+
+def test_rollout_ltv_fused_matches_jax(rollout_case):
+    """The rollout over the core kernel (``make_rollout_ltv_fused``; on CPU
+    tensors its wrapper takes the plain core) against the JAX
+    ``make_rollout_ltv_lanes``, the function the JAX ``make_rollout_ltv_fused``
+    computes (≤1e-10), and against the port's plain rollout, whose step is
+    the same core and series (≤1e-12); no launch is counted."""
+    x0, us, out_j = rollout_case
+    spec, H = models.manip_3r3r(), us.shape[1]
+    before = kte_core.launches
+    out_t = lanes.make_rollout_ltv_fused(spec, 0.01, H)(
+        torch.as_tensor(x0), torch.as_tensor(us))
+    assert kte_core.launches == before
+    out_p = lanes.make_rollout_ltv_lanes(spec, 0.01, H)(
+        torch.as_tensor(x0), torch.as_tensor(us))
+    for got, want, plain in zip(out_t, out_j, out_p):
+        _assert_rel(got, want)
+        assert float((got - plain).abs().max()) <= 1e-12
 
 
 def test_step_wrapper_takes_plain_version_on_cpu(rng):

@@ -2,7 +2,8 @@
 ss_systems) against the JAX package on the same numpy inputs, f64 on the
 CPU: the satellite's lanes step and error-state LTV and the tangent map
 ``quat_local_lanes`` (≤1e-12), and the whole scenario solve (≤1e-8 on u and
-xs) for the satellite and for the floating arm.
+xs) for the satellite, on the whole-solve and on the per-pass path, and for
+the floating arm.
 
 The floating arm runs with a 2-link arm, and the JAX solver reaches the
 chain's step and linearization through host callbacks into their own
@@ -21,7 +22,7 @@ from reak_tpu.kte import lanes as jlanes, models as jmodels
 from reak_tpu_torch import convert
 from reak_tpu_torch.ctrl import manifold_lanes as ml, ss_systems
 from reak_tpu_torch.kte import lanes
-from reak_tpu_torch.ops import chol_lanes, pdip_whole
+from reak_tpu_torch.ops import chol_lanes, pdip_whole, riccati_bwd
 
 torch.set_num_threads(1)
 
@@ -91,23 +92,38 @@ def test_quat_local_lanes_matches_jax(rng):
                                              jnp.asarray(b))) <= 1e-12
 
 
-def test_sat_scenario_mpc_matches_jax(rng):
+@pytest.fixture(scope="module")
+def sat_case():
+    """The small satellite problem (B=4, H=5, numpy seed 42) and the JAX
+    package's solve of it on its scan (``use_kernels="never"``), run once
+    for the tests that share it."""
+    rng = np.random.default_rng(42)
     B, H = 4, 5
     x0, u0 = _sat_states(rng, B), rng.uniform(-1.0, 1.0, (B, H, 6))
     x_ref = np.array(jss.default_state().at[0:3].set(
         jnp.asarray([1.0, 0.5, -0.3])))
     p_j, prob_j = _sat_params(), _sat_problem(H)
     us_j, xs_j = jml.make_sat_scenario_mpc_lanes(
-        p_j, prob_j, 0.1, qp_iters=8, sqp_iters=2)(
+        p_j, prob_j, 0.1, qp_iters=8, sqp_iters=2, use_kernels="never")(
         jnp.asarray(x0), jnp.asarray(x_ref), jnp.asarray(u0))
+    return dict(x0=x0, u0=u0, x_ref=x_ref, params=p_j, prob=prob_j,
+                us=np.asarray(us_j), xs=np.asarray(xs_j))
+
+
+def _sat_solve_port(case, **kw):
+    return ml.make_sat_scenario_mpc_lanes(
+        convert.satellite_from(case["params"]),
+        convert.problem_from(case["prob"], "cpu", torch.float64), 0.1,
+        qp_iters=8, sqp_iters=2, **kw)(
+        torch.as_tensor(case["x0"]), torch.as_tensor(case["x_ref"]),
+        torch.as_tensor(case["u0"]))
+
+
+def test_sat_scenario_mpc_matches_jax(sat_case):
     before = pdip_whole.launches
-    us_t, xs_t = ml.make_sat_scenario_mpc_lanes(
-        convert.satellite_from(p_j),
-        convert.problem_from(prob_j, "cpu", torch.float64), 0.1,
-        qp_iters=8, sqp_iters=2)(torch.as_tensor(x0), torch.as_tensor(x_ref),
-                                 torch.as_tensor(u0))
-    assert _max_abs(us_t, us_j) <= 1e-8
-    assert _max_abs(xs_t, xs_j) <= 1e-8
+    us_t, xs_t = _sat_solve_port(sat_case)
+    assert _max_abs(us_t, sat_case["us"]) <= 1e-8
+    assert _max_abs(xs_t, sat_case["xs"]) <= 1e-8
     assert pdip_whole.launches == before
 
 
@@ -175,7 +191,16 @@ def test_floating_arm_scenario_mpc_matches_jax(rng, linesearch):
     assert chol_lanes.launches == before
 
 
-def test_per_pass_kernels_are_not_ported():
+def test_per_pass_kernels_are_not_ported(sat_case):
+    """Named when ``use_kernels="passes"`` raised NotImplementedError; the
+    satellite solve on the per-pass path now runs, and this holds it to the
+    JAX package's solve on its scan (≤1e-8 on u and xs, the bar of the
+    whole-solve path above), with no kernel launch on CPU tensors."""
+    before = dict(riccati_bwd.launches)
+    us_t, xs_t = _sat_solve_port(sat_case, use_kernels="passes")
+    assert _max_abs(us_t, sat_case["us"]) <= 1e-8
+    assert _max_abs(xs_t, sat_case["xs"]) <= 1e-8
+    assert riccati_bwd.launches == before
     prob = convert.problem_from(_sat_problem(3), "cpu", torch.float64)
-    with pytest.raises(NotImplementedError):
-        ml.make_scenario_mpc_lanes(None, None, prob, use_kernels="passes")
+    with pytest.raises(ValueError, match="use_kernels"):
+        ml.make_scenario_mpc_lanes(None, None, prob, use_kernels="pass")

@@ -3,7 +3,9 @@ plain version of the CUDA kernel) against the JAX package's whole-solve
 Pallas kernel run in interpret mode, on the same numpy inputs at f64, in the
 regulator, x_ref and x_ref + u_ref modes.  Shapes and monkeypatching as in
 tests/test_riccati_soa.py::test_pdip_whole_solve_kernel_matches_scan.
-Bar: ≤1e-9 absolute on u and xs."""
+Bar: ≤1e-9 absolute on u and xs.  Also the per-pass path, the unfused
+solver and its passes against the JAX package's (≤1e-10), and the port's
+fused solver against its unfused one (the JAX package's own cross-check)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,10 +73,97 @@ def test_cpu_dispatch_is_the_plain_scan(rng, use_kernels):
 
 
 def test_per_pass_kernels_are_not_ported(rng):
+    """Named when ``use_kernels="passes"`` raised NotImplementedError; the
+    per-pass path now runs, and this holds it in x_ref mode to the JAX
+    package's scan (``use_kernels="never"``) at f64 (≤1e-10), with an
+    active bound and no kernel launch on CPU tensors."""
+    from reak_tpu.ctrl.riccati_soa import \
+        solve_box_mpc_riccati_soa_fused as jax_fused
+    from reak_tpu_torch.ops import riccati_bwd
+
     p = _problem(rng)
-    with pytest.raises(NotImplementedError):
-        riccati_soa.solve_box_mpc_riccati_soa_fused(
-            *_args(p, torch.as_tensor), use_kernels="passes")
+    u_j, x_j = jax_fused(*_args(p, jnp.asarray), iters=6, use_kernels="never",
+                         x_ref=jnp.asarray(p["x_ref"]))
+    before = dict(riccati_bwd.launches)
+    u_t, x_t = riccati_soa.solve_box_mpc_riccati_soa_fused(
+        *_args(p, torch.as_tensor), iters=6, use_kernels="passes",
+        x_ref=torch.as_tensor(p["x_ref"]))
+    assert riccati_bwd.launches == before
+    assert np.max(np.abs(u_t.numpy() - np.asarray(u_j))) <= 1e-10
+    assert np.max(np.abs(x_t.numpy() - np.asarray(x_j))) <= 1e-10
+    assert np.any(np.abs(u_t.numpy()) > 1.5 - 1e-6)
+
+
+@pytest.mark.parametrize("mode", ["regulator", "x_ref+u_ref"])
+def test_unfused_solver_matches_jax(rng, mode):
+    """The unfused PDIP (gradient, Riccati matrix pass and two vector passes
+    per iteration) against the JAX package's ``solve_box_mpc_riccati_soa``
+    at f64 (≤1e-10); on CPU tensors its Schur solves take the plain
+    Cholesky and count no launch of K3b."""
+    from reak_tpu.ctrl.riccati_soa import solve_box_mpc_riccati_soa as jax_unf
+    from reak_tpu_torch.ops import chol_lanes
+
+    p = _problem(rng)
+    refs = MODES[mode]
+    u_j, x_j = jax_unf(*_args(p, jnp.asarray), iters=6,
+                       **{k: jnp.asarray(p[k]) for k in refs})
+    before = dict(chol_lanes.launches)
+    u_t, x_t = riccati_soa.solve_box_mpc_riccati_soa(
+        *_args(p, torch.as_tensor), iters=6,
+        **{k: torch.as_tensor(p[k]) for k in refs})
+    assert chol_lanes.launches == before
+    assert np.max(np.abs(u_t.numpy() - np.asarray(u_j))) <= 1e-10
+    assert np.max(np.abs(x_t.numpy() - np.asarray(x_j))) <= 1e-10
+    assert np.any(np.abs(u_t.numpy()) > 1.5 - 1e-6)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fused_matches_unfused(rng, mode):
+    """The JAX package's own cross-check (tests/test_riccati_soa.py::
+    test_fused_pdip_matches_unfused_f64) on the port: the scan-fused PDIP
+    equals the unfused one at f64, rtol 1e-10, atol 1e-12."""
+    p = _problem(rng)
+    kw = {k: torch.as_tensor(p[k]) for k in MODES[mode]}
+    args = _args(p, torch.as_tensor)
+    u1, x1 = riccati_soa.solve_box_mpc_riccati_soa(*args, iters=12, **kw)
+    u2, x2 = riccati_soa.solve_box_mpc_riccati_soa_fused(*args, iters=12,
+                                                         **kw)
+    np.testing.assert_allclose(u1.numpy(), u2.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(x1.numpy(), x2.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_unfused_passes_match_jax(rng):
+    """``lqr_backward_soa``, ``lqr_solve_rhs_soa`` and ``qp_gradient_soa``
+    against the JAX package's at f64 (≤1e-12)."""
+    from reak_tpu.ctrl import riccati_soa as jrs
+
+    p = _problem(rng)
+    H, m, Bl = p["Bm"].shape[0], p["Bm"].shape[2], p["Bm"].shape[3]
+    R_seq = (p["R"][None, :, :, None]
+             + np.eye(m)[None, :, :, None] * rng.uniform(0.5, 2.0,
+                                                         (H, m, 1, Bl)))
+    us = rng.standard_normal((H, m, Bl))
+    r = rng.standard_normal((H, m, Bl))
+    j, t = jnp.asarray, torch.as_tensor
+    Ks_j, Gs_j = jrs.lqr_backward_soa(j(p["A"]), j(p["Bm"]), j(p["Q"]),
+                                      j(p["QN"]), j(R_seq))
+    Ks_t, Gs_t = riccati_soa.lqr_backward_soa(t(p["A"]), t(p["Bm"]),
+                                              t(p["Q"]), t(p["QN"]), t(R_seq))
+    du_j = jrs.lqr_solve_rhs_soa(Ks_j, Gs_j, j(p["A"]), j(p["Bm"]), j(r),
+                                 j(p["x0"]))
+    du_t = riccati_soa.lqr_solve_rhs_soa(Ks_t, Gs_t, t(p["A"]), t(p["Bm"]),
+                                         t(r), t(p["x0"]))
+    g_j = jrs.qp_gradient_soa(j(p["A"]), j(p["Bm"]), j(p["c"]), j(p["Q"]),
+                              j(p["QN"]), j(p["R"]), j(p["x0"]), j(us),
+                              j(p["x_ref"]), j(p["u_ref"]))
+    g_t = riccati_soa.qp_gradient_soa(t(p["A"]), t(p["Bm"]), t(p["c"]),
+                                      t(p["Q"]), t(p["QN"]), t(p["R"]),
+                                      t(p["x0"]), t(us), t(p["x_ref"]),
+                                      t(p["u_ref"]))
+    for got, want in ((Ks_t, Ks_j), (Gs_t, Gs_j), (du_t, du_j),
+                      (g_t[0], g_j[0]), (g_t[1], g_j[1])):
+        assert got.shape == want.shape
+        assert np.max(np.abs(got.numpy() - np.asarray(want))) <= 1e-12
 
 
 def test_lanes_algebra_matches_numpy(rng):
