@@ -22,6 +22,11 @@ version on the card, and drives the port's main paths through the kernels:
   ``ctrl.riccati_soa.solve_box_mpc_riccati_soa_fused(use_kernels="passes")``,
   and the satellite solve on the per-pass kernels.
 
+It also holds the two tile kernels (the whole-solve PDIP and the fused
+reverse pass) to their plain versions at f64 on batches that are no multiple
+of the tile (B=1001, 1000, 100, 77, 1) and at widths off the exact instances
+((6, 3) and (13, 7), which run the padded ones).
+
 It checks the port at f64 against the independent C++ oracle
 ``native/mpc_oracle.cpp`` and against its own plain f64 solves, and times
 the solves and the kernels with CUDA events.  The plain f64 CPU references
@@ -60,7 +65,13 @@ H_LONG = 256  # the long-horizon path: past the TPU kernel's VMEM bound
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase also says how far into the run it ended."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -169,6 +180,19 @@ def bound(bytes_moved, ops):
             else "operations")
 
 
+def k2_design_bytes(horizon, n, m, batch, iters, itemsize):
+    """The device-memory traffic of the whole-solve kernel as designed, which
+    keeps its working set in a scratch buffer: per iteration, scenario and
+    stage it reads A and B four times (fused reverse, affine forward,
+    corrector reverse, corrector forward), writes K once and reads it three
+    times, writes and reads the packed factor once, and sweeps the (H, n)
+    trajectory arrays 6 times and the (H, m) iterate arrays 48 times over
+    its six phases.  The bound of the kernels line counts inputs and
+    outputs only; this is the floor of the design."""
+    values = (4 * (n * n + n * m) + 4 * m * n + m * (m + 1) + 6 * n + 48 * m)
+    return iters * horizon * batch * values * itemsize
+
+
 def bench_states(rng, batch):
     """x0 as bench.py draws it: q ~ U(±0.5), q̇ ~ U(±0.2)."""
     return np.concatenate([rng.uniform(-0.5, 0.5, (batch, 6)),
@@ -274,6 +298,7 @@ def cpu_reference(path):
     from reak_tpu_torch.kte import lanes, models
 
     torch.set_num_threads(4)
+    t0 = time.perf_counter()
     f64 = torch.float64
     spec = models.manip_3r3r()
     x0 = torch.as_tensor(bench_states(np.random.default_rng(0), B)[:N_REF])
@@ -287,9 +312,22 @@ def cpu_reference(path):
         torch.zeros(N_REF, FA_H, fa.nv, dtype=f64))
     tmp = f"{path}.tmp.npz"
     np.savez(tmp, flagship_sqp_us=us_flag.numpy(), floating_arm_us=us_fa.numpy(),
-             floating_arm_xs=xs_fa.numpy())
+             floating_arm_xs=xs_fa.numpy(),
+             seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
+
+
+def kernel_libraries():
+    """{library: {function: argtypes}} of every kernel of the port.  K1 and
+    K5 are two instances of one kernel in csrc/kte_step.cu; K2 and K4a-c are
+    built once per (bound, type), each into a library of its own."""
+    from reak_tpu_torch.ops import (chol_lanes, kte_core, kte_step,
+                                    pdip_whole, riccati_bwd)
+
+    return {"kte_step": {**kte_step.SIGNATURES, **kte_core.SIGNATURES},
+            "chol_lanes": chol_lanes.SIGNATURES,
+            **pdip_whole.LIBRARIES, **riccati_bwd.LIBRARIES}
 
 
 def main():
@@ -301,8 +339,12 @@ def main():
     import reak_tpu_torch
     from reak_tpu_torch.ops import _build
 
+    # the build has the machine's cores to itself: the CPU reference starts
+    # after it
+    t0 = time.perf_counter()
+    _build.build_all(kernel_libraries())
+    build_seconds = time.perf_counter() - t0
     ref_path = _build.BUILD_DIR / "cpu_reference.npz"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     if ref_path.exists():
         ref_path.unlink()
     with open(_build.BUILD_DIR / "cpu_reference.log", "w") as log:
@@ -310,26 +352,28 @@ def main():
             [sys.executable, os.path.abspath(__file__), "--cpu-reference",
              str(ref_path)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
     try:
-        return smoke(reak_tpu_torch, child, ref_path)
+        return smoke(reak_tpu_torch, child, ref_path, build_seconds)
     finally:
         if child.poll() is None:
             child.kill()
             child.wait()
 
 
-def smoke(reak_tpu_torch, child, ref_path):
+def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     from reak_tpu_torch.ctrl import (manifold_lanes, mpc, riccati_soa,
                                      ss_systems)
     from reak_tpu_torch.kte import lanes, models
     from reak_tpu_torch.math import rot_lanes
-    from reak_tpu_torch.ops import (_build, chol_lanes, kte_core, kte_step,
-                                    pdip_whole, riccati_bwd)
+    from reak_tpu_torch.ops import (_build, _tile, chol_lanes, kte_core,
+                                    kte_step, pdip_whole, riccati_bwd)
 
     def cpu_references():
+        """The child's results, and how long this process waited for it."""
+        t_wait = time.perf_counter()
         rc = child.wait(timeout=900)
         log = (_build.BUILD_DIR / "cpu_reference.log").read_text()
         check(rc == 0, f"the CPU reference process failed:\n{log[-4000:]}")
-        return np.load(ref_path)
+        return np.load(ref_path), time.perf_counter() - t_wait
 
     def reset_counts():
         kte_step.launches = 0
@@ -358,29 +402,31 @@ def smoke(reak_tpu_torch, child, ref_path):
           "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
-    # ---- phase 2: build --------------------------------------------------
-    t0 = time.perf_counter()
-    # K1 and K5 are two instances of one kernel in csrc/kte_step.cu
-    sources = {"kte_step": {**kte_step.SIGNATURES, **kte_core.SIGNATURES},
-               "pdip_whole": pdip_whole.SIGNATURES,
-               "chol_lanes": chol_lanes.SIGNATURES,
-               "riccati_bwd": riccati_bwd.SIGNATURES}
-    _build.build_all(sources)
-    for name, signatures in sources.items():
+    # ---- phase 2: build (done before the CPU reference started) ----------
+    for name, signatures in kernel_libraries().items():
         _build.load(name, signatures)
     # registers and stack frame of each kernel instance the paths launch
     # (ptxas -v), as {key: (library, mangled-name fragment)}; the whole
-    # report lands beside each library
-    wide = ("IfLi16ELi8E", "IdLi16ELi8E", "IfLi24ELi12E", "IdLi24ELi12E")
-    wanted = {f"pdip_whole<{w}>": ("pdip_whole", f"pdip_whole_kernel{w}")
-              for w in wide}
+    # report lands beside each library.  The tile kernels (K2, K4a) have an
+    # instance of the exact widths and a padded one per bound and type.
+    wanted = {}
+    for bd in _tile.INSTANCES:
+        for t, suffix in (("f", "f32"), ("d", "f64")):
+            k2_lib = _build.instance_library("pdip_whole", bd, suffix)
+            k4_lib = _build.instance_library("riccati_bwd", bd, suffix)
+            for (nb, mb), exact in ((_tile.EXACT[bd], 1), (bd, 0)):
+                w = f"I{t}Li{nb}ELi{mb}ELb{exact}E"
+                wanted[f"pdip_whole<{w}>"] = (k2_lib, f"pdip_whole_kernel{w}")
+                wanted[f"riccati_bwd.fused_backward<{w}>"] = (
+                    k4_lib, f"fused_backward_kernel{w}")
+            w = f"I{t}Li{bd[0]}ELi{bd[1]}E"
+            for e in ("vector_backward", "forward"):
+                wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib, f"{e}_kernel{w}")
     wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
                    for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E")})
     wanted.update({f"{key}<{t}>": ("kte_step", f"kte_step_kernelI{t}Lb{i}E")
                    for i, key in enumerate(("kte_step", "kte_core"))
                    for t in "fd"})
-    wanted.update({f"riccati_bwd.{e}<{w}>": ("riccati_bwd", f"{e}_kernel{w}")
-                   for e in riccati_bwd.launches for w in wide})
     ptxas = {}
     for key, (name, fragment) in wanted.items():
         lines = _build.ptxas_report(name).splitlines()
@@ -390,7 +436,7 @@ def smoke(reak_tpu_torch, child, ref_path):
                     s.replace("ptxas info    :", "").strip()
                     for s in lines[i + 2:i + 4])
     check(len(ptxas) == len(wanted), "a kernel instance missing from ptxas")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": build_seconds,
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas})
 
     spec = models.manip_3r3r()
@@ -691,6 +737,75 @@ def smoke(reak_tpu_torch, child, ref_path):
     emit(k2w)
     del Aw, Bw, cw, out, args32
 
+    # ---- K2 and K4a on ragged batches and padded widths, f64 --------------
+    # batches that are no multiple of the tile (its last block runs lanes
+    # past B) and widths off the exact instances (the padded ones), on a
+    # random LTV near the identity with a ±1.5 box, against the plain
+    # versions
+    def synthetic(n, m, batch, horizon=12):
+        t = lambda a: on(a, f64)
+        return {"A": t(0.1 * rng.standard_normal((horizon, n, n, batch))
+                       + np.eye(n)[None, :, :, None]),
+                "Bm": t(0.2 * rng.standard_normal((horizon, n, m, batch))),
+                "c": t(0.05 * rng.standard_normal((horizon, n, batch))),
+                "Q": t(np.eye(n) + 0.01), "QN": t(5.0 * np.eye(n)),
+                "R": t(0.1 * np.eye(m) + 0.01),
+                "x0": t(rng.standard_normal((n, batch))),
+                "lb": t(np.full(m, -1.5)), "ub": t(np.full(m, 1.5)),
+                "x_ref": t(0.1 * rng.standard_normal((horizon, n, batch))),
+                "u_ref": t(0.1 * rng.standard_normal((horizon, m, batch))),
+                "q": t(rng.standard_normal((horizon, n, batch))),
+                "u_eff": t(rng.standard_normal((horizon, m, batch))),
+                "D": t(rng.uniform(0.5, 2.0, (horizon, m, batch)))}
+
+    edge = {"phase": "ragged_and_padded", "dtype": "float64", "H": 12,
+            "cases": {}}
+    for n_, m_, batch, keys in ((12, 6, 1000, ()), (12, 6, 1, ("x_ref",
+                                                               "u_ref")),
+                                (24, 12, 100, ("x_ref",)),
+                                (6, 3, 1001, ("x_ref",)),
+                                (13, 7, 77, ("x_ref", "u_ref"))):
+        p = synthetic(n_, m_, batch)
+        tile = _tile.tile_config(n_, m_, f64)
+        args = [p[k] for k in ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb",
+                               "ub")]
+        kw = {k: p[k] for k in keys}
+        before = (pdip_whole.launches,
+                  riccati_bwd.launches["fused_backward"])
+        (u_k, x_k), (u_p, x_p) = (
+            riccati_soa.solve_box_mpc_riccati_soa_fused(
+                *args, iters=ITERS, use_kernels=uk, **kw)
+            for uk in ("whole", "never"))
+        pa = [p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R")]
+        outs_k = riccati_bwd.fused_backward(*pa)
+        outs_p = riccati_soa.fused_backward_plain(*pa)
+        torch.cuda.synchronize()
+        case = {"exact_instance": tile.exact, "tile_scenarios": tile.scenarios,
+                "modes": list(keys) or ["regulator"],
+                "k2_f64_rel": {"u": rel_err(u_k, u_p), "xs": rel_err(x_k,
+                                                                     x_p)},
+                "k4a_f64_rel": [rel_err(a, r) for a, r in zip(outs_k,
+                                                              outs_p)],
+                "active_bounds": int((u_p.abs() > 1.5 - 1e-9).sum())}
+        edge["cases"][f"n={n_},m={m_},B={batch}"] = case
+        check(pdip_whole.launches == before[0] + 1
+              and riccati_bwd.launches["fused_backward"] == before[1] + 1,
+              "a ragged or padded case did not launch K2 and K4a")
+        check(batch % tile.scenarios != 0, "the batch is a multiple of the "
+              "tile: not a ragged case")
+        for o, e in case["k2_f64_rel"].items():
+            check(e <= 1e-9, f"K2 ragged/padded {n_, m_, batch} f64 {o}")
+        for i, e in enumerate(case["k4a_f64_rel"]):
+            check(e <= 1e-9, f"K4a ragged/padded {n_, m_, batch} output {i}")
+        k2_max_abs = max(k2_max_abs, abs_err(u_k, u_p), abs_err(x_k, x_p))
+        k4_max_abs = max([k4_max_abs] + [abs_err(a, r)
+                                         for a, r in zip(outs_k, outs_p)])
+    check(any(not c["exact_instance"] for c in edge["cases"].values())
+          and any(c["active_bounds"] > 0 for c in edge["cases"].values()),
+          "no padded instance or no active bound among the edge cases")
+    emit(edge)
+    del p, args, pa, outs_k, outs_p
+
     # ---- phase 5: the flagship solve through the kernels -----------------
     prob32 = flagship_problem(mpc, dev, f32)
     solve = mpc.make_kte_mpc(spec, prob32, DT, qp_iters=ITERS, sqp_iters=1)
@@ -711,13 +826,14 @@ def smoke(reak_tpu_torch, child, ref_path):
     roll_p = lanes.make_rollout_ltv_lanes(spec, DT, H)
 
     def plain_solve(prob, x0s, u0s):
-        A, Bm, c, _ = roll_p(x0s, u0s)
-        ul, xl = riccati_soa.solve_box_mpc_riccati_soa_fused(
+        """The plain solve's controls, and its rollout's time in ms."""
+        (A, Bm, c, _), t_roll = timed(lambda: roll_p(x0s, u0s))
+        ul, _ = riccati_soa.solve_box_mpc_riccati_soa_fused(
             A, Bm, c, prob.Q, prob.QN, prob.R, x0s.T.contiguous(),
             prob.u_min, prob.u_max, iters=ITERS, use_kernels="never")
-        return ul.permute(2, 0, 1), xl.permute(2, 0, 1)
+        return ul.permute(2, 0, 1), t_roll
 
-    us_p32, _ = plain_solve(prob32, x0_32, u0_32)
+    us_p32, t_roll_p = plain_solve(prob32, x0_32, u0_32)
     us_p64, _ = plain_solve(flagship_problem(mpc, dev, f64), on(x0_np, f64),
                             u0_64)
     torch.cuda.synchronize()
@@ -846,7 +962,7 @@ def smoke(reak_tpu_torch, child, ref_path):
     (us_fa, xs_fa), t_fa = timed(lambda: solve_fa(x0_fa32, xr_fa32, u0_fa32))
     main_runs["floating_arm"] = counts()
 
-    refs = cpu_references()
+    refs, ref_wait = cpu_references()
     err2 = np.abs(us2[:N_REF].double().cpu().numpy()
                   - refs["flagship_sqp_us"]).max(axis=(1, 2))
     sqp = {"phase": "flagship_sqp", "B": B, "H": H, "iters": ITERS,
@@ -855,6 +971,8 @@ def smoke(reak_tpu_torch, child, ref_path):
            "max_abs_u_vs_cpu_f64": float(err2.max()),
            "share_within_1e-3": float(np.mean(err2 <= 1e-3)),
            "reference_scenarios": N_REF,
+           "cpu_reference_seconds": float(refs["seconds"]),
+           "waited_for_cpu_reference_seconds": ref_wait,
            "cost_init_mean": float(J_init.mean()),
            "cost_sqp_mean": float(J_sqp.mean()),
            "scenarios_cost_down": int((J_sqp < J_init).sum()),
@@ -989,6 +1107,20 @@ def smoke(reak_tpu_torch, child, ref_path):
                                   reps=3)
     lh["rollout_ms_mean"] = cuda_ms(lambda: roll_L(x0_L[f32], u0_L[f32]),
                                     reps=2)
+    # K2's bound at this horizon, from this call's inputs and outputs
+    k2_long_args = (*seqs32[:3], prob_L[f32].Q, prob_L[f32].QN,
+                    prob_L[f32].R, x0_L[f32].T.contiguous(),
+                    prob_L[f32].u_min, prob_L[f32].u_max)
+    # every iteration does the same operations, so those of ITERS follow
+    # from a count of one and of two
+    o1, o2 = (ops_per_scenario(
+        lambda *a: riccati_soa._fused_scan(*a, iters=it),
+        lambda nb: cpu_args(k2_long_args, B, nb)) for it in (1, 2))
+    lh["pdip_whole_bound_ms"], lh["pdip_whole_bound_by"] = bound(
+        nbytes(*k2_long_args, u_L, xs_L), B * (o1 + (ITERS - 1) * (o2 - o1)))
+    lh["pdip_whole_design_floor_ms"] = (k2_design_bytes(HL, N, M, B, ITERS, 4)
+                                        / PEAK_BYTES_S * 1e3)
+    del k2_long_args
     emit(lh)
     # at f64 each route's controls match the plain PDIP's (≤1e-9).  Over
     # 256 stages this LTV amplifies f64 rounding ~1e8-fold (K2's in-kernel
@@ -1043,6 +1175,9 @@ def smoke(reak_tpu_torch, child, ref_path):
           "rollout_ms": lh["rollout_ms_mean"],
           "pdip_passes_ms": lh["pdip_passes_ms"],
           "pdip_whole_ms": lh["pdip_whole_ms"],
+          "pdip_whole_bound_ms": lh["pdip_whole_bound_ms"],
+          "pdip_whole_bound_by": lh["pdip_whole_bound_by"],
+          "pdip_whole_design_floor_ms": lh["pdip_whole_design_floor_ms"],
           "plain_pdip_ms": lh["plain_pdip_ms"]})
 
     # ---- phase 7: times on the card -------------------------------------
@@ -1054,8 +1189,7 @@ def smoke(reak_tpu_torch, child, ref_path):
         A32, B32, c32, prob32.Q, prob32.QN, prob32.R, x0T32, prob32.u_min,
         prob32.u_max, iters=ITERS, use_kernels=uk)
     t_pdip = cuda_ms(lambda: pdip("whole"), reps=5)
-    # the plain versions are host-bound and already warm from phase 5
-    t_roll_p = cuda_ms(lambda: roll_p(x0_32, u0_32), reps=1, warmup=0)
+    # the plain rollout (host-bound, ~40 s) was timed on phase 5's run
     t_pdip_p = cuda_ms(lambda: pdip("never"), reps=2)
     xk, uk = x0_32.T.contiguous(), u0_32[:, 0].T.contiguous()
     t_step = cuda_ms(lambda: step_k(xk, uk), reps=20)
@@ -1079,7 +1213,9 @@ def smoke(reak_tpu_torch, child, ref_path):
           "dtype": "float32", "full_ms": t_full, "solves_per_s": B / t_full
           * 1e3, "rollout_ms": t_roll, "pdip_ms": t_pdip,
           "plain_rollout_ms": t_roll_p, "plain_pdip_ms": t_pdip_p,
-          "kte_step_launch_ms": t_step, "plain_step_ms": t_step_p})
+          "kte_step_launch_ms": t_step, "plain_step_ms": t_step_p,
+          "pdip_design_floor_ms": k2_design_bytes(H, N, M, B, ITERS, 4)
+          / PEAK_BYTES_S * 1e3})
     # the free-base and two-pass solves, each timed on its checked run
     emit({"phase": "times_slice2", "card": card, "dtype": "float32",
           "flagship_sqp2_ms": t_sqp2, "flagship_sqp2_solves_per_s":

@@ -1,5 +1,5 @@
-// Element access for the scenario-last ("lanes") layout of the PDIP kernels
-// (pdip_whole.cu, riccati_bwd.cu): a per-scenario (H, r, c) array of B
+// Element access for the scenario-last ("lanes") layout of the one-thread-
+// per-scenario PDIP kernels (K4b, K4c of riccati_bwd.cu): a per-scenario (H, r, c) array of B
 // scenarios is stored as (H, r, c, B), so neighbouring threads (scenarios)
 // touch neighbouring addresses and every access coalesces.
 #pragma once

@@ -7,38 +7,40 @@
 // [x_ref (H, n, B)], [u_ref (H, m, B)], x0 (n, B), Q/QN (n, n), R (m, m),
 // lb/ub (m,) → u (H, m, B), xs (H, n, B).
 //
-// What bounds it on the H100: per-thread latency.  The algorithm is a chain
-// of small dependent recurrences per scenario (each stage of the reverse
-// pass needs the V of the stage after it), so the parallelism is the batch:
-// at B = 8192 one thread per scenario fills about two warps per SM.  Each
-// iteration reads A and B four times (fused reverse, affine forward,
-// corrector reverse, corrector forward) and the gains twice; at the
-// flagship shape that is ~4.6 KB of A+B per stage per scenario in f32.
+// What bounds it on the H100: by the card's peaks, operations on its inputs
+// and outputs alone (~0.9 ms at H = 50, B = 8192 in f32); as designed,
+// bytes: an iteration reads A and B four times (fused reverse, affine
+// forward, corrector reverse, corrector forward) and writes and re-reads
+// the gains, the factors and the vectors, ~2.5 GB an iteration and ~20 GB
+// a solve at that shape, ~6 ms at 3.35 TB/s.
 //
-// Design: the TPU kernel keeps the whole horizon resident in VMEM per
-// 128-lane tile (~33k values per scenario at H=50, n=12, m=6, ~130 KB in
-// f32), which cannot live in the 227 KB of shared memory of an H100 block
-// for more than one scenario.  So this kernel keeps the working arrays — K
-// (H, m, n), the packed Cholesky factors of the Schur blocks (H, m, m),
-// u, sl, su, zl, zu, w1, w2 (H, m) and xs, dxs (H, n) — in one scratch
-// buffer in device memory that the wrapper allocates, laid out scenario
-// last so neighbouring threads touch neighbouring addresses (every access
-// coalesces), with L2 (50 MB) catching the re-reads.  Because nothing
-// lives in on-chip memory, the horizon has no cap.  One thread runs one
-// scenario through every iteration and every stage.  The reverse pass
-// holds V (n, n), V·A, V·B, F, K and G per stage: at n = 12, m = 6 that is
-// far over 255 registers, so those arrays spill to local memory (L1-cached).
-// That is accepted in this first version.  Two instances are built: (16, 8)
-// for the fixed-base arms (n = 12, m = 6) and (24, 12) for the floating arm's
-// tangent (n = 24, m = 12), whose arrays come to ~2.4k values per thread
-// (~9.6 KB in f32, ~19 KB in f64) of local memory.  The per-scenario reductions (mu,
-// mu_aff, the step lengths) run over (H, m) only, the division in the step
+// Design.  The TPU kernel keeps the whole horizon resident in VMEM per
+// 128-lane tile (~130 KB a scenario in f32 at H = 50), which the 227 KB of
+// shared memory of an H100 block holds for one scenario only.  So the
+// working arrays — K (H, m, n), the packed Cholesky factors of the Schur
+// blocks (H, m, m), u, sl, su, zl, zu, w1, w2 (H, m) and xs, dxs (H, n) —
+// stay in one scratch buffer in device memory that the wrapper allocates,
+// scenario last over the batch padded to whole tiles, with L2 (50 MB)
+// catching the re-reads; the horizon has no cap.  Every pass runs on the
+// tile of riccati_tile.cuh: TS scenarios × NB columns a block, widths at
+// compile time, each stage's A, B, K, factor and vectors copied into shared
+// memory by cp.async a stage ahead of their use.  Phase 1 is that header's
+// reverse pass (it forms q, u_eff and D from the iterate and stores the
+// packed factor); the forward, corrector reverse and rollout passes split
+// their n (or m) rows over the columns; the centering and step-length
+// phases split the (H, m) sweep over the columns and reduce per scenario
+// through shared memory, so their sums run in another order than the plain
+// version's.  The reductions run over (H, m) only, the division in the step
 // rule is guarded, sigma = (mu_aff / max(mu, 1e-30))³, the last stage uses
-// QN, and the affine and corrector passes share each stage's factor — as
-// in the TPU kernel.
+// QN, and the affine and corrector passes share each stage's factor — as in
+// the TPU kernel.  Instances: (12, 6), (24, 12), and padded (16, 8) and
+// (24, 12) for every other width.
 #include <cuda_runtime.h>
 
-#include "lanes.cuh"
+#include <cstdint>
+#include <initializer_list>
+
+#include "riccati_tile.cuh"
 
 namespace reak {
 namespace {
@@ -50,420 +52,341 @@ __device__ inline T max_step_term(T v, T dv) {
   return neg ? -v / (neg ? dv : T(-1)) : T(INFINITY);
 }
 
-// NMAX, MMAX bound the state and input widths: they size the per-thread
-// arrays of the reverse pass (V, V·A, V·B, F, K, the factor), so each
-// instance is built for one bound and the wrapper picks the smallest that
-// holds (n, m).
-template <typename T, int NMAX, int MMAX>
-__global__ void pdip_whole_kernel(
-    const T* __restrict__ A_, const T* __restrict__ Bm_,
-    const T* __restrict__ c_, const T* __restrict__ xr_,
-    const T* __restrict__ ur_, const T* __restrict__ x0,
-    const T* __restrict__ Q, const T* __restrict__ QN,
-    const T* __restrict__ R, const T* __restrict__ lb,
-    const T* __restrict__ ub, T* __restrict__ u_out_, T* __restrict__ xs_out_,
-    T* __restrict__ scratch, int H, int n, int m, int B, int iters) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;  // the ragged edge: scenarios are independent
-  const Lanes<T> A{const_cast<T*>(A_), n, n, B};
-  const Lanes<T> Bm{const_cast<T*>(Bm_), n, m, B};
-  const Lanes<T> c{const_cast<T*>(c_), n, 1, B};
-  const Lanes<T> xr{const_cast<T*>(xr_), n, 1, B};
-  const Lanes<T> ur{const_cast<T*>(ur_), m, 1, B};
-  const Lanes<T> u_out{u_out_, m, 1, B};
-  const Lanes<T> xs_out{xs_out_, n, 1, B};
-  // scratch: K, G, u, sl, su, zl, zu, w1, w2, xs, dxs
-  T* sp = scratch;
-  const long long HB = static_cast<long long>(H) * B;
-  const Lanes<T> Ks{sp, m, n, B};
-  sp += HB * m * n;
-  const Lanes<T> Gs{sp, m, m, B};  // strict lower = L, diagonal = 1/diag
-  sp += HB * m * m;
-  const Lanes<T> us{sp, m, 1, B};
-  sp += HB * m;
-  const Lanes<T> sls{sp, m, 1, B};
-  sp += HB * m;
-  const Lanes<T> sus{sp, m, 1, B};
-  sp += HB * m;
-  const Lanes<T> zls{sp, m, 1, B};
-  sp += HB * m;
-  const Lanes<T> zus{sp, m, 1, B};
-  sp += HB * m;
-  const Lanes<T> w1{sp, m, 1, B};  // k_aff → du_aff
-  sp += HB * m;
-  const Lanes<T> w2{sp, m, 1, B};  // grad → corrector rhs → k2 → du
-  sp += HB * m;
-  const Lanes<T> xss{sp, n, 1, B};  // tracked trajectory
-  sp += HB * n;
-  const Lanes<T> dxs{sp, n, 1, B};
-  const bool with_xref = xr_ != nullptr, with_uref = ur_ != nullptr;
+template <typename T>
+__device__ inline T step_length(const T (&t)[4], int a, int b) {
+  return fmin(fmin(T(1), T(0.995) * t[a]), fmin(T(1), T(0.995) * t[b]));
+}
 
-  for (int h = 0; h < H; ++h) {
-    for (int i = 0; i < m; ++i) {
-      const T mid = T(0.5) * (lb[i] + ub[i]);
-      const T half = T(0.5) * (ub[i] - lb[i]);
-      us(h, i, 0, b) = mid;
-      sls(h, i, 0, b) = half;
-      sus(h, i, 0, b) = half;
-      zls(h, i, 0, b) = T(1);
-      zus(h, i, 0, b) = T(1);
-    }
+// The iterate and the working arrays in the scratch buffer, scenario stride
+// Bp (the batch padded to whole tiles).
+template <typename T>
+struct WholeScratch {
+  TileArr<T> K, factor, u, sl, su, zl, zu, w1, w2, xs, dxs;
+  __device__ WholeScratch(T* p, int H, int n, int m, long long Bp) {
+    auto take = [&](int r, int c) {
+      TileArr<T> a{p, r, c, Bp, Bp, true};
+      p += static_cast<long long>(H) * r * c * Bp;
+      return a;
+    };
+    K = take(m, n);
+    factor = take(m, m);  // strict lower = L, diagonal = 1 / diag L
+    u = take(m, 1);
+    sl = take(m, 1);
+    su = take(m, 1);
+    zl = take(m, 1);
+    zu = take(m, 1);
+    w1 = take(m, 1);  // k_aff → du_aff
+    w2 = take(m, 1);  // grad → corrector rhs → k2 → du
+    xs = take(n, 1);  // tracked trajectory
+    dxs = take(n, 1);
   }
+};
 
-  T x[NMAX], x1[NMAX];
-  // x_{h+1} = A_h x_h + B_h u_h + c_h from x0, into `dst`
-  auto rollout = [&](const Lanes<T>& dst) {
-    for (int i = 0; i < n; ++i) x[i] = x0[i * B + b];
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < n; ++i) {
-        T a = T(0), bb = T(0);
-        for (int k = 0; k < n; ++k) a += A(h, i, k, b) * x[k];
-        for (int k = 0; k < m; ++k) bb += Bm(h, i, k, b) * us(h, k, 0, b);
-        x1[i] = a + bb + c(h, i, 0, b);
-      }
-      for (int i = 0; i < n; ++i) {
-        x[i] = x1[i];
-        dst(h, i, 0, b) = x1[i];
-      }
-    }
-  };
-  rollout(xss);
+// phase 1: what the reverse pass of riccati_tile.cuh reads and writes
+template <typename T>
+struct WholeIo {
+  static constexpr bool kStageCost = true, kStoreG = false,
+                        kStoreFactor = true;
+  const WholeScratch<T>& w;
+  TileArr<const T> xr, ur;  // p = nullptr: no reference
+  const TileThread& th;
+  __device__ T x_term(int h, int i) const {
+    T e = w.xs.load(h, i, 0, th);
+    if (xr.p != nullptr) e -= xr.load(h, i, 0, th);
+    return e;
+  }
+  __device__ T u_eff(int h, int i) const {
+    T e = w.u.load(h, i, 0, th);
+    if (ur.p != nullptr) e -= ur.load(h, i, 0, th);
+    return e;
+  }
+  __device__ T barrier(int h, int i) const {
+    if (!w.sl.has(i, 0, th)) return T(0);
+    const long long at = w.sl.at(h, i, 0, th);
+    return w.zl.p[at] / w.sl.p[at] + w.zu.p[at] / w.su.p[at];
+  }
+  __device__ void store_grad(int h, int i, T v) const {
+    w.w2.store(h, i, 0, th, v);
+  }
+  __device__ void store_K(int h, int i, int j, T v) const {
+    w.K.store(h, i, j, th, v);
+  }
+  __device__ void store_G(int, int, int, T) const {}
+  __device__ void store_factor(int h, int i, int j, T v) const {
+    w.factor.store(h, i, j, th, v);
+  }
+  __device__ void store_k(int h, int i, T v) const {
+    w.w1.store(h, i, 0, th, v);
+  }
+};
+
+// Per scenario over the tile's columns: the sum of `sum` and the minima of
+// `mins`, through the work area; every thread of a scenario gets the same
+// results.
+template <class TL, typename T>
+__device__ inline void tile_reduce(const TileSmem<TL, T>& sm,
+                                   const TileThread& th, T& sum,
+                                   T (&mins)[4]) {
+  constexpr int NB = TL::NB, TS = TL::TS;
+  const int s = th.s, j = th.j;
+  T* const red = sm.work;  // [5][NB]
+  __syncthreads();
+  REAK_ROW(red, j) = sum;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) REAK_ROW(red, (q + 1) * NB + j) = mins[q];
+  __syncthreads();
+  sum = T(0);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) mins[q] = T(INFINITY);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    sum += REAK_ROW(red, k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mins[q] = fmin(mins[q], REAK_ROW(red, (q + 1) * NB + k));
+  }
+}
+
+// One block an SM by registers (168 at (12, 6) in f32): held to two, the
+// vector phases spill to a 552 B stack and the solve gets no faster (16.81
+// against 16.18 ms at H = 50, B = 8192 on an H100 at 700 W;
+// ops/tile_shapes.py).
+template <typename T, int NB, int MB, bool EXACT>
+__global__ void __launch_bounds__(Tile<T, NB, MB, EXACT>::NT)
+    pdip_whole_kernel(const T* A_, const T* Bm_, const T* c_, const T* xr_,
+                      const T* ur_, const T* x0_, const T* Q, const T* QN,
+                      const T* R, const T* lb, const T* ub, T* u_out_,
+                      T* xs_out_, T* scratch, int H, int n_, int m_, int B_,
+                      int iters, int vec16_) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  using TL = Tile<T, NB, MB, EXACT>;
+  const int n = EXACT ? NB : n_, m = EXACT ? MB : m_;
+  const long long B = B_;
+  const long long Bp = static_cast<long long>(gridDim.x) * TL::TS;
+  const bool vec16 = vec16_ != 0;
+  const TileThread th = tile_thread<TL>();
+  const int j = th.j;
+  const TileSmem<TL, T> sm(tile_smem);
+  tile_setup<TL>(sm, Q, QN, R, n, m, th);
+  const TileLtv<T> ltv{{A_, n, n, B, B, vec16}, {Bm_, n, m, B, B, vec16}};
+  const TileArr<const T> c{c_, n, 1, B, B, vec16};
+  const TileArr<const T> x0{x0_, n, 1, B, B, vec16};
+  const TileArr<T> u_out{u_out_, m, 1, B, B, vec16};
+  const TileArr<T> xs_out{xs_out_, n, 1, B, B, vec16};
+  const WholeScratch<T> w(scratch, H, n, m, Bp);
+  WholeIo<T> io{w, {xr_, n, 1, B, B, vec16}, {ur_, m, 1, B, B, vec16}, th};
+  const int HM = H * m;
+  // element (h, i) of an (H, m) scratch array, this thread's scenario
+  auto at = [&](int idx) { return static_cast<long long>(idx) * Bp + th.b; };
+
+  for (int idx = j; idx < HM; idx += NB) {
+    const int i = idx % m;
+    const T mid = T(0.5) * (lb[i] + ub[i]);
+    const T half = T(0.5) * (ub[i] - lb[i]);
+    w.u.p[at(idx)] = mid;
+    w.sl.p[at(idx)] = half;
+    w.su.p[at(idx)] = half;
+    w.zl.p[at(idx)] = T(1);
+    w.zu.p[at(idx)] = T(1);
+  }
+  rollout_pass<TL>(sm, ltv, c, x0, w.u, w.xs, H, th);
 
   const T N2 = T(2.0 * H * m);
-  T V[NMAX * NMAX], VA[NMAX * NMAX], VB[NMAX * MMAX], F[MMAX * NMAX],
-      K[MMAX * NMAX], L[MMAX * MMAX], inv_d[MMAX];
-  T lam[NMAX], lam_full[NMAX], v[NMAX], vn[NMAX], grad[MMAX], w[MMAX],
-      k[MMAX], y[MMAX], dx[NMAX], du[MMAX];
-
-  // substitution with the factor of stage h: G⁻¹ rhs, rhs and out of length m
-  auto chol_apply = [&](const T* Lf, const T* id, const T* rhs, T* out) {
-    for (int i = 0; i < m; ++i) {
-      T t = rhs[i];
-      for (int kk = 0; kk < i; ++kk) t -= Lf[i * m + kk] * y[kk];
-      y[i] = t * id[i];
-    }
-    for (int i = m - 1; i >= 0; --i) {
-      T t = y[i];
-      for (int kk = i + 1; kk < m; ++kk) t -= Lf[kk * m + i] * out[kk];
-      out[i] = t * id[i];
-    }
-  };
-  // closed-loop forward pass du = −K dx − k, dx' = A dx + B du
-  auto forward = [&](const Lanes<T>& kk_du, bool store_dx) {
-    for (int i = 0; i < n; ++i) dx[i] = T(0);
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < m; ++i) {
-        T t = T(0);
-        for (int j = 0; j < n; ++j) t += Ks(h, i, j, b) * dx[j];
-        du[i] = -t - kk_du(h, i, 0, b);
-      }
-      for (int i = 0; i < n; ++i) {
-        T a = T(0), bb = T(0);
-        for (int j = 0; j < n; ++j) a += A(h, i, j, b) * dx[j];
-        for (int j = 0; j < m; ++j) bb += Bm(h, i, j, b) * du[j];
-        x1[i] = a + bb;
-      }
-      for (int i = 0; i < m; ++i) kk_du(h, i, 0, b) = du[i];
-      for (int i = 0; i < n; ++i) {
-        dx[i] = x1[i];
-        if (store_dx) dxs(h, i, 0, b) = x1[i];
-      }
-    }
-  };
-
+  const TileArr<T>* const no_dx = nullptr;
   for (int it = 0; it < iters; ++it) {
     // ---- phase 1: fused reverse pass (adjoint + Riccati + affine rhs) ----
-    for (int i = 0; i < n; ++i) {
-      lam[i] = T(0);
-      v[i] = T(0);
-      for (int j = 0; j < n; ++j) V[i * n + j] = QN[i * n + j];
-    }
-    for (int h = H - 1; h >= 0; --h) {
-      const T lastf = (h == H - 1) ? T(1) : T(0);
-      // q_t = Qm (x_h − x_ref,h), Qm = QN at the last stage
-      for (int i = 0; i < n; ++i) {
-        T t = T(0);
-        for (int j = 0; j < n; ++j) {
-          const T qm = Q[i * n + j] + (QN[i * n + j] - Q[i * n + j]) * lastf;
-          T e = xss(h, j, 0, b);
-          if (with_xref) e -= xr(h, j, 0, b);
-          t += qm * e;
-        }
-        lam_full[i] = t + lam[i];
-      }
-      // grad_t = R (u − u_ref) + Bᵀ λ
-      for (int i = 0; i < m; ++i) {
-        T ru = T(0), bl = T(0);
-        for (int j = 0; j < m; ++j) {
-          T e = us(h, j, 0, b);
-          if (with_uref) e -= ur(h, j, 0, b);
-          ru += R[i * m + j] * e;
-        }
-        for (int kk = 0; kk < n; ++kk) bl += Bm(h, kk, i, b) * lam_full[kk];
-        grad[i] = ru + bl;
-      }
-      // VB = V B, VA = V A, G = R + diag(D) + Bᵀ V B, F = (V B)ᵀ A
-      for (int i = 0; i < n; ++i) {
-        for (int j = 0; j < m; ++j) {
-          T t = T(0);
-          for (int kk = 0; kk < n; ++kk) t += V[i * n + kk] * Bm(h, kk, j, b);
-          VB[i * m + j] = t;
-        }
-        for (int j = 0; j < n; ++j) {
-          T t = T(0);
-          for (int kk = 0; kk < n; ++kk) t += V[i * n + kk] * A(h, kk, j, b);
-          VA[i * n + j] = t;
-        }
-      }
-      for (int i = 0; i < m; ++i) {
-        const T Dt = zls(h, i, 0, b) / sls(h, i, 0, b) +
-                     zus(h, i, 0, b) / sus(h, i, 0, b);
-        for (int j = 0; j < m; ++j) {
-          T t = T(0);
-          for (int kk = 0; kk < n; ++kk) t += Bm(h, kk, i, b) * VB[kk * m + j];
-          L[i * m + j] = (R[i * m + j] + (i == j ? Dt : T(0))) + t;
-        }
-        for (int j = 0; j < n; ++j) {
-          T t = T(0);
-          for (int kk = 0; kk < n; ++kk) t += VB[kk * m + i] * A(h, kk, j, b);
-          F[i * n + j] = t;
-        }
-      }
-      // factor G in place (lower triangle of L), once per stage
-      for (int j = 0; j < m; ++j) {
-        T s = L[j * m + j];
-        for (int kk = 0; kk < j; ++kk) s -= L[j * m + kk] * L[j * m + kk];
-        const T dj = T(1) / sqrt(s);
-        inv_d[j] = dj;
-        L[j * m + j] = s * dj;
-        for (int i = j + 1; i < m; ++i) {
-          T t = L[i * m + j];
-          for (int kk = 0; kk < j; ++kk) t -= L[i * m + kk] * L[j * m + kk];
-          L[i * m + j] = t * dj;
-        }
-      }
-      // K = G⁻¹ F column by column; k = G⁻¹ (grad + Bᵀ v)
-      for (int j = 0; j < n; ++j) {
-        T fc[MMAX], kc[MMAX];
-        for (int i = 0; i < m; ++i) fc[i] = F[i * n + j];
-        chol_apply(L, inv_d, fc, kc);
-        for (int i = 0; i < m; ++i) K[i * n + j] = kc[i];
-      }
-      for (int i = 0; i < m; ++i) {
-        T t = T(0);
-        for (int kk = 0; kk < n; ++kk) t += Bm(h, kk, i, b) * v[kk];
-        w[i] = grad[i] + t;
-      }
-      chol_apply(L, inv_d, w, k);
-      // V ← sym(Q + Aᵀ V A − Fᵀ K); v ← Aᵀ v − Kᵀ w; λ ← Aᵀ λ_full
-      for (int i = 0; i < n; ++i) {
-        for (int j = 0; j < n; ++j) {
-          T a = T(0), fk = T(0);
-          for (int kk = 0; kk < n; ++kk) a += A(h, kk, i, b) * VA[kk * n + j];
-          for (int kk = 0; kk < m; ++kk) fk += F[kk * n + i] * K[kk * n + j];
-          V[i * n + j] = Q[i * n + j] + a - fk;
-        }
-      }
-      for (int i = 0; i < n; ++i) {
-        for (int j = i + 1; j < n; ++j) {
-          const T sym = T(0.5) * (V[i * n + j] + V[j * n + i]);
-          V[i * n + j] = sym;
-          V[j * n + i] = sym;
-        }
-      }
-      for (int i = 0; i < n; ++i) {
-        T av = T(0), kw = T(0), al = T(0);
-        for (int kk = 0; kk < n; ++kk) {
-          av += A(h, kk, i, b) * v[kk];
-          al += A(h, kk, i, b) * lam_full[kk];
-        }
-        for (int kk = 0; kk < m; ++kk) kw += K[kk * n + i] * w[kk];
-        vn[i] = av - kw;
-        lam[i] = al;
-      }
-      for (int i = 0; i < n; ++i) v[i] = vn[i];
-      for (int i = 0; i < m; ++i) {
-        for (int j = 0; j < n; ++j) Ks(h, i, j, b) = K[i * n + j];
-        for (int j = 0; j < m; ++j)
-          Gs(h, i, j, b) = j < i ? L[i * m + j] : (j == i ? inv_d[i] : T(0));
-        w2(h, i, 0, b) = grad[i];
-        w1(h, i, 0, b) = k[i];
-      }
-    }
+    reverse_pass<TL>(sm, io, ltv, H, th);
 
     // ---- phase 2: affine forward (du_aff overwrites k_aff in w1) ---------
-    forward(w1, false);
+    forward_pass<TL>(sm, ltv, w.K, w.w1, no_dx, H, th);
 
     // ---- phase 3: Mehrotra centering + corrector rhs ----------------------
-    T mu_s = T(0), t1 = T(INFINITY), t2 = T(INFINITY), t3 = T(INFINITY),
-      t4 = T(INFINITY);
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < m; ++i) {
-        const T sl = sls(h, i, 0, b), su = sus(h, i, 0, b);
-        const T zl = zls(h, i, 0, b), zu = zus(h, i, 0, b);
-        const T dua = w1(h, i, 0, b);
-        const T dzla = -zl - (zl / sl) * dua;
-        const T dzua = -zu + (zu / su) * dua;
-        mu_s += sl * zl + su * zu;
-        t1 = fmin(t1, max_step_term(sl, dua));
-        t2 = fmin(t2, max_step_term(su, -dua));
-        t3 = fmin(t3, max_step_term(zl, dzla));
-        t4 = fmin(t4, max_step_term(zu, dzua));
-      }
+    __syncthreads();  // du_aff of every column is there
+    T mu_s = T(0), t[4] = {T(INFINITY), T(INFINITY), T(INFINITY), T(INFINITY)};
+    for (int idx = j; idx < HM; idx += NB) {
+      const long long e = at(idx);
+      const T sl = w.sl.p[e], su = w.su.p[e], zl = w.zl.p[e], zu = w.zu.p[e];
+      const T dua = w.w1.p[e];
+      const T dzla = -zl - (zl / sl) * dua;
+      const T dzua = -zu + (zu / su) * dua;
+      mu_s += sl * zl + su * zu;
+      t[0] = fmin(t[0], max_step_term(sl, dua));
+      t[1] = fmin(t[1], max_step_term(su, -dua));
+      t[2] = fmin(t[2], max_step_term(zl, dzla));
+      t[3] = fmin(t[3], max_step_term(zu, dzua));
     }
+    tile_reduce<TL>(sm, th, mu_s, t);
     const T mu = mu_s / N2;
-    T a_p = fmin(fmin(T(1), T(0.995) * t1), fmin(T(1), T(0.995) * t2));
-    T a_d = fmin(fmin(T(1), T(0.995) * t3), fmin(T(1), T(0.995) * t4));
+    T a_p = step_length(t, 0, 1), a_d = step_length(t, 2, 3);
     T mua_s = T(0);
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < m; ++i) {
-        const T sl = sls(h, i, 0, b), su = sus(h, i, 0, b);
-        const T zl = zls(h, i, 0, b), zu = zus(h, i, 0, b);
-        const T dua = w1(h, i, 0, b);
-        const T dzla = -zl - (zl / sl) * dua;
-        const T dzua = -zu + (zu / su) * dua;
-        mua_s += (sl + a_p * dua) * (zl + a_d * dzla) +
-                 (su - a_p * dua) * (zu + a_d * dzua);
-      }
+    for (int idx = j; idx < HM; idx += NB) {
+      const long long e = at(idx);
+      const T sl = w.sl.p[e], su = w.su.p[e], zl = w.zl.p[e], zu = w.zu.p[e];
+      const T dua = w.w1.p[e];
+      const T dzla = -zl - (zl / sl) * dua;
+      const T dzua = -zu + (zu / su) * dua;
+      mua_s += (sl + a_p * dua) * (zl + a_d * dzla) +
+               (su - a_p * dua) * (zu + a_d * dzua);
     }
+    tile_reduce<TL>(sm, th, mua_s, t);
     const T mu_aff = mua_s / N2;
     const T ratio = mu_aff / fmax(mu, T(1e-30));
     const T sigma = ratio * ratio * ratio;
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < m; ++i) {
-        const T sl = sls(h, i, 0, b), su = sus(h, i, 0, b);
-        const T zl = zls(h, i, 0, b), zu = zus(h, i, 0, b);
-        const T dua = w1(h, i, 0, b);
-        const T dzla = -zl - (zl / sl) * dua;
-        const T dzua = -zu + (zu / su) * dua;
-        const T rc_l = sigma * mu - dua * dzla - zl * sl;
-        const T rc_u = sigma * mu + dua * dzua - zu * su;
-        const T r_dual = w2(h, i, 0, b) - zl + zu;
-        w2(h, i, 0, b) = r_dual - rc_l / sl + rc_u / su;
-      }
+    for (int idx = j; idx < HM; idx += NB) {
+      const long long e = at(idx);
+      const T sl = w.sl.p[e], su = w.su.p[e], zl = w.zl.p[e], zu = w.zu.p[e];
+      const T dua = w.w1.p[e];
+      const T dzla = -zl - (zl / sl) * dua;
+      const T dzua = -zu + (zu / su) * dua;
+      const T rc_l = sigma * mu - dua * dzla - zl * sl;
+      const T rc_u = sigma * mu + dua * dzua - zu * su;
+      const T r_dual = w.w2.p[e] - zl + zu;
+      w.w2.p[e] = r_dual - rc_l / sl + rc_u / su;
     }
 
     // ---- phase 4: corrector reverse pass, reusing the stage factors ------
-    for (int i = 0; i < n; ++i) v[i] = T(0);
-    for (int h = H - 1; h >= 0; --h) {
-      for (int i = 0; i < m; ++i) {
-        T t = T(0);
-        for (int kk = 0; kk < n; ++kk) t += Bm(h, kk, i, b) * v[kk];
-        w[i] = w2(h, i, 0, b) + t;
-        for (int j = 0; j < i; ++j) L[i * m + j] = Gs(h, i, j, b);
-        inv_d[i] = Gs(h, i, i, b);
-      }
-      chol_apply(L, inv_d, w, k);
-      for (int i = 0; i < n; ++i) {
-        T av = T(0), kw = T(0);
-        for (int kk = 0; kk < n; ++kk) av += A(h, kk, i, b) * v[kk];
-        for (int kk = 0; kk < m; ++kk) kw += Ks(h, kk, i, b) * w[kk];
-        vn[i] = av - kw;
-      }
-      for (int i = 0; i < n; ++i) v[i] = vn[i];
-      for (int i = 0; i < m; ++i) w2(h, i, 0, b) = k[i];
-    }
+    vector_pass<TL>(sm, ltv, w.K, w.factor, w.w2, H, th);
 
     // ---- phase 5: corrector forward (du overwrites k2; dxs stored) -------
-    forward(w2, true);
+    forward_pass<TL>(sm, ltv, w.K, w.w2, &w.dxs, H, th);
 
     // ---- phase 6: step lengths + update (the trajectory is affine in u) --
-    t1 = t2 = t3 = t4 = T(INFINITY);
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < m; ++i) {
-        const T sl = sls(h, i, 0, b), su = sus(h, i, 0, b);
-        const T zl = zls(h, i, 0, b), zu = zus(h, i, 0, b);
-        const T dua = w1(h, i, 0, b), dun = w2(h, i, 0, b);
-        const T dzla = -zl - (zl / sl) * dua;
-        const T dzua = -zu + (zu / su) * dua;
-        const T rc_l = sigma * mu - dua * dzla - zl * sl;
-        const T rc_u = sigma * mu + dua * dzua - zu * su;
-        const T dzl = (rc_l - zl * dun) / sl;
-        const T dzu = (rc_u + zu * dun) / su;
-        t1 = fmin(t1, max_step_term(sl, dun));
-        t2 = fmin(t2, max_step_term(su, -dun));
-        t3 = fmin(t3, max_step_term(zl, dzl));
-        t4 = fmin(t4, max_step_term(zu, dzu));
-      }
+    __syncthreads();  // du of every column is there
+    T none = T(0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) t[q] = T(INFINITY);
+    for (int idx = j; idx < HM; idx += NB) {
+      const long long e = at(idx);
+      const T sl = w.sl.p[e], su = w.su.p[e], zl = w.zl.p[e], zu = w.zu.p[e];
+      const T dua = w.w1.p[e], dun = w.w2.p[e];
+      const T dzla = -zl - (zl / sl) * dua;
+      const T dzua = -zu + (zu / su) * dua;
+      const T rc_l = sigma * mu - dua * dzla - zl * sl;
+      const T rc_u = sigma * mu + dua * dzua - zu * su;
+      const T dzl = (rc_l - zl * dun) / sl;
+      const T dzu = (rc_u + zu * dun) / su;
+      t[0] = fmin(t[0], max_step_term(sl, dun));
+      t[1] = fmin(t[1], max_step_term(su, -dun));
+      t[2] = fmin(t[2], max_step_term(zl, dzl));
+      t[3] = fmin(t[3], max_step_term(zu, dzu));
     }
-    a_p = fmin(fmin(T(1), T(0.995) * t1), fmin(T(1), T(0.995) * t2));
-    a_d = fmin(fmin(T(1), T(0.995) * t3), fmin(T(1), T(0.995) * t4));
-    for (int h = 0; h < H; ++h) {
-      for (int i = 0; i < m; ++i) {
-        const T sl = sls(h, i, 0, b), su = sus(h, i, 0, b);
-        const T zl = zls(h, i, 0, b), zu = zus(h, i, 0, b);
-        const T dua = w1(h, i, 0, b), dun = w2(h, i, 0, b);
-        const T dzla = -zl - (zl / sl) * dua;
-        const T dzua = -zu + (zu / su) * dua;
-        const T rc_l = sigma * mu - dua * dzla - zl * sl;
-        const T rc_u = sigma * mu + dua * dzua - zu * su;
-        const T dzl = (rc_l - zl * dun) / sl;
-        const T dzu = (rc_u + zu * dun) / su;
-        us(h, i, 0, b) = us(h, i, 0, b) + a_p * dun;
-        sls(h, i, 0, b) = sl + a_p * dun;
-        sus(h, i, 0, b) = su - a_p * dun;
-        zls(h, i, 0, b) = zl + a_d * dzl;
-        zus(h, i, 0, b) = zu + a_d * dzu;
+    tile_reduce<TL>(sm, th, none, t);
+    a_p = step_length(t, 0, 1);
+    a_d = step_length(t, 2, 3);
+    for (int idx = j; idx < HM; idx += NB) {
+      const long long e = at(idx);
+      const T sl = w.sl.p[e], su = w.su.p[e], zl = w.zl.p[e], zu = w.zu.p[e];
+      const T dua = w.w1.p[e], dun = w.w2.p[e];
+      const T dzla = -zl - (zl / sl) * dua;
+      const T dzua = -zu + (zu / su) * dua;
+      const T rc_l = sigma * mu - dua * dzla - zl * sl;
+      const T rc_u = sigma * mu + dua * dzua - zu * su;
+      const T dzl = (rc_l - zl * dun) / sl;
+      const T dzu = (rc_u + zu * dun) / su;
+      w.u.p[e] = w.u.p[e] + a_p * dun;
+      w.sl.p[e] = sl + a_p * dun;
+      w.su.p[e] = su - a_p * dun;
+      w.zl.p[e] = zl + a_d * dzl;
+      w.zu.p[e] = zu + a_d * dzu;
+    }
+    if (j < n) {
+      for (int h = 0; h < H; ++h) {
+        const long long e = w.xs.at(h, j, 0, th);
+        w.xs.p[e] = w.xs.p[e] + a_p * w.dxs.p[e];
       }
-      for (int i = 0; i < n; ++i)
-        xss(h, i, 0, b) = xss(h, i, 0, b) + a_p * dxs(h, i, 0, b);
     }
   }
 
   // ---- clip to the box + the final consistent rollout ---------------------
-  for (int h = 0; h < H; ++h) {
-    for (int i = 0; i < m; ++i) {
-      const T uc = fmin(fmax(us(h, i, 0, b), lb[i]), ub[i]);
-      us(h, i, 0, b) = uc;
-      u_out(h, i, 0, b) = uc;
-    }
+  __syncthreads();
+  for (int idx = j; idx < HM; idx += NB) {
+    const int i = idx % m;
+    const T uc = fmin(fmax(w.u.p[at(idx)], lb[i]), ub[i]);
+    w.u.p[at(idx)] = uc;
+    u_out.store(idx / m, i, 0, th, uc);
   }
-  rollout(xs_out);
+  rollout_pass<TL>(sm, ltv, c, x0, w.u, xs_out, H, th);
 }
 
-template <typename T, int NMAX, int MMAX>
+// every pointer a multiple of 16 B
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// scratch values a scenario: K, the packed factors, seven (H, m) and two
+// (H, n) arrays (ops/pdip_whole.py::scratch_values)
+inline long long scratch_values(int H, int n, int m) {
+  return static_cast<long long>(H) * (m * n + m * m + 7 * m + 2 * n);
+}
+
+template <typename T, int NB, int MB, bool EXACT>
 int launch(const void* A, const void* Bm, const void* c, const void* xr,
            const void* ur, const void* x0, const void* Q, const void* QN,
            const void* R, const void* lb, const void* ub, void* u_out,
-           void* xs_out, void* scratch, int H, int n, int m, int B, int iters,
-           void* stream) {
-  if (H < 1 || n < 1 || n > NMAX || m < 1 || m > MMAX || B < 1 || iters < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 32;  // one warp per block spreads B=8192 over 256 blocks
-  pdip_whole_kernel<T, NMAX, MMAX><<<(B + threads - 1) / threads, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+           void* xs_out, void* scratch, long long scratch_count, int H, int n,
+           int m, int B, int iters, int smem_bytes, void* stream) {
+  using TL = Tile<T, NB, MB, EXACT>;
+  const int blocks = (B + TL::TS - 1) / TL::TS;
+  // the wrapper's launch shape and scratch (ops/_tile.py) must be this
+  // instance's
+  if (smem_bytes != TL::SMEM ||
+      scratch_count <
+          scratch_values(H, n, m) * static_cast<long long>(blocks) * TL::TS)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = pdip_whole_kernel<T, NB, MB, EXACT>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int vec16 = aligned16({A, Bm, c, scratch}) &&
+                    (static_cast<long long>(B) * sizeof(T)) % 16 == 0;
+  kernel<<<blocks, TL::NT, TL::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(c), static_cast<const T*>(xr),
       static_cast<const T*>(ur), static_cast<const T*>(x0),
       static_cast<const T*>(Q), static_cast<const T*>(QN),
       static_cast<const T*>(R), static_cast<const T*>(lb),
       static_cast<const T*>(ub), static_cast<T*>(u_out),
-      static_cast<T*>(xs_out), static_cast<T*>(scratch), H, n, m, B, iters);
+      static_cast<T*>(xs_out), static_cast<T*>(scratch), H, n, m, B, iters,
+      vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace reak
 
+#if !defined(REAK_NMAX) || !defined(REAK_MMAX) || !defined(REAK_TYPE) || \
+    !defined(REAK_SUFFIX)
+#error "one bound and type a library: -DREAK_NMAX -DREAK_MMAX -DREAK_TYPE -DREAK_SUFFIX (ops/_build.py)"
+#endif
+
 extern "C" {
 
-// One entry point per (bound, type): reak_pdip_whole_<NMAX>x<MMAX>_<type>.
+// The entry point of this library's bound and type,
+// reak_pdip_whole_<NMAX>x<MMAX>_<type>: it takes the instance of the exact
+// widths where (n, m) are just those, else the padded (NMAX, MMAX).
 #define REAK_PDIP_ENTRY(NM, MM, T, SUFFIX)                                   \
   int reak_pdip_whole_##NM##x##MM##_##SUFFIX(                                \
       const void* A, const void* Bm, const void* c, const void* xr,          \
       const void* ur, const void* x0, const void* Q, const void* QN,         \
       const void* R, const void* lb, const void* ub, void* u_out,            \
-      void* xs_out, void* scratch, int H, int n, int m, int B, int iters,    \
-      void* stream) {                                                        \
-    return reak::launch<T, NM, MM>(A, Bm, c, xr, ur, x0, Q, QN, R, lb, ub,   \
-                                   u_out, xs_out, scratch, H, n, m, B,       \
-                                   iters, stream);                           \
+      void* xs_out, void* scratch, long long scratch_count, int H, int n,    \
+      int m, int B, int iters, int smem_bytes, void* stream) {               \
+    constexpr int EN = reak::exact_width(NM), EM = reak::exact_width(MM);    \
+    if (H < 1 || n < 1 || n > NM || m < 1 || m > MM || B < 1 || iters < 0)   \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    if (n == EN && m == EM)                                                  \
+      return reak::launch<T, EN, EM, true>(                                  \
+          A, Bm, c, xr, ur, x0, Q, QN, R, lb, ub, u_out, xs_out, scratch,    \
+          scratch_count, H, n, m, B, iters, smem_bytes, stream);             \
+    return reak::launch<T, NM, MM, false>(                                   \
+        A, Bm, c, xr, ur, x0, Q, QN, R, lb, ub, u_out, xs_out, scratch,      \
+        scratch_count, H, n, m, B, iters, smem_bytes, stream);               \
   }
+#define REAK_PDIP_ENTRY_OF(NM, MM, T, SUFFIX) REAK_PDIP_ENTRY(NM, MM, T, SUFFIX)
 
-REAK_PDIP_ENTRY(16, 8, float, f32)
-REAK_PDIP_ENTRY(16, 8, double, f64)
-REAK_PDIP_ENTRY(24, 12, float, f32)
-REAK_PDIP_ENTRY(24, 12, double, f64)
+REAK_PDIP_ENTRY_OF(REAK_NMAX, REAK_MMAX, REAK_TYPE, REAK_SUFFIX)
 
 const char* reak_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -14,32 +14,37 @@
 //   K4c  A, Bm, K, k, dx0 (n,B) → du (H,m,B), dx (H,n,B): the closed-loop
 //        forward pass du = −K dx − k, dx' = A dx + B du, carry dx (n).
 //
-// What bounds it on the H100: by the card's peaks, bytes.  Each stage of a
-// scenario reads A and B (216 values at n = 12, m = 6) and a few vectors and
-// writes its gains: in f32 K4a moves 1,440 B per stage and scenario against
-// ~14k flops, K4b 1,344 B, K4c 1,248 B, so at H = 256, B = 8192 one pass
-// moves 2.6-3.0 GB, 0.8-0.9 ms at 3.35 TB/s.  In this first design,
-// latency: the stages of a scenario form a chain (each needs the carry of
-// the stage before it), so the parallelism is the batch — one thread per
-// scenario, about two warps per SM at B = 8192, far too few to hide the
-// latency of the loads and of the dependent multiply-adds.
+// What bounds them on the H100: by the card's peaks, bytes.  Each stage of
+// a scenario reads A and B (216 values at n = 12, m = 6) and a few vectors
+// and writes its gains: in f32 K4a moves 1,440 B per stage and scenario
+// against ~14k flops, K4b 1,344 B, K4c 1,248 B, so at H = 256, B = 8192 one
+// pass moves 2.6-3.0 GB, 0.8-0.9 ms at 3.35 TB/s.  The stages of a scenario
+// form a chain (each needs the carry of the stage before it), so what a
+// kernel reaches depends on how it hides the latency along that chain.
 //
-// Design: the TPU kernel's grid walks the stages in order and keeps the
+// Design.  The TPU kernels' grid walks the stages in order and keeps the
 // carries in VMEM scratch from one grid step to the next; the blocks of a
-// CUDA grid run in no order, so each thread loops over the stages itself
-// and keeps its carries in its own arrays (registers, spilling V, V·A, V·B,
-// F and K to L1-cached local memory at n = 12).  Neighbouring threads take
-// neighbouring scenarios, so every load and store of the scenario-last
-// layout coalesces.  The Schur blocks G are factored by the recurrence of
-// the plain _chol_solve_lanes (d = 1/√s, L_jj = s·d, off-diagonals and both
-// substitutions multiply by d), so f64 agrees with it to rounding; K4b
-// factors each G again, as the TPU kernel does, rather than storing the
-// factor.  NMAX, MMAX size the per-thread arrays; the instances are the
-// whole-solve kernel's, (16, 8) and (24, 12).  Any B >= 1 is taken (the
-// TPU's B % 512 is a tile rule): the ragged edge returns.
+// CUDA grid run in no order, so every kernel loops over the stages itself.
+// K4a runs the reverse pass of riccati_tile.cuh: a tile of scenarios per
+// block, a warp per matrix column, the widths at compile time, V and the
+// stage's A and B in shared memory, the next stage copied in by cp.async
+// while this one computes (see that header).  It takes q, u_eff and D as
+// they come and writes G unfactored.  Its instances: (12, 6) for the
+// fixed-base arms and the satellite, (24, 12) for the floating arm's
+// tangent, and padded (16, 8) and (24, 12) ones for every other width.
+// K4b and K4c keep the first design: one thread per scenario with its
+// carries in its own arrays, NMAX, MMAX sizing them, instances (16, 8) and
+// (24, 12); K4b factors each G again, as the TPU kernel does, by the
+// recurrence of the plain _chol_solve_lanes (d = 1/√s, L_jj = s·d,
+// off-diagonals and both substitutions multiply by d), so f64 agrees with
+// it to rounding.  Any B >= 1 is taken (the TPU's B % 512 is a tile rule).
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
+
 #include "lanes.cuh"
+#include "riccati_tile.cuh"
 
 namespace reak {
 namespace {
@@ -78,112 +83,89 @@ __device__ inline void chol_apply(const T* L, const T* inv_d, const T* rhs,
   }
 }
 
-// K4a
-template <typename T, int NMAX, int MMAX>
-__global__ void fused_backward_kernel(
-    const T* __restrict__ A_, const T* __restrict__ Bm_,
-    const T* __restrict__ q_, const T* __restrict__ u_,
-    const T* __restrict__ D_, const T* __restrict__ Q,
-    const T* __restrict__ QN, const T* __restrict__ R,
-    T* __restrict__ grad_, T* __restrict__ K_, T* __restrict__ G_,
-    T* __restrict__ k_, int H, int n, int m, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;  // the ragged edge: scenarios are independent
-  const Lanes<const T> A{A_, n, n, B}, Bm{Bm_, n, m, B}, q{q_, n, 1, B},
-      u{u_, m, 1, B}, D{D_, m, 1, B};
-  const Lanes<T> grad{grad_, m, 1, B}, Ks{K_, m, n, B}, Gs{G_, m, m, B},
-      ks{k_, m, 1, B};
-  T V[NMAX * NMAX], VA[NMAX * NMAX], VB[NMAX * MMAX], F[MMAX * NMAX],
-      K[MMAX * NMAX], L[MMAX * MMAX], inv_d[MMAX], y[MMAX];
-  T lam[NMAX], lam_full[NMAX], v[NMAX], vn[NMAX], g[MMAX], w[MMAX], k[MMAX];
-  for (int i = 0; i < n; ++i) {
-    lam[i] = T(0);
-    v[i] = T(0);
-    for (int j = 0; j < n; ++j) V[i * n + j] = QN[i * n + j];
+// K4a: what the reverse pass of riccati_tile.cuh reads and writes a stage
+template <typename T>
+struct FusedBackwardIo {
+  static constexpr bool kStageCost = false, kStoreG = true,
+                        kStoreFactor = false;
+  TileArr<const T> q, u, D;
+  TileArr<T> grad, K, G, k;
+  const TileThread& th;
+  __device__ T x_term(int h, int i) const { return q.load(h, i, 0, th); }
+  __device__ T u_eff(int h, int i) const { return u.load(h, i, 0, th); }
+  __device__ T barrier(int h, int i) const { return D.load(h, i, 0, th); }
+  __device__ void store_grad(int h, int i, T v) const {
+    grad.store(h, i, 0, th, v);
   }
-  for (int h = H - 1; h >= 0; --h) {
-    // grad_t = R u_eff + Bᵀ (q_t + λ)
-    for (int i = 0; i < n; ++i) lam_full[i] = q(h, i, 0, b) + lam[i];
-    for (int i = 0; i < m; ++i) {
-      T ru = T(0), bl = T(0);
-      for (int j = 0; j < m; ++j) ru += R[i * m + j] * u(h, j, 0, b);
-      for (int kk = 0; kk < n; ++kk) bl += Bm(h, kk, i, b) * lam_full[kk];
-      g[i] = ru + bl;
-    }
-    // VB = V B, VA = V A, G = R + diag(D) + Bᵀ V B, F = (V B)ᵀ A
-    for (int i = 0; i < n; ++i) {
-      for (int j = 0; j < m; ++j) {
-        T t = T(0);
-        for (int kk = 0; kk < n; ++kk) t += V[i * n + kk] * Bm(h, kk, j, b);
-        VB[i * m + j] = t;
-      }
-      for (int j = 0; j < n; ++j) {
-        T t = T(0);
-        for (int kk = 0; kk < n; ++kk) t += V[i * n + kk] * A(h, kk, j, b);
-        VA[i * n + j] = t;
-      }
-    }
-    for (int i = 0; i < m; ++i) {
-      const T Dt = D(h, i, 0, b);
-      for (int j = 0; j < m; ++j) {
-        T t = T(0);
-        for (int kk = 0; kk < n; ++kk) t += Bm(h, kk, i, b) * VB[kk * m + j];
-        L[i * m + j] = (R[i * m + j] + (i == j ? Dt : T(0))) + t;
-        Gs(h, i, j, b) = L[i * m + j];
-      }
-      for (int j = 0; j < n; ++j) {
-        T t = T(0);
-        for (int kk = 0; kk < n; ++kk) t += VB[kk * m + i] * A(h, kk, j, b);
-        F[i * n + j] = t;
-      }
-    }
-    // K = G⁻¹ F column by column; k = G⁻¹ (grad + Bᵀ v)
-    chol_factor(L, inv_d, m);
-    for (int j = 0; j < n; ++j) {
-      T fc[MMAX], kc[MMAX];
-      for (int i = 0; i < m; ++i) fc[i] = F[i * n + j];
-      chol_apply(L, inv_d, fc, y, kc, m);
-      for (int i = 0; i < m; ++i) K[i * n + j] = kc[i];
-    }
-    for (int i = 0; i < m; ++i) {
-      T t = T(0);
-      for (int kk = 0; kk < n; ++kk) t += Bm(h, kk, i, b) * v[kk];
-      w[i] = g[i] + t;
-    }
-    chol_apply(L, inv_d, w, y, k, m);
-    // V ← sym(Q + Aᵀ V A − Fᵀ K); v ← Aᵀ v − Kᵀ w; λ ← Aᵀ λ_full
-    for (int i = 0; i < n; ++i) {
-      for (int j = 0; j < n; ++j) {
-        T a = T(0), fk = T(0);
-        for (int kk = 0; kk < n; ++kk) a += A(h, kk, i, b) * VA[kk * n + j];
-        for (int kk = 0; kk < m; ++kk) fk += F[kk * n + i] * K[kk * n + j];
-        V[i * n + j] = Q[i * n + j] + a - fk;
-      }
-    }
-    for (int i = 0; i < n; ++i) {
-      for (int j = i + 1; j < n; ++j) {
-        const T sym = T(0.5) * (V[i * n + j] + V[j * n + i]);
-        V[i * n + j] = sym;
-        V[j * n + i] = sym;
-      }
-    }
-    for (int i = 0; i < n; ++i) {
-      T av = T(0), kw = T(0), al = T(0);
-      for (int kk = 0; kk < n; ++kk) {
-        av += A(h, kk, i, b) * v[kk];
-        al += A(h, kk, i, b) * lam_full[kk];
-      }
-      for (int kk = 0; kk < m; ++kk) kw += K[kk * n + i] * w[kk];
-      vn[i] = av - kw;
-      lam[i] = al;
-    }
-    for (int i = 0; i < n; ++i) v[i] = vn[i];
-    for (int i = 0; i < m; ++i) {
-      for (int j = 0; j < n; ++j) Ks(h, i, j, b) = K[i * n + j];
-      grad(h, i, 0, b) = g[i];
-      ks(h, i, 0, b) = k[i];
-    }
+  __device__ void store_K(int h, int i, int j, T v) const {
+    K.store(h, i, j, th, v);
   }
+  __device__ void store_G(int h, int i, int j, T v) const {
+    G.store(h, i, j, th, v);
+  }
+  __device__ void store_factor(int, int, int, T) const {}
+  __device__ void store_k(int h, int i, T v) const { k.store(h, i, 0, th, v); }
+};
+
+// Registers are held to two blocks an SM where two fit its shared memory:
+// measured at (12, 6) in f32, 80 registers and a 144 B stack with 24 warps
+// an SM beat 168 registers with 12 (3.70 against 4.31 ms at H = 256,
+// B = 8192 on an H100 at 700 W; ops/tile_shapes.py).
+template <typename T, int NB, int MB, bool EXACT>
+__global__ void __launch_bounds__(Tile<T, NB, MB, EXACT>::NT,
+                                  Tile<T, NB, MB, EXACT>::BLOCKS_PER_SM)
+    fused_backward_kernel(const T* A_, const T* Bm_, const T* q_, const T* u_,
+                          const T* D_, const T* Q, const T* QN, const T* R,
+                          T* grad_, T* K_, T* G_, T* k_, int H, int n_, int m_,
+                          int B_, int vec16_) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  using TL = Tile<T, NB, MB, EXACT>;
+  const int n = EXACT ? NB : n_, m = EXACT ? MB : m_;
+  const long long B = B_;
+  const bool vec16 = vec16_ != 0;
+  const TileThread th = tile_thread<TL>();
+  const TileSmem<TL, T> sm(tile_smem);
+  tile_setup<TL>(sm, Q, QN, R, n, m, th);
+  const TileLtv<T> ltv{{A_, n, n, B, B, vec16}, {Bm_, n, m, B, B, vec16}};
+  FusedBackwardIo<T> io{{q_, n, 1, B, B, vec16},    {u_, m, 1, B, B, vec16},
+                        {D_, m, 1, B, B, vec16},    {grad_, m, 1, B, B, vec16},
+                        {K_, m, n, B, B, vec16},    {G_, m, m, B, B, vec16},
+                        {k_, m, 1, B, B, vec16},    th};
+  reverse_pass<TL>(sm, io, ltv, H, th);
+}
+
+// every pointer a multiple of 16 B
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+template <typename T, int NB, int MB, bool EXACT>
+int launch_fused_backward(const void* A, const void* Bm, const void* q,
+                          const void* u, const void* D, const void* Q,
+                          const void* QN, const void* R, void* grad, void* K,
+                          void* G, void* k, int H, int n, int m, int B,
+                          int smem_bytes, void* stream) {
+  using TL = Tile<T, NB, MB, EXACT>;
+  // the wrapper's launch shape (ops/_tile.py) must be this instance's
+  if (smem_bytes != TL::SMEM)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = fused_backward_kernel<T, NB, MB, EXACT>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int vec16 = aligned16({A, Bm}) &&
+                    (static_cast<long long>(B) * sizeof(T)) % 16 == 0;
+  kernel<<<(B + TL::TS - 1) / TL::TS, TL::NT, TL::SMEM,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(q), static_cast<const T*>(u),
+      static_cast<const T*>(D), static_cast<const T*>(Q),
+      static_cast<const T*>(QN), static_cast<const T*>(R),
+      static_cast<T*>(grad), static_cast<T*>(K), static_cast<T*>(G),
+      static_cast<T*>(k), H, n, m, B, vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K4b
@@ -270,28 +252,33 @@ inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
 }  // namespace
 }  // namespace reak
 
+#if !defined(REAK_NMAX) || !defined(REAK_MMAX) || !defined(REAK_TYPE) || \
+    !defined(REAK_SUFFIX)
+#error "one bound and type a library: -DREAK_NMAX -DREAK_MMAX -DREAK_TYPE -DREAK_SUFFIX (ops/_build.py)"
+#endif
+
 extern "C" {
 
-// One entry point per (pass, bound, type):
-// reak_riccati_<pass>_<NMAX>x<MMAX>_<type>.
+// The entry points of this library's bound and type, one per pass:
+// reak_riccati_<pass>_<NMAX>x<MMAX>_<type>.  K4a's takes the instance of
+// the exact widths where (n, m) are just those, else the padded
+// (NMAX, MMAX).
 #define REAK_RICCATI_ENTRIES(NM, MM, T, SUFFIX)                               \
   int reak_riccati_fused_backward_##NM##x##MM##_##SUFFIX(                     \
       const void* A, const void* Bm, const void* q, const void* u,            \
       const void* D, const void* Q, const void* QN, const void* R,            \
       void* grad, void* K, void* G, void* k, int H, int n, int m, int B,      \
-      void* stream) {                                                         \
+      int smem_bytes, void* stream) {                                         \
+    constexpr int EN = reak::exact_width(NM), EM = reak::exact_width(MM);     \
     if (!reak::shape_ok<NM, MM>(H, n, m, B))                                  \
       return static_cast<int>(cudaErrorInvalidValue);                         \
-    reak::fused_backward_kernel<T, NM, MM>                                    \
-        <<<reak::grid_for(B), reak::kThreads, 0,                              \
-           static_cast<cudaStream_t>(stream)>>>(                              \
-            static_cast<const T*>(A), static_cast<const T*>(Bm),              \
-            static_cast<const T*>(q), static_cast<const T*>(u),               \
-            static_cast<const T*>(D), static_cast<const T*>(Q),               \
-            static_cast<const T*>(QN), static_cast<const T*>(R),              \
-            static_cast<T*>(grad), static_cast<T*>(K), static_cast<T*>(G),    \
-            static_cast<T*>(k), H, n, m, B);                                  \
-    return static_cast<int>(cudaGetLastError());                              \
+    if (n == EN && m == EM)                                                   \
+      return reak::launch_fused_backward<T, EN, EM, true>(                    \
+          A, Bm, q, u, D, Q, QN, R, grad, K, G, k, H, n, m, B, smem_bytes,    \
+          stream);                                                            \
+    return reak::launch_fused_backward<T, NM, MM, false>(                     \
+        A, Bm, q, u, D, Q, QN, R, grad, K, G, k, H, n, m, B, smem_bytes,      \
+        stream);                                                              \
   }                                                                           \
   int reak_riccati_vector_backward_##NM##x##MM##_##SUFFIX(                    \
       const void* A, const void* Bm, const void* rhs, const void* K,          \
@@ -322,10 +309,10 @@ extern "C" {
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-REAK_RICCATI_ENTRIES(16, 8, float, f32)
-REAK_RICCATI_ENTRIES(16, 8, double, f64)
-REAK_RICCATI_ENTRIES(24, 12, float, f32)
-REAK_RICCATI_ENTRIES(24, 12, double, f64)
+#define REAK_RICCATI_ENTRIES_OF(NM, MM, T, SUFFIX) \
+  REAK_RICCATI_ENTRIES(NM, MM, T, SUFFIX)
+
+REAK_RICCATI_ENTRIES_OF(REAK_NMAX, REAK_MMAX, REAK_TYPE, REAK_SUFFIX)
 
 const char* reak_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

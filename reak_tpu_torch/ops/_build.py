@@ -2,11 +2,15 @@
 
 Each kernel is one ``csrc/<name>.cu`` with a plain ``extern "C"`` interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded
-with ``ctypes``.  The library lands in ``build/reak_tpu_torch/`` beside the
-package (listed in ``.gitignore``), named by a hash of the sources and the
-flags, so an edited source is rebuilt and an unchanged one is not.  Nothing
-here runs at import: a machine without ``nvcc`` or CUDA imports the ops
-modules and uses their plain versions on CPU tensors.
+with ``ctypes``.  A source whose instances take long to compile is built once
+per instance, each into a library of its own, so the builds run side by
+side: the library ``<name>@<NMAX>x<MMAX>_<f32|f64>`` is ``csrc/<name>.cu``
+compiled for that one bound and type.  The library lands in
+``build/reak_tpu_torch/`` beside the package (listed in ``.gitignore``),
+named by a hash of the sources and the flags, so an edited source is rebuilt
+and an unchanged one is not.  Nothing here runs at import: a machine without
+``nvcc`` or CUDA imports the ops modules and uses their plain versions on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -19,8 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "reak_tpu_torch"
+# -split-compile=0: a library's instances are optimized on all the cores, so
+# the longest build (the (24, 12) whole-solve kernel in f64) speeds up once
+# the shorter ones have finished
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "-split-compile=0")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -35,24 +43,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def instance_library(name: str, bound, suffix: str) -> str:
+    """The library of ``csrc/<name>.cu`` built for one (NMAX, MMAX) bound
+    and one type (``f32`` or ``f64``)."""
+    return f"{name}@{bound[0]}x{bound[1]}_{suffix}"
+
+
+def _source_and_defines(name: str):
+    """``name`` or ``name@<NMAX>x<MMAX>_<f32|f64>`` → the source file and
+    the macros that select the instance."""
+    base, _, instance = name.partition("@")
+    if not instance:
+        return CSRC / f"{base}.cu", []
+    widths, suffix = instance.split("_")
+    nmax, mmax = widths.split("x")
+    ctype = {"f32": "float", "f64": "double"}[suffix]
+    return CSRC / f"{base}.cu", [f"-DREAK_NMAX={int(nmax)}",
+                                 f"-DREAK_MMAX={int(mmax)}",
+                                 f"-DREAK_TYPE={ctype}",
+                                 f"-DREAK_SUFFIX={suffix}"]
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` goes, keyed by its sources."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    """Where the library ``name`` goes, keyed by its sources and flags."""
+    source, defines = _source_and_defines(name)
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
+    for src in [source] + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:
-    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built: registers,
-    stack frame and spills of every kernel instance."""
+    """What ``ptxas -v`` said when the library ``name`` was built:
+    registers, stack frame and spills of every kernel instance."""
     return library_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build_all(names) -> dict:
-    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
-    ``nvcc`` per source, all started together; returns {name: library}."""
+    """Compile each library of ``names`` that is not built yet, one ``nvcc``
+    per library, all started together; returns {name: library}."""
     outs = {name: library_path(name) for name in names}
     procs = {}
     for name, out in outs.items():
@@ -60,8 +90,9 @@ def build_all(names) -> dict:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        source, defines = _source_and_defines(name)
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o",
+               str(tmp), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp)
@@ -69,7 +100,7 @@ def build_all(names) -> dict:
     for name, (proc, tmp) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            failed.append(f"nvcc failed for {name}:\n{err}")
             continue
         outs[name].with_suffix(".ptxas.txt").write_text(err)
         os.replace(tmp, outs[name])
@@ -79,12 +110,12 @@ def build_all(names) -> dict:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile the library ``name`` unless it is already built."""
     return build_all([name])[name]
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    """The loaded library ``name``, built on first use, with
     ``signatures`` ({function: argtypes}, each returning a CUDA error
     code) declared on it.  Several wrappers may share one library, each
     declaring its own functions."""

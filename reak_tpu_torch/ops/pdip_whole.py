@@ -9,10 +9,17 @@ constrained LTV-MPC QP in one launch — the Hopper port of the Pallas kernel
 ``csrc/pdip_whole.cu``; on CPU tensors it takes the plain version,
 ``solve_plain`` (the scan path of ``ctrl/riccati_soa``).
 
-The kernel keeps its working set in a device-memory scratch buffer, not in
-on-chip memory, so unlike the TPU kernel it covers every horizon.  It is
-built in two instances, one per bound on (n, m); the wrapper takes the
-smallest that holds the problem.
+What bounds it on the H100 is the traffic of its own design: each of the
+eight iterations reads A and B four times and writes and re-reads the gains,
+the factors and the vectors through a device-memory scratch (~20 GB a solve
+at H=50, B=8192 in f32), because the TPU kernel's residency of the whole
+horizon in on-chip memory does not fit an SM.  So the kernel has no horizon
+cap, and it goes after latency instead: a tile of scenarios per block, a
+warp per matrix column, widths at compile time, every stage copied into
+shared memory a stage ahead of its use (``csrc/riccati_tile.cuh``).  The
+launch shape and the scratch size come from ``ops/_tile.tile_config``: the
+widths (12, 6) and (24, 12) run instances of their own, every other width
+within (24, 12) a padded one; any B ≥ 1 is taken.
 """
 from __future__ import annotations
 
@@ -22,9 +29,8 @@ import torch
 
 from reak_tpu_torch.ctrl.riccati_soa import _fused_scan as solve_plain
 from reak_tpu_torch.ops import _build
-
-# the (NMAX, MMAX) instances of csrc/pdip_whole.cu, smallest first
-INSTANCES = ((16, 8), (24, 12))
+from reak_tpu_torch.ops._tile import (INSTANCES, instance_for, tile_config,
+                                      type_suffix)
 
 # launches of the kernel since the count was last set to 0
 launches = 0
@@ -37,36 +43,34 @@ def scratch_values(H: int, n: int, m: int) -> int:
 
 
 # A, Bm, c, x_ref, u_ref, x0, Q, QN, R, lb, ub, u, xs, scratch (pointers),
-# H, n, m, B, iters, stream
-_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the scratch's values, H, n, m, B, iters, shared bytes, stream
+_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+         + [ctypes.c_void_p])
 
 
 def entry_point(bound, dtype) -> str:
-    """The C function of one instance and type."""
-    suffix = "f32" if dtype == torch.float32 else "f64"
-    return f"reak_pdip_whole_{bound[0]}x{bound[1]}_{suffix}"
+    """The C function of one bound and type."""
+    return f"reak_pdip_whole_{bound[0]}x{bound[1]}_{type_suffix(dtype)}"
 
 
-SIGNATURES = {entry_point(b, d): _ARGS for b in INSTANCES
-              for d in (torch.float32, torch.float64)}
+def library(bound, dtype) -> str:
+    """The library that holds ``entry_point(bound, dtype)``: the source is
+    built once per bound and type (``_build.instance_library``)."""
+    return _build.instance_library("pdip_whole", bound, type_suffix(dtype))
 
 
-def instance_for(n: int, m: int, what: str = "the whole-solve kernel"):
-    """The smallest (NMAX, MMAX) instance that holds (n, m); the per-pass
-    kernels (``ops/riccati_bwd.py``) are built for the same bounds."""
-    for bound in INSTANCES:
-        if n <= bound[0] and m <= bound[1]:
-            return bound
-    raise NotImplementedError(
-        f"{what} takes n <= {INSTANCES[-1][0]}, "
-        f"m <= {INSTANCES[-1][1]}; got n={n}, m={m}")
+# {library: {function: argtypes}}, for a build of everything at once
+LIBRARIES = {library(b, d): {entry_point(b, d): _ARGS} for b in INSTANCES
+             for d in (torch.float32, torch.float64)}
+SIGNATURES = {fn: args for lib in LIBRARIES.values()
+              for fn, args in lib.items()}
 
 
 def make_whole_pdip(H: int, n: int, m: int, iters: int,
                     with_xref: bool = False, with_uref: bool = False):
     """The complete box-constrained LTV-MPC solve in one launch (see
     module)."""
-    bound = instance_for(n, m)
+    instance_for(n, m)  # raises beyond the widest instance
 
     def fn(A, Bm, c, *rest):
         global launches
@@ -108,14 +112,18 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
             refs.append(ref.expand(shape).contiguous())
         u = torch.empty(H, m, B, dtype=dtype, device=device)
         xs = torch.empty(H, n, B, dtype=dtype, device=device)
-        scratch = torch.empty(scratch_values(H, n, m) * B, dtype=dtype,
-                              device=device)
-        lib = _build.load("pdip_whole", SIGNATURES)
-        launch = getattr(lib, entry_point(bound, dtype))
+        tile = tile_config(n, m, dtype)
+        # scenario last over the batch padded to whole tiles
+        scratch = torch.empty(scratch_values(H, n, m) * tile.padded_batch(B),
+                              dtype=dtype, device=device)
+        name = library(tile.bound, dtype)
+        lib = _build.load(name, LIBRARIES[name])
+        launch = getattr(lib, entry_point(tile.bound, dtype))
         p = lambda t: None if t is None else _build.ptr(t)
         rc = launch(p(A), p(Bm), p(c), p(refs[0]), p(refs[1]), p(x0), p(Q),
                     p(QN), p(R), p(lb), p(ub), p(u), p(xs), p(scratch),
-                    H, n, m, B, iters, _build.stream_ptr(device))
+                    scratch.numel(), H, n, m, B, iters, tile.shared_bytes,
+                    _build.stream_ptr(device))
         _build.check(lib, rc, "pdip_whole kernel")
         launches += 1
         return u, xs

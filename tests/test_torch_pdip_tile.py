@@ -1,0 +1,288 @@
+"""What Python decides for the tile kernels of the port — the whole-solve
+PDIP (``csrc/pdip_whole.cu``) and the fused reverse pass (K4a of
+``csrc/riccati_bwd.cu``), both on ``csrc/riccati_tile.cuh``.  The kernels run
+on the card only; held here are the launch shape of each instance
+(``ops/_tile.tile_config`` against an H100 block's limits and against the
+constants of the header), which instance a width runs on, the C entry points
+the wrappers name (a regex over the sources), the libraries the build is
+split into, and the plain versions at the ragged batch sizes the card is
+held to (B=1 and B=5) against the JAX package's scan at f64 (≤1e-10)."""
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reak_tpu_torch.ctrl import riccati_soa
+from reak_tpu_torch.ops import _build, _tile, pdip_whole, riccati_bwd
+
+torch.set_num_threads(1)
+
+DTYPES = (torch.float32, torch.float64)
+MAIN_WIDTHS = ((12, 6), (24, 12))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nm", MAIN_WIDTHS)
+def test_main_widths_run_exact_instances_within_a_block(nm, dtype):
+    """(12, 6) and (24, 12) run instances of their own widths, inside an
+    H100 block's shared memory and threads, with whole 32 B sectors a row."""
+    tile = _tile.tile_config(*nm, dtype)
+    size = 4 if dtype == torch.float32 else 8
+    assert tile.exact and tile.widths == nm
+    assert tile.shared_bytes <= 232448 == _tile.MAX_SHARED_BYTES
+    assert tile.threads == tile.scenarios * nm[0] <= 1024 == _tile.MAX_THREADS
+    assert tile.threads % 32 == 0
+    assert (tile.scenarios * size) % 32 == 0
+    assert tile.scenarios * size == (128 if nm[0] <= 12 else 64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nm,bound", [((6, 3), (16, 8)), ((13, 7), (16, 8)),
+                                      ((16, 8), (16, 8)), ((4, 2), (16, 8)),
+                                      ((16, 9), (24, 12)),
+                                      ((17, 3), (24, 12)),
+                                      ((12, 7), (16, 8))])
+def test_other_widths_run_the_padded_instance_of_their_bound(nm, bound,
+                                                             dtype):
+    tile = _tile.tile_config(*nm, dtype)
+    assert not tile.exact
+    assert tile.bound == tile.widths == bound == pdip_whole.instance_for(*nm)
+    assert tile.shared_bytes <= _tile.MAX_SHARED_BYTES
+    assert tile.threads <= _tile.MAX_THREADS
+
+
+@pytest.mark.parametrize("nm", [(25, 6), (12, 13), (30, 30)])
+def test_beyond_the_widest_instance_raises(nm):
+    with pytest.raises(NotImplementedError):
+        _tile.tile_config(*nm, torch.float32)
+    with pytest.raises(NotImplementedError, match="per-pass"):
+        _tile.tile_config(*nm, torch.float64, what="the per-pass kernels")
+
+
+def test_other_types_raise():
+    with pytest.raises(TypeError):
+        _tile.tile_config(12, 6, torch.float16)
+
+
+def test_launch_shape_does_not_depend_on_the_horizon():
+    """The stages stream through two buffers: ``tile_config`` takes no
+    horizon, and the scratch of the whole-solve kernel grows with H while
+    its shared memory does not."""
+    import inspect
+
+    assert "H" not in inspect.signature(_tile.tile_config).parameters
+    assert pdip_whole.scratch_values(256, 12, 6) == \
+        256 * pdip_whole.scratch_values(1, 12, 6)
+
+
+@pytest.mark.parametrize("B,padded,blocks", [(1, 32, 1), (32, 32, 1),
+                                             (33, 64, 2), (1000, 1024, 32),
+                                             (8192, 8192, 256)])
+def test_scratch_is_padded_to_whole_tiles(B, padded, blocks):
+    tile = _tile.tile_config(12, 6, torch.float32)
+    assert tile.scenarios == 32
+    assert tile.padded_batch(B) == padded and tile.blocks(B) == blocks
+
+
+def _cuh_constant(name):
+    """``static constexpr int <name> = <expression>;`` of the header, as
+    Python source over NB, MB, TS, size and the other constants."""
+    text = (_build.CSRC / "riccati_tile.cuh").read_text()
+    m = re.search(rf"static constexpr int {name} =\s*([^;]+);", text)
+    assert m, name
+    expr = m.group(1).replace("NB_", "NB").replace("MB_", "MB")
+    expr = expr.replace("int(sizeof(T))", "size").replace("?", " and ")
+    return re.sub(r"\s+", " ", expr.replace(":", " or ").replace("/", "//"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nm", [(12, 6), (24, 12), (6, 3), (16, 9)])
+def test_tile_config_mirrors_the_header(nm, dtype):
+    """The shared memory and threads that ``tile_config`` hands the launch
+    are what ``riccati_tile.cuh::Tile`` computes for the same instance (the
+    C entry point refuses a launch whose size differs)."""
+    tile = _tile.tile_config(*nm, dtype)
+    env = {"NB": tile.widths[0], "MB": tile.widths[1],
+           "size": 4 if dtype == torch.float32 else 8}
+    for name in ("TS", "NT", "AB_ROWS", "WORK_ROWS", "VEC_ROWS", "ROWS",
+                 "CONSTS", "SMEM"):
+        env[name] = eval(_cuh_constant(name), {}, dict(env))
+    assert env["TS"] == tile.scenarios
+    assert env["NT"] == tile.threads
+    assert env["SMEM"] == tile.shared_bytes
+
+
+def test_exact_widths_mirror_the_header():
+    """``exact_width`` of the header maps each bound to ``_tile.EXACT``."""
+    text = (_build.CSRC / "riccati_tile.cuh").read_text()
+    m = re.search(r"constexpr int exact_width\(int bound\) \{\s*return "
+                  r"bound == (\d+) \? (\d+) : bound == (\d+) \? (\d+) : bound;",
+                  text)
+    assert m
+    mapping = {int(m.group(1)): int(m.group(2)),
+               int(m.group(3)): int(m.group(4))}
+    for bound, exact in _tile.EXACT.items():
+        assert tuple(mapping.get(b, b) for b in bound) == exact
+
+
+def _entry_points(source, bound, suffix):
+    """The ``extern "C"`` functions ``csrc/<source>.cu`` defines when it is
+    built for one bound and type: its entry macro, expanded by hand."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    assert 'extern "C" {' in text
+    names = re.findall(r"^  int (reak_\w+(?:##\w+)+)\(", text, flags=re.M)
+    fill = {"NM": str(bound[0]), "MM": str(bound[1]), "SUFFIX": suffix}
+    return {"".join(fill.get(tok, tok) for tok in name.split("##"))
+            for name in names}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bound", _tile.INSTANCES)
+def test_signatures_name_entry_points_of_the_sources(bound, dtype):
+    """Every function a wrapper declares exists in its ``.cu``, and its
+    argument list is as long as the C one: a renamed or re-typed entry point
+    is caught without nvcc."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    k2 = _entry_points("pdip_whole", bound, suffix)
+    assert k2 == {pdip_whole.entry_point(bound, dtype)}
+    assert pdip_whole.LIBRARIES[pdip_whole.library(bound, dtype)].keys() == k2
+    k4 = _entry_points("riccati_bwd", bound, suffix)
+    want = {riccati_bwd.entry_point(e, bound, dtype)
+            for e in riccati_bwd.launches}
+    assert k4 == want
+    assert riccati_bwd.LIBRARIES[riccati_bwd.library(bound,
+                                                     dtype)].keys() == want
+    for source, table in (("pdip_whole", pdip_whole.SIGNATURES),
+                          ("riccati_bwd", riccati_bwd.SIGNATURES)):
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        for macro_name in re.findall(r"^  int (reak_\w+(?:##\w+)+)\(", text,
+                                     flags=re.M):
+            params = text[text.index(macro_name):]
+            params = params[params.index("(") + 1:params.index(") {")]
+            c_args = [a for a in params.replace("\\", "").split(",")
+                      if a.strip()]
+            fill = {"NM": str(bound[0]), "MM": str(bound[1]),
+                    "SUFFIX": suffix}
+            name = "".join(fill.get(t, t) for t in macro_name.split("##"))
+            assert len(table[name]) == len(c_args), name
+
+
+def test_instance_libraries_select_one_bound_and_type():
+    """``name@<NMAX>x<MMAX>_<type>`` compiles ``csrc/<name>.cu`` with the
+    macros the source asks for; a plain name compiles it as it is; the
+    library's path depends on them."""
+    source, defines = _build._source_and_defines("pdip_whole@24x12_f64")
+    assert source == _build.CSRC / "pdip_whole.cu"
+    assert defines == ["-DREAK_NMAX=24", "-DREAK_MMAX=12",
+                       "-DREAK_TYPE=double", "-DREAK_SUFFIX=f64"]
+    text = source.read_text()
+    for d in defines:
+        assert d[2:].split("=")[0] in text
+    assert _build._source_and_defines("kte_step") == (
+        _build.CSRC / "kte_step.cu", [])
+    paths = {_build.library_path(name) for name in
+             (*pdip_whole.LIBRARIES, *riccati_bwd.LIBRARIES)}
+    assert len(paths) == 8
+    assert pdip_whole.library((16, 8), torch.float32) == \
+        _build.instance_library("pdip_whole", (16, 8), "f32")
+
+
+def test_both_kernels_include_the_shared_stage_code():
+    """The reverse stage lives once, in ``riccati_tile.cuh``."""
+    for source in ("pdip_whole", "riccati_bwd"):
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        assert '#include "riccati_tile.cuh"' in text
+        assert "reverse_pass<TL>" in text
+        assert "__launch_bounds__" in text
+    header = (_build.CSRC / "riccati_tile.cuh").read_text()
+    assert header.count("inline void reverse_pass(") == 1
+    assert "cp.async" in header and "cudaFuncAttributeMaxDynamicShared" \
+        "MemorySize" in (_build.CSRC / "pdip_whole.cu").read_text()
+
+
+def test_tile_shape_experiment_still_fits_the_sources():
+    """``ops/tile_shapes.py`` patches copies of the sources; each text it
+    replaces is there exactly once, and its first shape is what ships."""
+    from reak_tpu_torch.ops import tile_shapes
+
+    for name, old, _ in tile_shapes.PATCHES:
+        assert (_build.CSRC / name).read_text().count(old) == 1, name
+    tile = _tile.tile_config(12, 6, torch.float32)
+    shared, ts = tile_shapes._shared_bytes(tile_shapes.SHAPES[0][0])
+    assert (shared, ts) == (tile.shared_bytes, tile.scenarios)
+
+
+def _problem(rng, H, n, m, B):
+    return dict(
+        A=rng.standard_normal((H, n, n, B)) * 0.1 + np.eye(n)[None, :, :, None],
+        Bm=rng.standard_normal((H, n, m, B)) * 0.2,
+        c=rng.standard_normal((H, n, B)) * 0.05,
+        x0=rng.standard_normal((n, B)),
+        Q=np.eye(n), QN=np.eye(n) * 5.0, R=np.eye(m) * 0.1,
+        lb=np.full(m, -1.5), ub=np.full(m, 1.5),
+        x_ref=rng.standard_normal((H, n, B)) * 0.1,
+        u_ref=rng.standard_normal((H, m, B)) * 0.1)
+
+
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("mode", ["regulator", "x_ref+u_ref"])
+def test_plain_scan_at_ragged_batches_matches_jax(rng, B, mode):
+    """``_fused_scan`` (K2's plain version) at batches no tile divides,
+    against the JAX package's scan at f64 (≤1e-10)."""
+    from reak_tpu.ctrl.riccati_soa import \
+        solve_box_mpc_riccati_soa_fused as jax_fused
+
+    p = _problem(rng, 6, 4, 2, B)
+    keys = ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb", "ub")
+    refs = ("x_ref", "u_ref") if mode != "regulator" else ()
+    u_j, x_j = jax_fused(*(jnp.asarray(p[k]) for k in keys), iters=6,
+                         use_kernels="never",
+                         **{k: jnp.asarray(p[k]) for k in refs})
+    u_t, x_t = riccati_soa._fused_scan(
+        *(torch.as_tensor(p[k]) for k in keys), iters=6,
+        **{k: torch.as_tensor(p[k]) for k in refs})
+    assert u_t.shape == (6, 2, B) and x_t.shape == (6, 4, B)
+    assert np.max(np.abs(u_t.numpy() - np.asarray(u_j))) <= 1e-10
+    assert np.max(np.abs(x_t.numpy() - np.asarray(x_j))) <= 1e-10
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_fused_backward_at_ragged_batches_matches_jax(rng, B):
+    """``fused_backward_plain`` (K4a's plain version) at B=1 and B=5 against
+    the fused reverse pass of the JAX package's scan at f64 (≤1e-10)."""
+    from reak_tpu.ctrl import riccati_soa as jrs
+
+    H, n, m = 6, 4, 2
+    p = _problem(rng, H, n, m, B)
+    q = rng.standard_normal((H, n, B))
+    u_eff = rng.standard_normal((H, m, B))
+    D = rng.uniform(0.5, 2.0, (H, m, B))
+    got = riccati_soa.fused_backward_plain(
+        *(torch.as_tensor(a) for a in (p["A"], p["Bm"], q, u_eff, D, p["Q"],
+                                       p["QN"], p["R"])))
+    # the same pass from the JAX package's unfused pieces: the Riccati
+    # matrix recursion with R_t = R + diag(D_t), then the adjoint and the
+    # affine vector recursion written out
+    R_seq = p["R"][None, :, :, None] + np.eye(m)[None, :, :, None] \
+        * D[:, :, None, :]
+    Ks, Gs = jrs.lqr_backward_soa(jnp.asarray(p["A"]), jnp.asarray(p["Bm"]),
+                                  jnp.asarray(p["Q"]), jnp.asarray(p["QN"]),
+                                  jnp.asarray(R_seq))
+    Ks, Gs = np.asarray(Ks), np.asarray(Gs)
+    lam, v = np.zeros((n, B)), np.zeros((n, B))
+    grad, ks = np.zeros((H, m, B)), np.zeros((H, m, B))
+    for t in reversed(range(H)):
+        At, Bt = p["A"][t], p["Bm"][t]
+        lam_full = q[t] + lam
+        grad[t] = np.einsum("ij,jb->ib", p["R"], u_eff[t]) \
+            + np.einsum("kib,kb->ib", Bt, lam_full)
+        w = grad[t] + np.einsum("kib,kb->ib", Bt, v)
+        ks[t] = np.linalg.solve(np.moveaxis(Gs[t], -1, 0),
+                                w.T[:, :, None])[:, :, 0].T
+        v = np.einsum("kib,kb->ib", At, v) - np.einsum("kib,kb->ib", Ks[t], w)
+        lam = np.einsum("kib,kb->ib", At, lam_full)
+    for g, want in zip(got, (grad, Ks, Gs, ks)):
+        assert g.shape == want.shape
+        assert np.max(np.abs(g.numpy() - want)) <= 1e-10

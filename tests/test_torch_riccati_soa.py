@@ -72,11 +72,10 @@ def test_cpu_dispatch_is_the_plain_scan(rng, use_kernels):
     assert pdip_whole.launches == before
 
 
-def test_per_pass_kernels_are_not_ported(rng):
-    """Named when ``use_kernels="passes"`` raised NotImplementedError; the
-    per-pass path now runs, and this holds it in x_ref mode to the JAX
-    package's scan (``use_kernels="never"``) at f64 (≤1e-10), with an
-    active bound and no kernel launch on CPU tensors."""
+def test_passes_route_on_cpu_matches_jax_scan(rng):
+    """``use_kernels="passes"`` on CPU tensors in x_ref mode against the JAX
+    package's scan (``use_kernels="never"``) at f64 (≤1e-10), with an active
+    bound and no kernel launch."""
     from reak_tpu.ctrl.riccati_soa import \
         solve_box_mpc_riccati_soa_fused as jax_fused
     from reak_tpu_torch.ops import riccati_bwd
