@@ -25,7 +25,13 @@ version on the card, and drives the port's main paths through the kernels:
 It also holds the two tile kernels (the whole-solve PDIP and the fused
 reverse pass) to their plain versions at f64 on batches that are no multiple
 of the tile (B=1001, 1000, 100, 77, 1) and at widths off the exact instances
-((6, 3) and (13, 7), which run the padded ones).
+((6, 3) and (13, 7), which run the padded ones), and the rollout step and
+its core (K1, K5; one library per chain width and type) at f64 on the
+flagship arm at B=1, 77, 1001, on ``planar_2link`` and on a mixed chain of
+8 links (FIXED and PRISMATIC joints, offset quaternions, springs, dampers,
+full inertia tensors; phase ``kte_chains``).  The build line reports ptxas'
+registers and stack frame of every kernel instance and the blocks an SM
+holds of each K1/K5 instance.
 
 It checks the port at f64 against the independent C++ oracle
 ``native/mpc_oracle.cpp`` and against its own plain f64 solves, and times
@@ -318,15 +324,34 @@ def cpu_reference(path):
     return 0
 
 
+def kte_instances():
+    """(chain, widths, type) of every K1/K5 library the run drives: the
+    flagship arm in f32 and f64, planar_2link and the mixed chain in f64."""
+    from reak_tpu_torch.kte import models
+    from reak_tpu_torch.ops import kte_step
+
+    out = []
+    for spec, dtypes in ((models.manip_3r3r(), (torch.float32,
+                                                torch.float64)),
+                         (models.planar_2link(), (torch.float64,)),
+                         (models.mixed_chain(), (torch.float64,))):
+        out += [(spec.name, kte_step.instance_for(spec), dt) for dt in dtypes]
+    return out
+
+
 def kernel_libraries():
     """{library: {function: argtypes}} of every kernel of the port.  K1 and
-    K5 are two instances of one kernel in csrc/kte_step.cu; K2 and K4a-c are
-    built once per (bound, type), each into a library of its own."""
+    K5 are two instances of one kernel in csrc/kte_step.cu, built once per
+    chain width and type; K2 and K4a-c are built once per (bound, type),
+    each into a library of its own."""
     from reak_tpu_torch.ops import (chol_lanes, kte_core, kte_step,
                                     pdip_whole, riccati_bwd)
 
-    return {"kte_step": {**kte_step.SIGNATURES, **kte_core.SIGNATURES},
-            "chol_lanes": chol_lanes.SIGNATURES,
+    kte = {kte_step.library(w, dt): {
+        **kte_step.signatures(w, dt),
+        **kte_step.signatures(w, dt, kte_core.SIGNATURES)}
+        for _, w, dt in kte_instances()}
+    return {**kte, "chol_lanes": chol_lanes.SIGNATURES,
             **pdip_whole.LIBRARIES, **riccati_bwd.LIBRARIES}
 
 
@@ -403,6 +428,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
           "count": torch.cuda.device_count()})
 
     # ---- phase 2: build (done before the CPU reference started) ----------
+    f64, f32 = torch.float64, torch.float32
     for name, signatures in kernel_libraries().items():
         _build.load(name, signatures)
     # registers and stack frame of each kernel instance the paths launch
@@ -424,9 +450,16 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                 wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib, f"{e}_kernel{w}")
     wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
                    for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E")})
-    wanted.update({f"{key}<{t}>": ("kte_step", f"kte_step_kernelI{t}Lb{i}E")
-                   for i, key in enumerate(("kte_step", "kte_core"))
-                   for t in "fd"})
+    # K1 and K5 per chain width (joints x dofs) and type, with the blocks
+    # of each that an SM holds
+    occupancy = {}
+    for _, w, dt in kte_instances():
+        t = "f" if dt == f32 else "d"
+        for i, key in enumerate(("kte_step", "kte_core")):
+            k = f"{key}<{t}{w[0]}x{w[1]}>"
+            wanted[k] = (kte_step.library(w, dt),
+                         f"kte_step_kernelI{t}Li{w[0]}ELi{w[1]}ELb{i}E")
+            occupancy[k] = kte_step.occupancy(w, dt, core=bool(i))
     ptxas = {}
     for key, (name, fragment) in wanted.items():
         lines = _build.ptxas_report(name).splitlines()
@@ -437,12 +470,12 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                     for s in lines[i + 2:i + 4])
     check(len(ptxas) == len(wanted), "a kernel instance missing from ptxas")
     emit({"phase": "build", "seconds": build_seconds,
-          "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas})
+          "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
+          "kte_blocks_per_sm": occupancy})
 
     spec = models.manip_3r3r()
     rng = np.random.default_rng(0)
     x0_np = bench_states(rng, B)
-    f64, f32 = torch.float64, torch.float32
 
     # ---- phase 3: K1 against its plain version, B=8192, one step ---------
     step_k = kte_step.make_step_lanes(spec, DT)
@@ -488,6 +521,51 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         check(k5["f32_abs"][nm] <= 2.0 * k5["plain_f32_abs"][nm],
               f"K5 f32 {nm} error above twice the plain f32 error")
     k5_max_abs = max(abs_err(a, r) for a, r in zip(c_k64, c_ref64))
+
+    # ---- K1 and K5 on other chains and on ragged batches, f64 -------------
+    # the flagship arm at batches that are no multiple of the tile (B = 1,
+    # 77, 1001), planar_2link and the mixed chain (FIXED and PRISMATIC
+    # joints, offset quaternions, springs, dampers, full inertia tensors) at
+    # B = 1001; states and inputs from numpy seed 5, against the plain
+    # versions
+    crng = np.random.default_rng(5)
+    chains = {"phase": "kte_chains", "dtype": "float64", "cases": {}}
+    for chain, batch in ((spec, 1), (spec, 77), (spec, 1001),
+                         (models.planar_2link(), 1001),
+                         (models.mixed_chain(), 1001)):
+        nv_c = chain.nv
+        xc = on(np.concatenate([crng.uniform(-0.5, 0.5, (nv_c, batch)),
+                                crng.uniform(-0.3, 0.3, (nv_c, batch))]), f64)
+        uc = on(crng.uniform(-5.0, 5.0, (nv_c, batch)), f64)
+        before = (kte_step.launches, kte_core.launches)
+        got1 = kte_step.make_step_lanes(chain, DT)(xc, uc)
+        got5 = kte_core.make_core_lanes(chain)(xc, uc)
+        want1 = kte_step.make_step_plain(chain, DT)(xc, uc)
+        want5 = kte_core.make_core_plain(chain)(xc, uc)
+        torch.cuda.synchronize()
+        shape = kte_step.launch_shape(*kte_step.instance_for(chain), f64)
+        case = {"widths": list(shape.widths),
+                "tile_scenarios": shape.scenarios,
+                "k1_f64_rel": {nm: rel_err(a, r)
+                               for nm, a, r in zip(names, got1, want1)},
+                "k5_f64_rel": {nm: rel_err(a, r) for nm, a, r in
+                               zip(("qdd", "dqdd", "minv"), got5, want5)}}
+        chains["cases"][f"{chain.name},B={batch}"] = case
+        check((kte_step.launches, kte_core.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"{chain.name} B={batch} did not launch K1 and K5")
+        check(all(bool(torch.isfinite(a).all()) for a in (*got1, *got5)),
+              f"{chain.name} B={batch}: K1 or K5 outputs are not finite")
+        for key in ("k1_f64_rel", "k5_f64_rel"):
+            for nm, e in case[key].items():
+                check(e <= 1e-9, f"{key[:2].upper()} {chain.name} B={batch} "
+                      f"{nm} f64 relative error")
+        k1_max_abs = max([k1_max_abs] + [abs_err(a, r)
+                                         for a, r in zip(got1, want1)])
+        k5_max_abs = max([k5_max_abs] + [abs_err(a, r)
+                                         for a, r in zip(got5, want5)])
+    emit(chains)
+    del xc, uc, got1, got5, want1, want5
 
     # ---- phase 4: K2 against its plain version at the flagship shape -----
     roll_k = lanes.make_rollout_ltv_fullfused(spec, DT, H)

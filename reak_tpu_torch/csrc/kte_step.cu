@@ -1,7 +1,7 @@
 // Rollout step + LTV linearization of a fixed-base KTE chain, one launch per
 // step: the hand-written Hopper port of the Pallas kernel
-// reak_tpu/ops/kte_core_pallas.py::make_step_lanes (K1) and, as a second
-// instance of the same kernel that stops before the series, of
+// reak_tpu/ops/kte_core_pallas.py::make_step_lanes (K1) and, as the instance
+// kCoreOnly = true of the same kernel, which stops before the series, of
 // ::make_core_lanes (K5: x, u → q̈ (nv, B), ∂q̈/∂x (nv, n, B), M⁻¹ (nv, nv, B)).
 //
 // What it computes, per scenario b (lanes layout, scenario last):
@@ -11,265 +11,441 @@
 // M⁻¹, and the order-`order` exponential-series discretization
 //   S = Σ dt^k A^{k-1}/k!,  Ad = I + A S,  Bd = S B,  x_new = x + S f0,
 //   cd = x_new − Ad x − Bd u.
+// Every fixed-base chain of at most 8 joints: REVOLUTE, PRISMATIC and FIXED
+// joints, offsets, springs, dampers, full inertia tensors.
 //
-// What bounds it on the H100: arithmetic and per-thread state, not memory.
-// Each scenario reads 3 nv values and writes n² + n nv + 2n, but evaluates
-// the chain's kinematics n times in hyper-dual arithmetic.
+// What bounds it on the H100: registers and latency (fewer registers a
+// thread spill more, more cost warps: both measured slower), likely also
+// the instruction stream; not memory, and not the arithmetic units, which
+// would take a third of its time.  A scenario reads 3 nv values and
+// writes n² + n nv + 2n (K5: 18 in and 114 out at nv = 6), and evaluates the
+// chain's kinematics in hyper-dual numbers along each of its n directions.
+// The first port (one binary for every chain, widths known at run time) kept
+// that state in local memory: 96 registers and a 3,840 B stack frame in f32,
+// which spilled to device memory.  Unrolled at compile-time widths, the code
+// of one instance is long and serial, and a block's warps go through it
+// together.
 //
-// Design: the Pallas body takes its derivatives by jax.linearize/jax.jvp; a
-// CUDA kernel has no autodiff.  So each block holds S scenarios × n
-// threads; thread (s, d) evaluates (M, f) in hyper-dual numbers
-// (hyperdual.cuh): the inner tangent ε carries the J̇q̇ jvp along q̇, the
-// outer tangent δ the unit state direction e_d.  Each thread then factors
-// the primal M itself (nv ≤ 8, cheaper than a barrier), solves for q̈ and
-// for its own column of ∂q̈/∂x (and, for d < nv, column d of M⁻¹), and puts
-// them in shared memory.  After a barrier, thread d builds column d of S by
-// the series, and after a second barrier row d of Ad, Bd, cd and x_new.
-// Consecutive threads of a warp are consecutive scenarios, so every global
-// load and store is coalesced.  Chain constants (axes, offsets, COMs,
-// masses, inertias, springs, dampers, gravity) are read from a small table
-// (ops/kte_step.py::chain_table) rather than folded into the code as the
-// TPU trace did, so one binary serves every fixed-base chain up to MAXJ
-// joints.  The per-joint kinematics in hyper-dual form does not fit in
-// registers and spills to local memory (L1-cached); making that fast is
-// later work.
+// Design.  The Pallas body takes its derivatives by jax.linearize/jax.jvp
+// over an (8, 128) tile in ~24 MB of VMEM; a CUDA kernel has no autodiff and
+// an SM has 227 KB.  So the kernel keeps the hyper-dual arithmetic
+// (hyperdual.cuh) and goes after per-thread state, redundancy and the launch
+// shape:
+// - Widths at compile time.  The kernel is a template on (NJ, NV), the
+//   joints and dofs of the chain; each (NJ, NV, type) is a library of its own
+//   (ops/_build.py, kte_step@6x6_f32), built at first use.  Every chain loop
+//   unrolls, so every per-joint array is indexed by constants and lives in
+//   registers.  Arrays run over joints (a FIXED joint's column is zero and its
+//   row of M is the identity's, which leaves the factor of the dofs' block
+//   unchanged); the dof of a joint is a uniform run-time index of the loads
+//   and stores.  Joint types and zero offsets stay table values: their
+//   branches are uniform across the block.
+// - The body loop is fused into the kinematics: body i joins M and f as soon
+//   as its frame is known, so no COM or orientation of an earlier body is
+//   kept, only the anchors and axes of the joints up to it.
+// - A block is a tile of TS scenarios × n directions: TS = 32 in f32 (16 in
+//   f64), so a warp is 32 scenarios of one direction (two directions of 16
+//   in f64) and every load and store row is one 128 B line.
+// - The work every direction shares is done once per scenario.  A primal
+//   phase (the threads of the last direction, whose own run is the lightest)
+//   runs the forward kinematics in Dual numbers (value and inner tangent) and
+//   leaves those parts of every frame, axis, anchor and COM in shared memory,
+//   scenario innermost.  Each direction then runs the kinematics in
+//   hyper-dual numbers but takes v and e of those quantities back
+//   ("anchors"): what it computes of them itself is dead code, so it carries
+//   only the outer parts (δ, εδ) of the chain and of the joints' anchors and
+//   axes it keeps for later bodies.  Direction 0's run holds the primal M
+//   and f: its threads factor M and solve for q̈ once per scenario; after a
+//   barrier each direction solves for its column of ∂q̈/∂x (and for d < nv a
+//   column of M⁻¹) with the factor from shared memory.
+// - The q and the q̇ directions run code of their own: a q̇ direction moves
+//   no position, so its kinematics is in HDq numbers (no δ part) and it
+//   skips M.
+// - The chain's constants (axes, offsets, COMs, masses, inertias, springs,
+//   dampers, gravity; ops/kte_step.py::chain_table packs them) are a kernel
+//   parameter passed by value (__grid_constant__): with the loops unrolled,
+//   every read is a constant-bank operand.
+// - K1's series stays on the tile: column d of S by direction d, then row d
+//   of Ad, Bd, cd and x_new, through shared memory.
+// Three alternatives were measured slower on the H100 and are not kept
+// (PERF.md §6): each direction computing the primal parts itself, one code
+// for both kinds of direction, and each direction starting at its own joint
+// (less arithmetic, but the warps of a block then go through the code out
+// of step).
+// No tensor cores: every product is per-scenario scalar hyper-dual
+// arithmetic with no operand shared across the batch, and TF32 would miss
+// the f32 bar.  No fast math: sincos stays precise.
 //
-// K5 is the instance kCoreOnly = true: thread (s, d) writes its column of
-// ∂q̈/∂x (and, for d < nv, column d of M⁻¹; thread d = 0 also q̈) straight
-// to device memory in the TPU kernel's layout and returns before the
-// series, with no shared memory and no barrier.  It moves 18 values in and
-// 114 out per scenario (528 B in f32) and, like K1, is bound by the
-// arithmetic of the n hyper-dual evaluations.
+// K5 is the instance kCoreOnly = true: each direction writes its column of
+// ∂q̈/∂x (and for d < nv a column of M⁻¹; direction 0 also q̈) straight to
+// device memory in the TPU kernel's layout, before the series.
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "hyperdual.cuh"
 
 namespace reak {
 namespace {
 
-constexpr int MAXJ = 8;  // joints (= bodies) and dofs per chain
+constexpr int MAXJ = 8;  // joints (= bodies) a chain, at most
 // chain table: J_STRIDE values per joint, then gravity (3)
 constexpr int J_TYPE = 0, J_AXIS = 1, J_OFFP = 4, J_OFFQ = 7, J_COM = 11,
               J_MASS = 14, J_INER = 15, J_STIFF = 24, J_REST = 25,
               J_DAMP = 26, J_STRIDE = 27;
-constexpr int REVOLUTE = 0, PRISMATIC = 1;  // 2 = FIXED: a link, no dof
+constexpr int REVOLUTE = 0, PRISMATIC = 1, FIXED = 2;
 
-template <typename S>
-__device__ inline void cross3(const S a[3], const S b[3], S out[3]) {
-  S x = a[1] * b[2] - a[2] * b[1];
-  S y = a[2] * b[0] - a[0] * b[2];
-  S z = a[0] * b[1] - a[1] * b[0];
+// Anchored values of a joint (value and inner tangent each): the anchor
+// (p after the offset) 3, Q after the offset 4, the world axis 3, sin and cos
+// of the half angle 1 (values only), p after a prismatic joint 3, Q after a
+// revolute joint 4, the COM 3.
+constexpr int SLOTS = 21;
+constexpr int S_ANC = 0, S_QOFF = 3, S_AXIS = 7, S_SC = 10, S_PPRI = 11,
+              S_QREV = 14, S_COM = 18;
+
+// The launch shape of one instance (ops/kte_step.py::launch_shape mirrors
+// it): shared memory in rows of TS values — the factor of M, 1/its
+// diagonal and q̈ in joint order, q̈ in dof order; then the primal phase's
+// anchors, whose rows K1's series (∂q̈/∂x, M⁻¹, S) reuses once every
+// direction is past the kinematics.  TS and MIN_BLOCKS: ops/kte_variants.py
+// re-measures them.
+template <typename T, int NJ, int NV, bool kCoreOnly>
+struct StepShape {
+  static constexpr int TS = int(sizeof(T)) == 4 ? 32 : 16;
+  static constexpr int N = 2 * NV;
+  static constexpr int NT = TS * N;
+  static constexpr int MIN_BLOCKS = 1;
+  static constexpr int CHOL_ROWS = NJ * NJ + 2 * NJ + NV;
+  static constexpr int FK_ROWS = 2 * SLOTS * NJ;
+  static constexpr int SERIES_ROWS = kCoreOnly ? 0 : NV * N + NV * NV + N * N;
+  static constexpr int ROWS =
+      CHOL_ROWS + (FK_ROWS > SERIES_ROWS ? FK_ROWS : SERIES_ROWS);
+  static constexpr int SMEM = ROWS * TS * int(sizeof(T));
+};
+
+// the chain table by value
+template <typename T, int NJ>
+struct Chain {
+  T c[NJ * J_STRIDE + 3];
+};
+
+// ---- vector and quaternion helpers over a number type N (Dual or HD) ------
+// a × b
+template <typename N>
+__device__ inline void cross_nn(const N a[3], const N b[3], N out[3]) {
+  N x = a[1] * b[2] - a[2] * b[1];
+  N y = a[2] * b[0] - a[0] * b[2];
+  N z = a[0] * b[1] - a[1] * b[0];
   out[0] = x;
   out[1] = y;
   out[2] = z;
 }
 
-template <typename S>
-__device__ inline void qmul(const S a[4], const S b[4], S out[4]) {
-  S w = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  S x = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  S y = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
-  S z = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
-  out[0] = w;
-  out[1] = x;
-  out[2] = y;
-  out[3] = z;
+// a × b for a constant b
+template <typename N, typename T>
+__device__ inline void cross_nc(const N a[3], const T b[3], N out[3]) {
+  N x = b[2] * a[1] - b[1] * a[2];
+  N y = b[0] * a[2] - b[2] * a[0];
+  N z = b[1] * a[0] - b[0] * a[1];
+  out[0] = x;
+  out[1] = y;
+  out[2] = z;
 }
 
-// rotate v by q: v + w t + qv × t with t = 2 qv × v; `conj` rotates by q⁻¹
-template <typename S>
-__device__ inline void qrot(const S q[4], const S v[3], S out[3], bool conj) {
-  S qv[3] = {q[1], q[2], q[3]};
-  if (conj) {
-    qv[0] = -qv[0];
-    qv[1] = -qv[1];
-    qv[2] = -qv[2];
-  }
-  S t[3], u[3];
-  cross3(qv, v, t);
-  for (int i = 0; i < 3; ++i) t[i] = S(2) * t[i];
-  cross3(qv, t, u);
+// rotate a constant v by q: v + w t + qv × t with t = 2 qv × v
+template <typename N, typename T>
+__device__ inline void qrot_nc(const N q[4], const T v[3], N out[3]) {
+  const N qv[3] = {q[1], q[2], q[3]};
+  N t[3], u[3];
+  cross_nc(qv, v, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = T(2) * t[i];
+  cross_nn(qv, t, u);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[i] = N(v[i]) + q[0] * t[i] + u[i];
+}
+
+// rotate v by q⁻¹
+template <typename N, typename T>
+__device__ inline void qrot_inv_nn(const N q[4], const N v[3], N out[3]) {
+  const N qv[3] = {-q[1], -q[2], -q[3]};
+  N t[3], u[3];
+  cross_nn(qv, v, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = T(2) * t[i];
+  cross_nn(qv, t, u);
+#pragma unroll
   for (int i = 0; i < 3; ++i) out[i] = v[i] + q[0] * t[i] + u[i];
 }
 
-// Cholesky of the primal M (rsqrt of the pivot, as the lanes recurrence),
-// then substitution for one right-hand side.
-template <typename T>
-__device__ inline void chol_factor(T M[MAXJ][MAXJ], int p,
-                                   T L[MAXJ][MAXJ], T inv_d[MAXJ]) {
-  for (int j = 0; j < p; ++j) {
-    T s = M[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    T dj = T(1) / sqrt(s);
-    inv_d[j] = dj;
-    L[j][j] = s * dj;
-    for (int i = j + 1; i < p; ++i) {
-      T t = M[i][j];
-      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-      L[i][j] = t * dj;
-    }
-  }
+// q ← q ⊗ b for a constant b
+template <typename N, typename T>
+__device__ inline void qmul_nc(N q[4], const T b[4]) {
+  N w = b[0] * q[0] - b[1] * q[1] - b[2] * q[2] - b[3] * q[3];
+  N x = b[1] * q[0] + b[0] * q[1] + b[3] * q[2] - b[2] * q[3];
+  N y = b[2] * q[0] - b[3] * q[1] + b[0] * q[2] + b[1] * q[3];
+  N z = b[3] * q[0] + b[2] * q[1] - b[1] * q[2] + b[0] * q[3];
+  q[0] = w;
+  q[1] = x;
+  q[2] = y;
+  q[3] = z;
 }
 
-template <typename T>
-__device__ inline void chol_apply(T L[MAXJ][MAXJ], const T inv_d[MAXJ],
-                                  int p, const T rhs[MAXJ], T out[MAXJ]) {
-  T y[MAXJ];
-  for (int i = 0; i < p; ++i) {
-    T t = rhs[i];
-    for (int k = 0; k < i; ++k) t -= L[i][k] * y[k];
-    y[i] = t * inv_d[i];
-  }
-  for (int i = p - 1; i >= 0; --i) {
-    T t = y[i];
-    for (int k = i + 1; k < p; ++k) t -= L[k][i] * out[k];
-    out[i] = t * inv_d[i];
-  }
+// q ⊗ (0, a) for a constant axis a
+template <typename N, typename T>
+__device__ inline void qmul_axis(const N q[4], const T a[3], N out[4]) {
+  out[0] = -(a[0] * q[1] + a[1] * q[2] + a[2] * q[3]);
+  out[1] = a[0] * q[0] + a[2] * q[2] - a[1] * q[3];
+  out[2] = a[1] * q[0] - a[2] * q[1] + a[0] * q[3];
+  out[3] = a[2] * q[0] + a[1] * q[1] - a[0] * q[2];
 }
 
-// kCoreOnly (K5) reuses the output pointers: Ad ← ∂q̈/∂x (nv, n, B),
-// Bd ← M⁻¹ (nv, nv, B), cd ← q̈ (nv, B); xn, dt and order are not read.
-template <typename T, bool kCoreOnly>
-__global__ void kte_step_kernel(const T* __restrict__ x,
-                                const T* __restrict__ u,
-                                const T* __restrict__ chain, int nj, int nv,
-                                double dt, int order, T* __restrict__ Ad,
-                                T* __restrict__ Bd, T* __restrict__ cd,
-                                T* __restrict__ xn, int B) {
-  using H = HD<T>;
-  using D = D1<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int ns = blockDim.x;  // scenarios per block
-  const int s = threadIdx.x;
-  const int d = threadIdx.y;  // outer tangent direction, 0..n-1
-  const int n = 2 * nv;
-  const int b_raw = blockIdx.x * ns + s;
-  const bool live = b_raw < B;
-  const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
-  // shared regions, scenario index fastest: A_lo (nv, n) = ∂q̈/∂x,
-  // Minv (nv, nv), Smat (n, n)
-  const int off_minv = nv * n, off_s = nv * n + nv * nv;
-  auto SM = [&](int e) -> T& { return sm[e * ns + s]; };
-
-  T xv[2 * MAXJ], uv[MAXJ];
-  for (int i = 0; i < n; ++i) xv[i] = x[i * B + b];
-  for (int i = 0; i < nv; ++i) uv[i] = u[i * B + b];
-
-  // ---- (M, f) and their outer tangent along e_d, in hyper-dual numbers --
-  H q[MAXJ], qdh[MAXJ];
-  for (int k = 0; k < nv; ++k) {
-    q[k] = H(xv[k], xv[nv + k], T(d == k), T(d == nv + k));
-    qdh[k] = H(xv[nv + k], T(0), T(d == nv + k), T(0));
+// ---- anchors: where the primal phase leaves the value and inner tangent of
+// a chain quantity (slot-major rows of TS scenarios) and each direction
+// takes them back -----------------------------------------------------------
+template <typename T, int TS>
+struct KeepPrimal {  // the primal phase, in Dual numbers
+  T* sm;
+  int s;
+  __device__ void at(const Dual<T>& x, int slot) const {
+    sm[(2 * slot) * TS + s] = x.v;
+    sm[(2 * slot + 1) * TS + s] = x.t;
   }
-  H anc[MAXJ][3], axg[MAXJ][3], com[MAXJ][3], quat[MAXJ][4];
-  int jt[MAXJ], jidx[MAXJ];
-  {
-    H p[3] = {H(T(0)), H(T(0)), H(T(0))};
-    H Q[4] = {H(T(1)), H(T(0)), H(T(0)), H(T(0))};
-    int ci = 0;
-    for (int i = 0; i < nj; ++i) {
-      const T* c = chain + i * J_STRIDE;
-      jt[i] = static_cast<int>(c[J_TYPE]);
-      H off[3] = {H(c[J_OFFP]), H(c[J_OFFP + 1]), H(c[J_OFFP + 2])};
-      if (c[J_OFFP] != T(0) || c[J_OFFP + 1] != T(0) || c[J_OFFP + 2] != T(0)) {
-        H r[3];
-        qrot(Q, off, r, false);
-        for (int k = 0; k < 3; ++k) p[k] = p[k] + r[k];
+  __device__ void sincos(const Dual<T>& a, Dual<T>& sn, Dual<T>& cs,
+                         int slot) const {
+    sincos_own(a, &sn, &cs);
+    sm[(2 * slot) * TS + s] = sn.v;
+    sm[(2 * slot + 1) * TS + s] = cs.v;
+  }
+};
+
+template <typename T, int TS>
+struct TakePrimal {  // a direction, in HD or HDq numbers
+  const T* sm;
+  int s;
+  __device__ T v(int slot) const { return sm[(2 * slot) * TS + s]; }
+  __device__ T e(int slot) const { return sm[(2 * slot + 1) * TS + s]; }
+  template <class N>
+  __device__ void at(N& x, int slot) const {
+    x.v = v(slot);
+    x.e = e(slot);
+  }
+  template <class N>
+  __device__ void sincos(const N& a, N& sn, N& cs, int slot) const {
+    sincos_of(a, v(slot), e(slot), &sn, &cs);
+  }
+};
+
+// ---- directions: how each kind of direction seeds the joint coordinates --
+// N: the number type of the chain's positions; V: of the bodies' velocities;
+// kM: whether M has a tangent along the direction.  coord(i, q, q̇) is
+// joint i's coordinate, rate(J, k, q̇) a Jacobian column J times its joint
+// rate, seed(k, q) and seed_rate(k, q̇) joint k's q and q̇ with their outer
+// tangents.
+template <typename T>
+struct AlongQ {  // the position direction of joint jd: q_jd moves
+  using N = HD<T>;
+  using V = HD<T>;
+  static constexpr bool kM = true;
+  int jd;
+  __device__ N coord(int i, T q, T qd) const {
+    return N(q, qd, T(i == jd), T(0));
+  }
+  __device__ V rate(const N& J, int, T qd) const { return qd * J; }
+  __device__ Dual<T> seed(int k, T q) const { return Dual<T>(q, T(k == jd)); }
+  __device__ Dual<T> seed_rate(int, T qd) const { return Dual<T>(qd); }
+};
+
+template <typename T>
+struct AlongQd {  // the velocity direction of joint jd: q̇_jd moves
+  using N = HDq<T>;
+  using V = HD<T>;
+  static constexpr bool kM = false;  // M does not depend on q̇
+  int jd;
+  __device__ N coord(int i, T q, T qd) const { return N(q, qd, T(i == jd)); }
+  __device__ V rate(const N& J, int k, T qd) const {
+    const T sd = T(k == jd);
+    return V(J.v * qd, J.e * qd, J.v * sd, J.ed * qd + J.e * sd);
+  }
+  __device__ Dual<T> seed(int, T q) const { return Dual<T>(q); }
+  __device__ Dual<T> seed_rate(int k, T qd) const {
+    return Dual<T>(qd, T(k == jd));
+  }
+};
+
+// One joint of the forward kinematics: its offset, the joint itself and its
+// body's COM.  p, Q: the frame carried down the chain; anc, axg: the joint's
+// anchor and world axis; com: the body's COM.
+template <typename N, typename T, int NJ, class A>
+__device__ inline void fk_joint(const Chain<T, NJ>& ch, int i, const N& qi,
+                                N p[3], N Q[4], N anc[3], N axg[3], N com[3],
+                                const A& an) {
+  const T* c = ch.c + i * J_STRIDE;
+  const int sl = i * SLOTS;
+  if (c[J_OFFP] != T(0) || c[J_OFFP + 1] != T(0) || c[J_OFFP + 2] != T(0)) {
+    N r[3];
+    qrot_nc(Q, c + J_OFFP, r);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p[k] = p[k] + r[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    an.at(p[k], sl + S_ANC + k);
+    anc[k] = p[k];
+  }
+  if (c[J_OFFQ] != T(1) || c[J_OFFQ + 1] != T(0) || c[J_OFFQ + 2] != T(0) ||
+      c[J_OFFQ + 3] != T(0))
+    qmul_nc(Q, c + J_OFFQ);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) an.at(Q[k], sl + S_QOFF + k);
+  const int jt = static_cast<int>(c[J_TYPE]);
+  if (jt == REVOLUTE || jt == PRISMATIC) {
+    qrot_nc(Q, c + J_AXIS, axg);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) an.at(axg[k], sl + S_AXIS + k);
+    if (jt == REVOLUTE) {
+      N sn, cs, qa[4];
+      an.sincos(T(0.5) * qi, sn, cs, sl + S_SC);
+      // Q ⊗ (cos, axis sin) = cos Q + sin (Q ⊗ (0, axis))
+      qmul_axis(Q, c + J_AXIS, qa);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        Q[k] = cs * Q[k] + sn * qa[k];
+        an.at(Q[k], sl + S_QREV + k);
       }
-      if (c[J_OFFQ] != T(1) || c[J_OFFQ + 1] != T(0) ||
-          c[J_OFFQ + 2] != T(0) || c[J_OFFQ + 3] != T(0)) {
-        H oq[4] = {H(c[J_OFFQ]), H(c[J_OFFQ + 1]), H(c[J_OFFQ + 2]),
-                   H(c[J_OFFQ + 3])};
-        qmul(Q, oq, Q);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p[k] = p[k] + qi * axg[k];
+        an.at(p[k], sl + S_PPRI + k);
       }
-      H ax[3] = {H(c[J_AXIS]), H(c[J_AXIS + 1]), H(c[J_AXIS + 2])};
-      for (int k = 0; k < 3; ++k) anc[i][k] = p[k];
-      if (jt[i] == REVOLUTE || jt[i] == PRISMATIC) {
-        jidx[ci] = i;
-        qrot(Q, ax, axg[i], false);
-        if (jt[i] == REVOLUTE) {
-          H sn, cs;
-          hd_sincos(T(0.5) * q[ci], &sn, &cs);
-          H qj[4] = {cs, c[J_AXIS] * sn, c[J_AXIS + 1] * sn,
-                     c[J_AXIS + 2] * sn};
-          qmul(Q, qj, Q);
-        } else {
-          for (int k = 0; k < 3; ++k) p[k] = p[k] + q[ci] * axg[i][k];
-        }
-        ++ci;
-      } else {
-        for (int k = 0; k < 3; ++k) axg[i][k] = H(T(0));
-      }
-      if (c[J_COM] != T(0) || c[J_COM + 1] != T(0) || c[J_COM + 2] != T(0)) {
-        H cm[3] = {H(c[J_COM]), H(c[J_COM + 1]), H(c[J_COM + 2])};
-        H r[3];
-        qrot(Q, cm, r, false);
-        for (int k = 0; k < 3; ++k) com[i][k] = p[k] + r[k];
-      } else {
-        for (int k = 0; k < 3; ++k) com[i][k] = p[k];
-      }
-      for (int k = 0; k < 4; ++k) quat[i][k] = Q[k];
     }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) axg[k] = N(T(0));
   }
+  if (c[J_COM] != T(0) || c[J_COM + 1] != T(0) || c[J_COM + 2] != T(0)) {
+    N r[3];
+    qrot_nc(Q, c + J_COM, r);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) com[k] = p[k] + r[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) com[k] = p[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) an.at(com[k], sl + S_COM + k);
+}
 
-  const T* grav = chain + nj * J_STRIDE;
-  D M[MAXJ][MAXJ], f[MAXJ];
-  for (int k = 0; k < nv; ++k) {
+// (M, f) of the chain and their outer tangents along the direction `dir`,
+// the kinematics fused with the body loop: body i joins M and f as soon as
+// its frame is known.  M is kept above its diagonal.  Every value and inner
+// tangent of the chain is an anchor taken back from the primal phase, so
+// what the run computes of them is dead code: a direction carries the outer
+// parts.
+template <typename T, int NJ, class Dir, class A>
+__device__ inline void terms(const Chain<T, NJ>& ch, const int jt[NJ],
+                             const T xq[NJ], const T xqd[NJ], const Dir& dir,
+                             const A& an, Dual<T> M[NJ][NJ], Dual<T> f[NJ]) {
+  using N = typename Dir::N;
+  using V = typename Dir::V;
+  using D = Dual<T>;
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
     f[k] = D(T(0));
-    for (int l = 0; l < nv; ++l) M[k][l] = D(T(0));
+#pragma unroll
+    for (int l = k; l < NJ; ++l) M[k][l] = D(T(0));
   }
-  for (int bb = 0; bb < nj; ++bb) {
-    // Jacobian columns of body bb: Jv world, Jw body frame
-    D jv[MAXJ][3], jw[MAXJ][3];
-    H v[3] = {H(T(0)), H(T(0)), H(T(0))}, w[3] = {H(T(0)), H(T(0)), H(T(0))};
-    for (int k = 0; k < nv; ++k) {
-      const int i = jidx[k];
-      H Jv[3], Jw[3];
-      if (i > bb) {
-        for (int c = 0; c < 3; ++c) Jv[c] = Jw[c] = H(T(0));
-      } else if (jt[i] == REVOLUTE) {
-        H r[3];
-        for (int c = 0; c < 3; ++c) r[c] = com[bb][c] - anc[i][c];
-        cross3(axg[i], r, Jv);
-        qrot(quat[bb], axg[i], Jw, true);
+  const T* grav = ch.c + NJ * J_STRIDE;
+  N p[3] = {N(T(0)), N(T(0)), N(T(0))};
+  N Q[4] = {N(T(1)), N(T(0)), N(T(0)), N(T(0))};
+  N anc[NJ][3], axg[NJ][3];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const N qi = jt[i] != FIXED ? dir.coord(i, xq[i], xqd[i])
+                                : N(T(0));
+    N com[3];
+    fk_joint(ch, i, qi, p, Q, anc[i], axg[i], com, an);
+
+    // body i: its Jacobian columns (Jv world, Jw body frame) over the joints
+    // up to i, its velocity and the J̇q̇ bias in the inner tangent
+    D jv[NJ][3], jw[NJ][3];
+    V v[3] = {V(T(0)), V(T(0)), V(T(0))}, w[3] = {V(T(0)), V(T(0)), V(T(0))};
+#pragma unroll
+    for (int k = 0; k <= i; ++k) {
+      N Jv[3], Jw[3];
+      if (jt[k] == FIXED) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) Jv[c] = Jw[c] = N(T(0));
       } else {
-        for (int c = 0; c < 3; ++c) {
-          Jv[c] = axg[i][c];
-          Jw[c] = H(T(0));
+        if (k < i) {  // take the primal parts back where they are kept
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            an.at(anc[k][c], k * SLOTS + S_ANC + c);
+            an.at(axg[k][c], k * SLOTS + S_AXIS + c);
+          }
+        }
+        if (jt[k] == REVOLUTE) {
+          N r[3];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) r[c] = com[c] - anc[k][c];
+          cross_nn(axg[k], r, Jv);
+          qrot_inv_nn<N, T>(Q, axg[k], Jw);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            v[c] = v[c] + dir.rate(Jv[c], k, xqd[k]);
+            w[c] = w[c] + dir.rate(Jw[c], k, xqd[k]);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            Jv[c] = axg[k][c];
+            Jw[c] = N(T(0));
+            v[c] = v[c] + dir.rate(Jv[c], k, xqd[k]);
+          }
         }
       }
+#pragma unroll
       for (int c = 0; c < 3; ++c) {
-        v[c] = v[c] + Jv[c] * qdh[k];
-        w[c] = w[c] + Jw[c] * qdh[k];
         jv[k][c] = outer_of_value(Jv[c]);
         jw[k][c] = outer_of_value(Jw[c]);
       }
     }
-    const T* c = chain + bb * J_STRIDE;
+    const T* c = ch.c + i * J_STRIDE;
     const T mb = c[J_MASS];
     const T* I = c + J_INER;
-    for (int k = 0; k < nv; ++k) {
-      for (int l = k; l < nv; ++l) {
-        D term = mb * (jv[k][0] * jv[l][0] + jv[k][1] * jv[l][1] +
-                       jv[k][2] * jv[l][2]);
-        for (int r = 0; r < 3; ++r)
-          for (int cc = 0; cc < 3; ++cc)
-            if (I[r * 3 + cc] != T(0))
-              term = term + I[r * 3 + cc] * (jw[k][r] * jw[l][cc]);
-        M[k][l] = M[k][l] + term;
+    if constexpr (Dir::kM) {
+#pragma unroll
+      for (int k = 0; k <= i; ++k) {
+        if (jt[k] == FIXED) continue;
+#pragma unroll
+        for (int l = k; l <= i; ++l) {
+          if (jt[l] == FIXED) continue;
+          D term = mb * (jv[k][0] * jv[l][0] + jv[k][1] * jv[l][1] +
+                         jv[k][2] * jv[l][2]);
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+#pragma unroll
+            for (int cc = 0; cc < 3; ++cc)
+              if (I[r * 3 + cc] != T(0))
+                term = term + I[r * 3 + cc] * (jw[k][r] * jw[l][cc]);
+          M[k][l] = M[k][l] + term;
+        }
       }
     }
     // bias force: −m (J̇q̇ − g) on the COM, −(I α + ω × I ω) on the body
     D f_lin[3], wv[3], al[3], Iw[3], Ial[3], wxIw[3], f_ang[3];
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
       f_lin[k] = -mb * (outer_of_inner(v[k]) - D(grav[k]));
       wv[k] = outer_of_value(w[k]);
       al[k] = outer_of_inner(w[k]);
     }
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
       Iw[r] = D(T(0));
       Ial[r] = D(T(0));
+#pragma unroll
       for (int cc = 0; cc < 3; ++cc) {
         if (I[r * 3 + cc] != T(0)) {
           Iw[r] = Iw[r] + I[r * 3 + cc] * wv[cc];
@@ -277,109 +453,280 @@ __global__ void kte_step_kernel(const T* __restrict__ x,
         }
       }
     }
-    cross3(wv, Iw, wxIw);
+    cross_nn(wv, Iw, wxIw);
+#pragma unroll
     for (int k = 0; k < 3; ++k) f_ang[k] = -(Ial[k] + wxIw[k]);
-    for (int k = 0; k < nv; ++k) {
-      f[k] = f[k] + (jv[k][0] * f_lin[0] + jv[k][1] * f_lin[1] +
-                     jv[k][2] * f_lin[2]) +
+#pragma unroll
+    for (int k = 0; k <= i; ++k) {
+      if (jt[k] == FIXED) continue;
+      f[k] = f[k] +
+             (jv[k][0] * f_lin[0] + jv[k][1] * f_lin[1] +
+              jv[k][2] * f_lin[2]) +
              (jw[k][0] * f_ang[0] + jw[k][1] * f_ang[1] + jw[k][2] * f_ang[2]);
     }
   }
-  for (int k = 0; k < nv; ++k) {
-    for (int l = 0; l < k; ++l) M[k][l] = M[l][k];
-    const T* c = chain + jidx[k] * J_STRIDE;
-    const D qk(xv[k], T(d == k)), qdk(xv[nv + k], T(d == nv + k));
-    f[k] = f[k] - c[J_STIFF] * (qk - D(c[J_REST])) - c[J_DAMP] * qdk;
+  // the joints' springs and dampers
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    if (jt[k] == FIXED) continue;
+    const T* c = ch.c + k * J_STRIDE;
+    f[k] = f[k] - c[J_STIFF] * (dir.seed(k, xq[k]) - D(c[J_REST])) -
+           c[J_DAMP] * dir.seed_rate(k, xqd[k]);
+  }
+}
+
+// The factor of the primal M and q̈ = M⁻¹(f + u), once per scenario, into
+// shared memory: L below the diagonal (row i·NJ + j), 1/diag at row NJ·NJ + i,
+// q̈ in joint order at NJ·NJ + NJ + i and in dof order at NJ·NJ + 2NJ + dof.
+// A FIXED joint's row and column are the identity's.  K5 also stores q̈.
+template <typename T, int NJ, int TS, bool kCoreOnly>
+__device__ inline void factor_and_solve(const Dual<T> M[NJ][NJ],
+                                        const Dual<T> f[NJ], const int jt[NJ],
+                                        const int dof[NJ], const T* u, int B,
+                                        int b, bool live, T* chol, T* qdd_out,
+                                        int s) {
+  constexpr int R_INVD = NJ * NJ, R_QDD = NJ * NJ + NJ,
+                R_QDOF = NJ * NJ + 2 * NJ;
+  T L[NJ][NJ], rhs[NJ], y[NJ], qdd[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    T sj = jt[j] == FIXED ? T(1) : M[j][j].v;
+#pragma unroll
+    for (int k = 0; k < j; ++k) sj -= L[j][k] * L[j][k];
+    const T dj = T(1) / sqrt(sj);
+    chol[(R_INVD + j) * TS + s] = dj;
+    L[j][j] = sj * dj;
+#pragma unroll
+    for (int i = j + 1; i < NJ; ++i) {
+      T t = M[j][i].v;
+#pragma unroll
+      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
+      L[i][j] = t * dj;
+      chol[(i * NJ + j) * TS + s] = L[i][j];
+    }
+    rhs[j] = jt[j] == FIXED ? T(0) : f[j].v + u[dof[j] * B + b];
+  }
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    T t = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) t -= L[i][k] * y[k];
+    y[i] = t * chol[(R_INVD + i) * TS + s];
+  }
+#pragma unroll
+  for (int i = NJ - 1; i >= 0; --i) {
+    T t = y[i];
+#pragma unroll
+    for (int k = i + 1; k < NJ; ++k) t -= L[k][i] * qdd[k];
+    qdd[i] = t * chol[(R_INVD + i) * TS + s];
+    chol[(R_QDD + i) * TS + s] = qdd[i];
+    if (jt[i] != FIXED) {
+      chol[(R_QDOF + dof[i]) * TS + s] = qdd[i];
+      if constexpr (kCoreOnly)
+        if (live) qdd_out[dof[i] * B + b] = qdd[i];
+    }
+  }
+}
+
+// one right-hand side through the factor in shared memory
+template <typename T, int NJ, int TS>
+__device__ inline void chol_apply_shared(const T* chol, int s,
+                                         const T rhs[NJ], T out[NJ]) {
+  T y[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    T t = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) t -= chol[(i * NJ + k) * TS + s] * y[k];
+    y[i] = t * chol[(NJ * NJ + i) * TS + s];
+  }
+#pragma unroll
+  for (int i = NJ - 1; i >= 0; --i) {
+    T t = y[i];
+#pragma unroll
+    for (int k = i + 1; k < NJ; ++k) t -= chol[(k * NJ + i) * TS + s] * out[k];
+    out[i] = t * chol[(NJ * NJ + i) * TS + s];
+  }
+}
+
+// kCoreOnly (K5) reuses the output pointers: Ad ← ∂q̈/∂x (nv, n, B),
+// Bd ← M⁻¹ (nv, nv, B), cd ← q̈ (nv, B); xn, dt and order are not read.
+template <typename T, int NJ, int NV, bool kCoreOnly>
+__global__ void __launch_bounds__(StepShape<T, NJ, NV, kCoreOnly>::NT,
+                                  StepShape<T, NJ, NV, kCoreOnly>::MIN_BLOCKS)
+    kte_step_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                    const __grid_constant__ Chain<T, NJ> ch, double dt,
+                    int order, T* __restrict__ Ad, T* __restrict__ Bd,
+                    T* __restrict__ cd, T* __restrict__ xn, int B) {
+  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
+  using D = Dual<T>;
+  constexpr int TS = Shape::TS, N = Shape::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* chol = reinterpret_cast<T*>(smem_raw);
+  T* fk = chol + Shape::CHOL_ROWS * TS;
+  T* ser = fk;  // the series' rows, once the anchors are spent
+  constexpr int R_QDD = NJ * NJ + NJ, R_QDOF = NJ * NJ + 2 * NJ;
+  constexpr int R_MINV = NV * N, R_S = NV * N + NV * NV;
+  const int s = threadIdx.x;
+  const int d = threadIdx.y;  // outer tangent direction, 0..n-1
+  const int b_raw = blockIdx.x * TS + s;
+  const bool live = b_raw < B;
+  const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
+
+  // joint types and the dof of each joint (uniform); the state by joint;
+  // jd: the joint the direction moves
+  int jt[NJ], dof[NJ], jd = 0;
+  T xq[NJ], xqd[NJ];
+  {
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      jt[i] = static_cast<int>(ch.c[i * J_STRIDE + J_TYPE]);
+      dof[i] = jt[i] == FIXED ? -1 : k;
+      xq[i] = jt[i] == FIXED ? T(0) : x[k * B + b];
+      xqd[i] = jt[i] == FIXED ? T(0) : x[(NV + k) * B + b];
+      if (dof[i] == (d < NV ? d : d - NV)) jd = i;
+      k += jt[i] == FIXED ? 0 : 1;
+    }
   }
 
-  // ---- q̈, this direction's column of ∂q̈/∂x, and a column of M⁻¹ --------
-  T Mv[MAXJ][MAXJ], L[MAXJ][MAXJ], inv_d[MAXJ], rhs[MAXJ], qdd[MAXJ],
-      col[MAXJ];
-  for (int k = 0; k < nv; ++k)
-    for (int l = 0; l < nv; ++l) Mv[k][l] = M[k][l].v;
-  chol_factor(Mv, nv, L, inv_d);
-  for (int k = 0; k < nv; ++k) rhs[k] = f[k].v + uv[k];
-  chol_apply(L, inv_d, nv, rhs, qdd);
-  for (int k = 0; k < nv; ++k) {
-    T t = f[k].d;
-    for (int l = 0; l < nv; ++l) t -= M[k][l].d * qdd[l];
-    rhs[k] = t;
-  }
-  chol_apply(L, inv_d, nv, rhs, col);
-  if constexpr (kCoreOnly) {
-    if (live) {
-      for (int k = 0; k < nv; ++k) Ad[(k * n + d) * B + b] = col[k];
-      if (d == 0)
-        for (int k = 0; k < nv; ++k) cd[k * B + b] = qdd[k];
+  // ---- M, f and their tangents along this direction; q̈ once a scenario --
+  D M[NJ][NJ], f[NJ];
+  // the primal phase, by the direction with the least work of its own (the
+  // last q̇): the kinematics' value and inner tangent into shared memory
+  if (d == N - 1) {
+    const KeepPrimal<T, TS> keep{fk, s};
+    D p[3] = {D(T(0)), D(T(0)), D(T(0))};
+    D Q[4] = {D(T(1)), D(T(0)), D(T(0)), D(T(0))};
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      D anc[3], axg[3], com[3];
+      const D qi = jt[i] == FIXED ? D(T(0)) : D(xq[i], xqd[i]);
+      fk_joint(ch, i, qi, p, Q, anc, axg, com, keep);
     }
-    if (d < nv) {
-      for (int k = 0; k < nv; ++k) rhs[k] = T(k == d);
-      chol_apply(L, inv_d, nv, rhs, col);
-      if (live)
-        for (int k = 0; k < nv; ++k) Bd[(k * nv + d) * B + b] = col[k];
+  }
+  __syncthreads();
+  const TakePrimal<T, TS> take{fk, s};
+  if (d < NV)
+    terms<T, NJ>(ch, jt, xq, xqd, AlongQ<T>{jd}, take, M, f);
+  else
+    terms<T, NJ>(ch, jt, xq, xqd, AlongQd<T>{jd}, take, M, f);
+  // direction 0 moves the first joint with a dof, so its run holds every
+  // body's share of the primal M and f: it factors M and solves for q̈
+  if (d == 0)
+    factor_and_solve<T, NJ, TS, kCoreOnly>(M, f, jt, dof, u, B, b, live, chol,
+                                           cd, s);
+  __syncthreads();
+
+  // ---- this direction's column of ∂q̈/∂x, and a column of M⁻¹ ------------
+  {
+    T rhs[NJ], col[NJ];
+#pragma unroll
+    for (int k = 0; k < NJ; ++k) {
+      T t = f[k].t;
+      if (d < NV) {  // M moves only along q
+#pragma unroll
+        for (int l = 0; l < NJ; ++l)
+          t -= (k <= l ? M[k][l].t : M[l][k].t) * chol[(R_QDD + l) * TS + s];
+      }
+      rhs[k] = jt[k] == FIXED ? T(0) : t;
     }
-    return;
+    chol_apply_shared<T, NJ, TS>(chol, s, rhs, col);
+#pragma unroll
+    for (int k = 0; k < NJ; ++k) {
+      if (jt[k] == FIXED) continue;
+      if constexpr (kCoreOnly) {
+        if (live) Ad[(dof[k] * N + d) * B + b] = col[k];
+      } else {
+        ser[(dof[k] * N + d) * TS + s] = col[k];
+      }
+    }
+    if (d < NV) {
+#pragma unroll
+      for (int k = 0; k < NJ; ++k) rhs[k] = T(dof[k] == d);
+      chol_apply_shared<T, NJ, TS>(chol, s, rhs, col);
+#pragma unroll
+      for (int k = 0; k < NJ; ++k) {
+        if (jt[k] == FIXED) continue;
+        if constexpr (kCoreOnly) {
+          if (live) Bd[(dof[k] * NV + d) * B + b] = col[k];
+        } else {
+          ser[(R_MINV + dof[k] * NV + d) * TS + s] = col[k];
+        }
+      }
+    }
   }
-  for (int k = 0; k < nv; ++k) SM(k * n + d) = col[k];
-  if (d < nv) {
-    for (int k = 0; k < nv; ++k) rhs[k] = T(k == d);
-    chol_apply(L, inv_d, nv, rhs, col);
-    for (int k = 0; k < nv; ++k) SM(off_minv + k * nv + d) = col[k];
-  }
+  if constexpr (kCoreOnly) return;  // K5 ends here, no barrier follows
   __syncthreads();
 
   // ---- column d of S = Σ_{k=1..order} dt^k A^{k-1}/k! --------------------
   // A = [[0, I], [∂q̈/∂x]]: (A v)_i = v_{i+nv} on top, A_lo v below
   {
-    T Scol[2 * MAXJ], term[2 * MAXJ], tmp[2 * MAXJ];
-    for (int i = 0; i < n; ++i) Scol[i] = term[i] = (i == d) ? T(dt) : T(0);
+    T Scol[N], term[N], tmp[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) Scol[i] = term[i] = (i == d) ? T(dt) : T(0);
     for (int k = 2; k <= order; ++k) {
-      for (int i = 0; i < n; ++i) {
-        if (i < nv) {
-          tmp[i] = term[i + nv];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if (i < NV) {
+          tmp[i] = term[i + NV];
         } else {
           T t = T(0);
-          for (int j = 0; j < n; ++j) t += SM((i - nv) * n + j) * term[j];
+#pragma unroll
+          for (int j = 0; j < N; ++j)
+            t += ser[((i - NV) * N + j) * TS + s] * term[j];
           tmp[i] = t;
         }
       }
       const T ck = T(dt / k);
-      for (int i = 0; i < n; ++i) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
         term[i] = ck * tmp[i];
         Scol[i] += term[i];
       }
     }
-    for (int i = 0; i < n; ++i) SM(off_s + i * n + d) = Scol[i];
+#pragma unroll
+    for (int i = 0; i < N; ++i) ser[(R_S + i * N + d) * TS + s] = Scol[i];
   }
   __syncthreads();
 
   // ---- row d of Ad = I + A S, Bd = S B, x_new = x + S f0, cd -------------
-  T f0[2 * MAXJ];
-  for (int i = 0; i < nv; ++i) {
-    f0[i] = xv[nv + i];
-    f0[nv + i] = qdd[i];
+  T xv[N], uv[NV], f0[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) xv[i] = x[i * B + b];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    uv[i] = u[i * B + b];
+    f0[i] = xv[NV + i];
+    f0[NV + i] = chol[(R_QDOF + i) * TS + s];
   }
-  T xnew = xv[d], adx = T(0), bdu = T(0);
-  for (int l = 0; l < n; ++l) xnew += SM(off_s + d * n + l) * f0[l];
-  for (int j = 0; j < n; ++j) {
+  T xnew = x[d * B + b], adx = T(0), bdu = T(0);
+#pragma unroll
+  for (int l = 0; l < N; ++l) xnew += ser[(R_S + d * N + l) * TS + s] * f0[l];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
     T a;
-    if (d < nv) {
-      a = SM(off_s + (d + nv) * n + j);
+    if (d < NV) {
+      a = ser[(R_S + (d + NV) * N + j) * TS + s];
     } else {
       a = T(0);
-      for (int l = 0; l < n; ++l)
-        a += SM((d - nv) * n + l) * SM(off_s + l * n + j);
+#pragma unroll
+      for (int l = 0; l < N; ++l)
+        a += ser[((d - NV) * N + l) * TS + s] * ser[(R_S + l * N + j) * TS + s];
     }
     if (j == d) a += T(1);
     adx += a * xv[j];
-    if (live) Ad[(d * n + j) * B + b] = a;
+    if (live) Ad[(d * N + j) * B + b] = a;
   }
-  for (int j = 0; j < nv; ++j) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
     T a = T(0);
-    for (int l = nv; l < n; ++l)
-      a += SM(off_s + d * n + l) * SM(off_minv + (l - nv) * nv + j);
+#pragma unroll
+    for (int l = NV; l < N; ++l)
+      a += ser[(R_S + d * N + l) * TS + s] *
+           ser[(R_MINV + (l - NV) * NV + j) * TS + s];
     bdu += a * uv[j];
-    if (live) Bd[(d * nv + j) * B + b] = a;
+    if (live) Bd[(d * NV + j) * B + b] = a;
   }
   if (live) {
     xn[d * B + b] = xnew;
@@ -387,75 +734,89 @@ __global__ void kte_step_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* u, const void* chain, int nj, int nv,
+// the table as the kernel parameter: chain_table's values, in order
+template <typename T, int NJ>
+inline Chain<T, NJ> chain_of(const void* table) {
+  Chain<T, NJ> ch;
+  std::memcpy(ch.c, table, sizeof(ch.c));
+  return ch;
+}
+
+template <typename T, int NJ, int NV, bool kCoreOnly>
+int launch(const void* x, const void* u, const void* table, int nj, int nv,
            double dt, int order, void* Ad, void* Bd, void* cd, void* xn,
-           int B, void* stream) {
-  if (nj < 1 || nj > MAXJ || nv < 1 || nv > nj || order < 1 || B < 1)
+           int B, int smem_bytes, void* stream) {
+  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
+  // the wrapper's launch shape (ops/kte_step.py) must be this instance's
+  if (nj != NJ || nv != NV || order < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n = 2 * nv;
-  const size_t per = static_cast<size_t>(nv * n + nv * nv + n * n) * sizeof(T);
-  int ns = 16;
-  while (ns > 1 && per * ns > 48 * 1024) ns /= 2;
-  dim3 block(ns, n);
-  dim3 grid((B + ns - 1) / ns);
-  kte_step_kernel<T, false><<<grid, block, per * ns,
-                              static_cast<cudaStream_t>(stream)>>>(
+  if (smem_bytes != Shape::SMEM)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = kte_step_kernel<T, NJ, NV, kCoreOnly>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  dim3 block(Shape::TS, Shape::N);
+  dim3 grid((B + Shape::TS - 1) / Shape::TS);
+  kernel<<<grid, block, Shape::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(u),
-      static_cast<const T*>(chain), nj, nv, dt, order, static_cast<T*>(Ad),
+      chain_of<T, NJ>(table), dt, order, static_cast<T*>(Ad),
       static_cast<T*>(Bd), static_cast<T*>(cd), static_cast<T*>(xn), B);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_core(const void* x, const void* u, const void* chain, int nj,
-                int nv, void* qdd, void* dqdd, void* minv, int B,
-                void* stream) {
-  if (nj < 1 || nj > MAXJ || nv < 1 || nv > nj || B < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ns = 16;
-  dim3 block(ns, 2 * nv);
-  dim3 grid((B + ns - 1) / ns);
-  kte_step_kernel<T, true><<<grid, block, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(u),
-      static_cast<const T*>(chain), nj, nv, 0.0, 1, static_cast<T*>(dqdd),
-      static_cast<T*>(minv), static_cast<T*>(qdd), nullptr, B);
-  return static_cast<int>(cudaGetLastError());
+// blocks of the instance an SM holds at once
+template <typename T, int NJ, int NV, bool kCoreOnly>
+int occupancy(int* blocks) {
+  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
+  auto kernel = kte_step_kernel<T, NJ, NV, kCoreOnly>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, Shape::NT, Shape::SMEM));
 }
 
 }  // namespace
 }  // namespace reak
 
+#if !defined(REAK_NMAX) || !defined(REAK_MMAX) || !defined(REAK_TYPE) || \
+    !defined(REAK_SUFFIX)
+#error "one chain width and type a library: -DREAK_NMAX (joints) -DREAK_MMAX (dofs) -DREAK_TYPE -DREAK_SUFFIX (ops/_build.py)"
+#endif
+static_assert(REAK_NMAX >= 1 && REAK_NMAX <= reak::MAXJ && REAK_MMAX >= 1 &&
+                  REAK_MMAX <= REAK_NMAX,
+              "a fixed-base chain of 1..8 joints and 1..joints dofs");
+
 extern "C" {
 
-int reak_kte_step_f32(const void* x, const void* u, const void* chain, int nj,
-                      int nv, double dt, int order, void* Ad, void* Bd,
-                      void* cd, void* xn, int B, void* stream) {
-  return reak::launch<float>(x, u, chain, nj, nv, dt, order, Ad, Bd, cd, xn,
-                             B, stream);
-}
+// The entry points of this library's chain width and type:
+// reak_kte_step_<NJ>x<NV>_<type> (K1), reak_kte_core_<NJ>x<NV>_<type> (K5)
+// and reak_kte_occupancy_<NJ>x<NV>_<type> (blocks an SM of either).
+#define REAK_KTE_ENTRY(NJ, NV, T, SUFFIX)                                    \
+  int reak_kte_step_##NJ##x##NV##_##SUFFIX(                                  \
+      const void* x, const void* u, const void* table, int nj, int nv,       \
+      double dt, int order, void* Ad, void* Bd, void* cd, void* xn, int B,   \
+      int smem_bytes, void* stream) {                                        \
+    return reak::launch<T, NJ, NV, false>(x, u, table, nj, nv, dt, order,    \
+                                          Ad, Bd, cd, xn, B, smem_bytes,     \
+                                          stream);                           \
+  }                                                                          \
+  int reak_kte_core_##NJ##x##NV##_##SUFFIX(                                  \
+      const void* x, const void* u, const void* table, int nj, int nv,       \
+      void* qdd, void* dqdd, void* minv, int B, int smem_bytes,              \
+      void* stream) {                                                        \
+    return reak::launch<T, NJ, NV, true>(x, u, table, nj, nv, 0.0, 1, dqdd,  \
+                                         minv, qdd, nullptr, B, smem_bytes,  \
+                                         stream);                            \
+  }                                                                          \
+  int reak_kte_occupancy_##NJ##x##NV##_##SUFFIX(int core, int* blocks) {     \
+    return core ? reak::occupancy<T, NJ, NV, true>(blocks)                   \
+                : reak::occupancy<T, NJ, NV, false>(blocks);                 \
+  }
+#define REAK_KTE_ENTRY_OF(NJ, NV, T, SUFFIX) REAK_KTE_ENTRY(NJ, NV, T, SUFFIX)
 
-int reak_kte_step_f64(const void* x, const void* u, const void* chain, int nj,
-                      int nv, double dt, int order, void* Ad, void* Bd,
-                      void* cd, void* xn, int B, void* stream) {
-  return reak::launch<double>(x, u, chain, nj, nv, dt, order, Ad, Bd, cd, xn,
-                              B, stream);
-}
-
-int reak_kte_core_f32(const void* x, const void* u, const void* chain, int nj,
-                      int nv, void* qdd, void* dqdd, void* minv, int B,
-                      void* stream) {
-  return reak::launch_core<float>(x, u, chain, nj, nv, qdd, dqdd, minv, B,
-                                  stream);
-}
-
-int reak_kte_core_f64(const void* x, const void* u, const void* chain, int nj,
-                      int nv, void* qdd, void* dqdd, void* minv, int B,
-                      void* stream) {
-  return reak::launch_core<double>(x, u, chain, nj, nv, qdd, dqdd, minv, B,
-                                   stream);
-}
+REAK_KTE_ENTRY_OF(REAK_NMAX, REAK_MMAX, REAK_TYPE, REAK_SUFFIX)
 
 const char* reak_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,13 +2,15 @@
 
 Ported so far: the flagship arm, the planar 2-link arm and the two
 free-base chains of the scenario MPC; the rest of the zoo follows with the
-later slices.
+later slices.  ``mixed_chain`` is the port's own: a chain drawn from a seed
+that takes every branch of the rollout-step kernel.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from reak_tpu_torch.kte.spec import ChainSpec, REVOLUTE, FREE
+from reak_tpu_torch.kte.spec import (ChainSpec, FIXED, FREE, PRISMATIC,
+                                     REVOLUTE)
 
 
 def _z(n):
@@ -148,3 +150,38 @@ def floating_arm(
         gravity=(0.0, 0.0, 0.0),
         name="floating_arm",
     )
+
+
+def mixed_chain_fields(seed=7) -> dict:
+    """The ``ChainSpec.build`` arguments of ``mixed_chain``, in numpy and
+    plain ints, so that the JAX package's ``ChainSpec.build`` takes them
+    too."""
+    rng = np.random.default_rng(seed)
+    types = [int(t) for t in (FIXED, REVOLUTE, PRISMATIC, REVOLUTE, FIXED,
+                              REVOLUTE, PRISMATIC, REVOLUTE)]
+    nj = len(types)
+    axes = rng.standard_normal((nj, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    quats = rng.standard_normal((nj, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    quats[3] = (1.0, 0.0, 0.0, 0.0)
+    root = 0.05 * rng.standard_normal((nj, 3, 3))
+    return dict(
+        joint_types=types, axes=axes,
+        offsets_pos=rng.uniform(-0.2, 0.3, (nj, 3)), offsets_quat=quats,
+        com_pos=rng.uniform(-0.1, 0.1, (nj, 3)),
+        masses=rng.uniform(0.5, 3.0, nj),
+        inertias=root @ root.transpose(0, 2, 1) + 0.02 * np.eye(3),
+        stiffness=[0.0, 5.0, 2.0, 0.0, 0.0, 1.5, 0.0, 0.0],
+        rest_q=[0.0, 0.1, -0.05, 0.0, 0.0, 0.2, 0.0, 0.0],
+        damping=[0.0, 0.3, 0.0, 0.2, 0.0, 0.0, 0.4, 0.0],
+        gravity=(0.1, -0.2, -9.81), name="mixed_chain")
+
+
+def mixed_chain(seed=7) -> ChainSpec:
+    """A fixed-base chain of 8 links and 6 dofs that takes every branch of
+    the rollout-step kernel the flagship arm does not: a FIXED first link
+    and a FIXED link inside, two PRISMATIC joints, offset quaternions,
+    springs, dampers, full (off-diagonal) inertia tensors and a tilted
+    gravity, drawn from a numpy seed."""
+    return ChainSpec.build(**mixed_chain_fields(seed))

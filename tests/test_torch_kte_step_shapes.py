@@ -1,0 +1,321 @@
+"""What Python decides for the rollout-step kernel (K1) and its core
+instance (K5), both in ``csrc/kte_step.cu``, and the plain versions they are
+held to on a chain that takes every branch of the kernel.
+
+The kernels run on the card only (``chip_smoke.py``).  Held here: the launch
+shape of each instance (``ops/kte_step.launch_shape``, which both wrappers
+use) against an H100 block's limits and against the constants of the
+source; which library a chain runs on; the C entry points the wrappers name
+(a regex over the source, no nvcc); the size of the chain table the kernel
+takes by value; and, on the mixed chain of 8 links that ``chip_smoke.py``
+checks (``kte/models.mixed_chain``: FIXED and PRISMATIC joints, offset
+quaternions, springs, dampers, full inertia tensors), the port's plain
+terms, core and step against the JAX package's ``make_terms_lanes`` and its
+jvp along every state direction, the core's solves and the step's series
+taken from them as ``make_rollout_ltv_lanes`` takes them, in numpy (B=4,
+f64, ≤1e-10), the chain carried across by ``convert.spec_from``.  The JAX
+side runs op by op: under ``jax.jit`` its rollout of this chain compiles for
+most of a minute on a CPU."""
+import inspect
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reak_tpu.kte import lanes as jlanes
+from reak_tpu.kte import spec as jspec
+from reak_tpu_torch import convert
+from reak_tpu_torch.kte import lanes, models
+from reak_tpu_torch.ops import _build, _tile, kte_core, kte_step
+
+torch.set_num_threads(1)
+
+DTYPES = (torch.float32, torch.float64)
+SOURCE = _build.CSRC / "kte_step.cu"
+
+
+def _mixed_chain_jax():
+    """The JAX package's spec of ``kte/models.mixed_chain``: 8 links, 6
+    dofs (a FIXED first link and one inside, two PRISMATIC joints, offset
+    quaternions, springs, dampers, off-diagonal inertia tensors, a tilted
+    gravity)."""
+    return jspec.ChainSpec.build(**models.mixed_chain_fields())
+
+
+def _states(rng, nv, B):
+    return np.concatenate([rng.uniform(-0.5, 0.5, (nv, B)),
+                           rng.uniform(-0.3, 0.3, (nv, B))])
+
+
+def _assert_rel(got, want, rel=1e-10):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300)
+    assert err <= rel, f"relative error {err:.3e} > {rel:.0e}"
+
+
+# ---- launch shapes --------------------------------------------------------
+
+def _source_constant(text, name):
+    """``constexpr <type> <name> = <expression>;`` of the source, as Python
+    over NJ, NV, size and the other constants (C's ``a ? b : c`` becomes
+    ``(b if a else c)``)."""
+    m = re.search(rf"constexpr (?:int|bool) {name} =\s*([^;]+);", text)
+    assert m, name
+    expr = re.sub(r"\s+", " ", m.group(1)).replace("int(sizeof(T))", "size")
+    expr = expr.replace("true", "True").replace("false", "False")
+    while "?" in expr:
+        expr = re.sub(r"([^?()]+)\?([^:()]+):([^;()]+)",
+                      r"((\2) if (\1) else (\3))", expr, count=1)
+    return expr
+
+
+@pytest.mark.parametrize("core", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6), (8, 8), (1, 1)])
+def test_launch_shape_mirrors_the_source(widths, dtype, core):
+    """TS, threads and shared memory of ``launch_shape`` are what
+    ``kte_step.cu::StepShape`` computes for the same instance (the C entry
+    point refuses a launch whose shared size differs), inside an H100
+    block, with a warp of 32 scenarios per direction in f32 and whole
+    128 B rows."""
+    text = SOURCE.read_text()
+    size = 4 if dtype == torch.float32 else 8
+    env = {"NJ": widths[0], "NV": widths[1], "size": size, "kCoreOnly": core}
+    for name in ("SLOTS", "TS", "N", "NT", "CHOL_ROWS", "FK_ROWS",
+                 "SERIES_ROWS", "ROWS", "SMEM"):
+        env[name] = eval(_source_constant(text, name), {}, dict(env))
+    assert env["SLOTS"] == kte_step.SLOTS
+    shape = kte_step.launch_shape(*widths, dtype, core=core)
+    assert shape.widths == widths
+    assert (shape.scenarios, shape.threads, shape.shared_bytes) == (
+        env["TS"], env["NT"], env["SMEM"])
+    assert shape.threads == shape.scenarios * 2 * widths[1]
+    assert shape.threads <= 1024 == _tile.MAX_THREADS
+    assert shape.shared_bytes <= 232448 == _tile.MAX_SHARED_BYTES
+    assert shape.scenarios * size == 128
+    assert shape.blocks(8192) * shape.scenarios == 8192
+
+
+def test_source_constants_agree():
+    """The joint bound and the anchor slots of the source are the
+    wrapper's, and the last slot ends where SLOTS says."""
+    text = SOURCE.read_text()
+    assert int(_source_constant(text, "MAXJ")) == kte_step.MAX_JOINTS
+    slots = dict(re.findall(r"(S_[A-Z]+) = (\d+)", text))
+    assert int(slots["S_COM"]) + 3 == kte_step.SLOTS
+    assert "__launch_bounds__" in text and "__grid_constant__" in text
+    assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("B,blocks", [(1, 1), (32, 1), (77, 3), (1001, 32),
+                                      (8192, 256)])
+def test_ragged_batches_take_whole_tiles(B, blocks):
+    assert kte_step.launch_shape(6, 6, torch.float32).blocks(B) == blocks
+
+
+def test_variants_patch_every_knob(tmp_path, monkeypatch):
+    """``ops/kte_variants.py`` reads the shipped launch shape from the source
+    (the TS ``launch_shape`` gives) and each variant's patched copy reads
+    back as that variant (no nvcc)."""
+    from reak_tpu_torch.ops import kte_variants
+
+    base = kte_variants.shipped(SOURCE.read_text())
+    assert base == {"ts": kte_step.launch_shape(6, 6, torch.float32).scenarios,
+                    "blocks": 1}
+    monkeypatch.setattr(kte_variants.subprocess, "Popen",
+                        lambda *args, **kwargs: None)
+    monkeypatch.setattr(kte_variants._build, "_nvcc", lambda: "nvcc")
+    seen = set()
+    for other in kte_variants.OTHERS:
+        variant = {**base, **other}
+        d, _, _ = kte_variants._variant(tmp_path, variant, base)
+        assert kte_variants.shipped((d / "kte_step.cu").read_text()) == variant
+        seen.add(d.name)
+    assert len(seen) == len(kte_variants.OTHERS)
+
+
+def test_wrappers_take_the_one_launch_shape():
+    for fn in (kte_step.make_step_lanes, kte_core.make_core_lanes):
+        src = inspect.getsource(fn)
+        assert "launch_shape(" in src and "chain_table(" in src
+
+
+# ---- libraries per chain ------------------------------------------------
+
+@pytest.mark.parametrize("chain,widths", [("manip_3r3r", (6, 6)),
+                                          ("planar_2link", (2, 2))])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_library_per_chain(chain, widths, dtype):
+    spec = getattr(models, chain)()
+    assert kte_step.instance_for(spec) == widths
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    name = kte_step.library(widths, dtype)
+    assert name == f"kte_step@{widths[0]}x{widths[1]}_{suffix}"
+    source, defines = _build._source_and_defines(name)
+    assert source == SOURCE
+    assert defines[:2] == [f"-DREAK_NMAX={widths[0]}",
+                           f"-DREAK_MMAX={widths[1]}"]
+
+
+def test_mixed_chain_runs_its_own_width():
+    spec = convert.spec_from(_mixed_chain_jax())
+    assert kte_step.instance_for(spec) == (8, 6)
+    names = {kte_step.library(w, dt) for w in ((8, 6), (6, 6), (2, 2))
+             for dt in DTYPES}
+    assert len({_build.library_path(n) for n in names}) == 6
+
+
+def test_chains_the_kernel_does_not_take_raise():
+    too_long = models.manip_3r3r().__class__.build(
+        joint_types=[0] * 9, masses=[1.0] * 9)
+    free = models.floating_arm()
+    for spec in (too_long, free):
+        with pytest.raises(NotImplementedError):
+            kte_step.make_step_lanes(spec, 0.01)
+        with pytest.raises(NotImplementedError):
+            kte_core.make_core_lanes(spec)
+
+
+# ---- entry points and the table -------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6)])
+def test_signatures_name_entry_points_of_the_source(widths, dtype):
+    """Every function the two wrappers declare exists in ``kte_step.cu``
+    (its entry macro expanded by hand), with as many arguments."""
+    text = SOURCE.read_text()
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fill = {"NJ": str(widths[0]), "NV": str(widths[1]), "SUFFIX": suffix}
+    c_args = {}
+    for macro_name in re.findall(r"^  int (reak_\w+(?:##\w+)+)\(", text,
+                                 flags=re.M):
+        params = text[text.index(macro_name):]
+        params = params[params.index("(") + 1:params.index(") {")]
+        name = "".join(fill.get(t, t) for t in macro_name.split("##"))
+        c_args[name] = [a for a in params.replace("\\", "").split(",")
+                        if a.strip()]
+    declared = {**kte_step.signatures(widths, dtype),
+                **kte_step.signatures(widths, dtype, kte_core.SIGNATURES)}
+    assert set(declared) == set(c_args)
+    for name, args in declared.items():
+        assert len(args) == len(c_args[name]), name
+
+
+def test_table_by_value_fits_a_kernel_parameter():
+    """The kernel takes the chain table by value: at 8 joints in f64 it is
+    8 × 27 + 3 values, well inside 4 KB."""
+    spec = convert.spec_from(_mixed_chain_jax())
+    table = kte_step.chain_table(spec, "cpu", torch.float64)
+    assert table.shape == (8 * 27 + 3,)
+    assert table.numel() * table.element_size() <= 4096
+    assert table.device.type == "cpu"
+
+
+# ---- the plain versions on the mixed chain against JAX ---------------------
+
+@pytest.fixture(scope="module")
+def mixed_case():
+    jspec_ = _mixed_chain_jax()
+    spec = convert.spec_from(jspec_)
+    rng = np.random.default_rng(11)
+    x = _states(rng, spec.nv, 4)
+    u = rng.uniform(-5.0, 5.0, (spec.nv, 4))
+    return jspec_, spec, x, u
+
+
+@pytest.fixture(scope="module")
+def mixed_jax(mixed_case):
+    """JAX's M (nv, nv, B), f (nv, B) and their tangents along each of the
+    n unit state directions, dM (n, nv, nv, B) and df (n, nv, B): one
+    ``jax.jvp`` of ``make_terms_lanes`` over the scenarios repeated n times,
+    the copy d moving along direction d (the n pulls of
+    ``make_rollout_ltv_lanes`` in one pass)."""
+    jspec_, spec, x, _ = mixed_case
+    nv, n, B = spec.nv, 2 * spec.nv, x.shape[1]
+    terms = jlanes.make_terms_lanes(jspec_)
+    tangent = np.repeat(np.eye(n), B, axis=1)  # column d·B + b: direction d
+    (M, f), (dM, df) = jax.jvp(lambda xx: terms(xx[:nv], xx[nv:]),
+                               (jnp.asarray(np.tile(x, (1, n))),),
+                               (jnp.asarray(tangent),))
+    M, f = np.asarray(M)[..., :B], np.asarray(f)[..., :B]
+    dM = np.moveaxis(np.asarray(dM).reshape(nv, nv, n, B), 2, 0)
+    df = np.moveaxis(np.asarray(df).reshape(nv, n, B), 1, 0)
+    return M, f, dM, df
+
+
+def _core_and_step_of(x, u, M, f, dM, df, dt, order=4):
+    """q̈, ∂q̈/∂x, M⁻¹ from (M, f) and their tangents, and the step of
+    ``make_rollout_ltv_lanes`` on them (its exponential series), per
+    scenario in numpy."""
+    nv, B = f.shape
+    n = 2 * nv
+    qdd, dqdd, minv = (np.empty((nv, B)), np.empty((nv, n, B)),
+                       np.empty((nv, nv, B)))
+    Ad, Bd, cd, xn = (np.empty((n, n, B)), np.empty((n, nv, B)),
+                      np.empty((n, B)), np.empty((n, B)))
+    for b in range(B):
+        Mb = M[:, :, b]
+        qdd[:, b] = np.linalg.solve(Mb, f[:, b] + u[:, b])
+        rhs = df[:, :, b].T - np.einsum("dkl,l->kd", dM[..., b], qdd[:, b])
+        dqdd[:, :, b] = np.linalg.solve(Mb, rhs)
+        minv[:, :, b] = np.linalg.inv(Mb)
+        A = np.zeros((n, n))
+        A[:nv, nv:] = np.eye(nv)
+        A[nv:] = dqdd[:, :, b]
+        Bc = np.concatenate([np.zeros((nv, nv)), minv[:, :, b]])
+        S = term = np.eye(n) * dt
+        for k in range(2, order + 1):
+            term = (dt / k) * A @ term
+            S = S + term
+        Ad[:, :, b] = np.eye(n) + A @ S
+        Bd[:, :, b] = S @ Bc
+        xn[:, b] = x[:, b] + S @ np.concatenate([x[nv:, b], qdd[:, b]])
+        cd[:, b] = xn[:, b] - Ad[:, :, b] @ x[:, b] - Bd[:, :, b] @ u[:, b]
+    return (qdd, dqdd, minv), (Ad, Bd, cd, xn)
+
+
+def test_mixed_chain_converts_exactly(mixed_case):
+    """``convert.spec_from`` carries the JAX spec across unchanged, and it
+    is the port's ``models.mixed_chain``, which ``chip_smoke.py`` checks."""
+    jspec_, spec, _, _ = mixed_case
+    assert spec.joint_types == tuple(int(t) for t in jspec_.joint_types)
+    assert spec.nv == 6 and spec.n_joints == 8
+    own = models.mixed_chain()
+    assert own.joint_types == spec.joint_types
+    for field in ("axes", "offsets_pos", "offsets_quat", "com_pos", "masses",
+                  "inertias", "stiffness", "rest_q", "damping", "gravity"):
+        np.testing.assert_array_equal(np.asarray(getattr(spec, field)),
+                                      np.asarray(getattr(jspec_, field)))
+        np.testing.assert_array_equal(np.asarray(getattr(own, field)),
+                                      np.asarray(getattr(spec, field)))
+
+
+def test_mixed_chain_terms_match_jax(mixed_case, mixed_jax):
+    _, spec, x, _ = mixed_case
+    nv = spec.nv
+    M_t, f_t = lanes.make_terms_lanes(spec)(torch.as_tensor(x[:nv]),
+                                            torch.as_tensor(x[nv:]))
+    _assert_rel(M_t, mixed_jax[0])
+    _assert_rel(f_t, mixed_jax[1])
+
+
+def test_mixed_chain_step_matches_jax(mixed_case, mixed_jax):
+    """The plain core of K5 and the plain step of K1 against JAX's terms
+    and their linearization taken through ``make_rollout_ltv_lanes``' step
+    (the solves and the series in numpy); on CPU tensors both wrappers are
+    those plain versions and count no launch."""
+    _, spec, x, u = mixed_case
+    core_j, step_j = _core_and_step_of(x, u, *mixed_jax, 0.01)
+    xt, ut = torch.as_tensor(x), torch.as_tensor(u)
+    before = (kte_step.launches, kte_core.launches)
+    step = kte_step.make_step_lanes(spec, 0.01)(xt, ut)
+    core = kte_core.make_core_lanes(spec)(xt, ut)
+    assert (kte_step.launches, kte_core.launches) == before
+    for got, want in zip(core, core_j):
+        _assert_rel(got, want)
+    for got, want in zip(step, step_j):
+        _assert_rel(got, want)
