@@ -22,14 +22,18 @@ version on the card, and drives the port's main paths through the kernels:
   ``ctrl.riccati_soa.solve_box_mpc_riccati_soa_fused(use_kernels="passes")``,
   and the satellite solve on the per-pass kernels.
 
-It also holds the two tile kernels (the whole-solve PDIP and the fused
-reverse pass) to their plain versions at f64 on batches that are no multiple
-of the tile (B=1001, 1000, 100, 77, 1) and at widths off the exact instances
+It also holds the tile kernels (the whole-solve PDIP and the three per-pass
+kernels) to their plain versions at f64 on batches that are no multiple of
+the tile (B=1001, 1000, 100, 77, 1) and at widths off the exact instances
 ((6, 3) and (13, 7), which run the padded ones), and the rollout step and
 its core (K1, K5; one library per chain width and type) at f64 on the
 flagship arm at B=1, 77, 1001, on ``planar_2link`` and on a mixed chain of
 8 links (FIXED and PRISMATIC joints, offset quaternions, springs, dampers,
-full inertia tensors; phase ``kte_chains``).  The build line reports ptxas'
+full inertia tensors; phase ``kte_chains``).  Phase ``wide_widths`` takes
+the widest instances at f64: K1/K5 on a 16-segment flexible beam (16
+joints), K2 and K4a-c at (32, 16) and at a padded width under it, K3a/K3b
+at n = 17 and 32, and one ``make_kte_mpc`` solve of the beam against the
+plain f64 solve of the CPU child.  The build line reports ptxas'
 registers and stack frame of every kernel instance and the blocks an SM
 holds of each K1/K5 instance.
 
@@ -66,9 +70,13 @@ SAT_B, SAT_H, SAT_DT = 8192, 20, 0.1
 FA_B, FA_H, FA_DT = 2048, 16, 0.02
 N_REF = 256  # scenarios of the plain f64 CPU references
 H_LONG = 256  # the long-horizon path: past the TPU kernel's VMEM bound
-# NVIDIA's published peaks of one H100 SXM at 700 W: HBM3 bytes/s and
-# float32 operations/s outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# the 16-segment flexible beam (kte/models.flexible_beam): n=32, m=16; its
+# fastest mode is overdamped at |λ| ≈ 5.1e5 /s, and the order-4 series is
+# stable for |λ| dt ≤ 2.78
+BEAM_SEGMENTS, BEAM_B, BEAM_H, BEAM_DT = 16, 64, 8, 2e-6
+# NVIDIA's published peaks of one H100 SXM at 700 W: HBM3 bytes/s, and
+# float32 and float64 operations/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
 
 
 T_START = time.perf_counter()
@@ -176,12 +184,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, peak_ops_s=PEAK_F32_S):
     """The least time in ms the card could take: the larger of the bytes
-    over the memory rate and the float32 operations over their peak rate,
-    and which of the two it is."""
+    over the memory rate and the operations over their peak rate (float32
+    unless another is given), and which of the two it is."""
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_S * 1e3
+    t_ops = ops / peak_ops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -295,10 +303,30 @@ def floating_arm_solver(lanes, manifold_lanes, spec, prob, sqp_iters=1):
         qp_iters=ITERS, sqp_iters=sqp_iters)
 
 
+def beam_config(mpc, spec, device, dtype):
+    """The beam's MPC: Q = diag(10×nv, 1×nv), R = 0.05 I, QN = 5 Q, ±30,
+    H = BEAM_H."""
+    nv = spec.nv
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    w = np.concatenate([np.full(nv, 10.0), np.full(nv, 1.0)])
+    return mpc.MPCProblem(Q=t(np.diag(w)), R=t(np.eye(nv) * 0.05),
+                          QN=t(np.diag(5.0 * w)), u_min=t(np.full(nv, -30.0)),
+                          u_max=t(np.full(nv, 30.0)), horizon=BEAM_H)
+
+
+def beam_states(spec):
+    """x0 (BEAM_B, 2nv), numpy seed 0: q ~ U(±0.05), q̇ ~ U(±0.5)."""
+    rng = np.random.default_rng(0)
+    nv = spec.nv
+    return np.concatenate([rng.uniform(-0.05, 0.05, (BEAM_B, nv)),
+                           rng.uniform(-0.5, 0.5, (BEAM_B, nv))], axis=1)
+
+
 def cpu_reference(path):
-    """The plain f64 solves on CPU tensors that the card's f32 solves are
-    held to, for the first N_REF scenarios: the flagship with two SQP
-    passes and the line search, and the floating arm.  Saved to ``path``."""
+    """The plain f64 solves on CPU tensors that the card's solves are held
+    to: for the first N_REF scenarios the flagship with two SQP passes and
+    the line search and the floating arm, and the 16-segment beam's solve.
+    Saved to ``path``."""
     sys.path.insert(0, ROOT)
     from reak_tpu_torch.ctrl import manifold_lanes, mpc
     from reak_tpu_torch.kte import lanes, models
@@ -316,17 +344,23 @@ def cpu_reference(path):
     us_fa, xs_fa = floating_arm_solver(lanes, manifold_lanes, fa, prob)(
         torch.as_tensor(floating_arm_states(fa, FA_B)[:N_REF]), x_ref,
         torch.zeros(N_REF, FA_H, fa.nv, dtype=f64))
+    beam = models.flexible_beam(BEAM_SEGMENTS)
+    us_bm, xs_bm = mpc.make_kte_mpc(
+        beam, beam_config(mpc, beam, "cpu", f64), BEAM_DT, qp_iters=ITERS)(
+        torch.as_tensor(beam_states(beam)),
+        torch.zeros(BEAM_B, BEAM_H, beam.nv, dtype=f64))
     tmp = f"{path}.tmp.npz"
     np.savez(tmp, flagship_sqp_us=us_flag.numpy(), floating_arm_us=us_fa.numpy(),
-             floating_arm_xs=xs_fa.numpy(),
-             seconds=time.perf_counter() - t0)
+             floating_arm_xs=xs_fa.numpy(), beam_us=us_bm.numpy(),
+             beam_xs=xs_bm.numpy(), seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
 
 
 def kte_instances():
     """(chain, widths, type) of every K1/K5 library the run drives: the
-    flagship arm in f32 and f64, planar_2link and the mixed chain in f64."""
+    flagship arm in f32 and f64, planar_2link, the mixed chain and the
+    16-segment beam in f64."""
     from reak_tpu_torch.kte import models
     from reak_tpu_torch.ops import kte_step
 
@@ -334,7 +368,9 @@ def kte_instances():
     for spec, dtypes in ((models.manip_3r3r(), (torch.float32,
                                                 torch.float64)),
                          (models.planar_2link(), (torch.float64,)),
-                         (models.mixed_chain(), (torch.float64,))):
+                         (models.mixed_chain(), (torch.float64,)),
+                         (models.flexible_beam(BEAM_SEGMENTS),
+                          (torch.float64,))):
         out += [(spec.name, kte_step.instance_for(spec), dt) for dt in dtypes]
     return out
 
@@ -433,8 +469,8 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         _build.load(name, signatures)
     # registers and stack frame of each kernel instance the paths launch
     # (ptxas -v), as {key: (library, mangled-name fragment)}; the whole
-    # report lands beside each library.  The tile kernels (K2, K4a) have an
-    # instance of the exact widths and a padded one per bound and type.
+    # report lands beside each library.  The tile kernels (K2, K4a-c) have
+    # an instance of the exact widths and a padded one per bound and type.
     wanted = {}
     for bd in _tile.INSTANCES:
         for t, suffix in (("f", "f32"), ("d", "f64")):
@@ -443,13 +479,12 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             for (nb, mb), exact in ((_tile.EXACT[bd], 1), (bd, 0)):
                 w = f"I{t}Li{nb}ELi{mb}ELb{exact}E"
                 wanted[f"pdip_whole<{w}>"] = (k2_lib, f"pdip_whole_kernel{w}")
-                wanted[f"riccati_bwd.fused_backward<{w}>"] = (
-                    k4_lib, f"fused_backward_kernel{w}")
-            w = f"I{t}Li{bd[0]}ELi{bd[1]}E"
-            for e in ("vector_backward", "forward"):
-                wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib, f"{e}_kernel{w}")
+                for e in riccati_bwd.launches:
+                    wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib,
+                                                       f"{e}_kernel{w}")
     wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
-                   for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E")})
+                   for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E",
+                             "IdLi17E", "IfLi32E", "IdLi32E")})
     # K1 and K5 per chain width (joints x dofs) and type, with the blocks
     # of each that an SM holds
     occupancy = {}
@@ -659,20 +694,28 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         *pass_args(f64, A64, B64, pass_np)["fused_backward"])[1:3]
     k4["passes_alone"] = {}
     for entry, plain in plain_pass.items():
-        res = {}
+        res, unchanged = {}, True
         for dt in (f64, f32):
             a = pass_args(dt, A64, B64, pass_np, KG64)[entry]
-            k_out, p_out = getattr(riccati_bwd, entry)(*a), plain(*a)
+            before = [t.clone() for t in a]
+            k_out = getattr(riccati_bwd, entry)(*a)
+            torch.cuda.synchronize()
+            # the kernel leaves its inputs (k, rhs, K, G, dx0) as they were
+            unchanged &= all(torch.equal(t, b) for t, b in zip(a, before))
+            p_out = plain(*a)
             res[dt] = ((k_out,) if torch.is_tensor(k_out) else k_out,
                        (p_out,) if torch.is_tensor(p_out) else p_out)
+            del before
         torch.cuda.synchronize()
         (k64s, p64s), (k32s, p32s) = res[f64], res[f32]
         case = {"f64_rel": [rel_err(a, r) for a, r in zip(k64s, p64s)],
                 "f32_abs": [abs_err(a, r) for a, r in zip(k32s, p64s)],
-                "plain_f32_abs": [abs_err(a, r) for a, r in zip(p32s, p64s)]}
+                "plain_f32_abs": [abs_err(a, r) for a, r in zip(p32s, p64s)],
+                "inputs_unchanged": unchanged}
         k4["passes_alone"][entry] = case
         k4_max_abs = max([k4_max_abs] + [abs_err(a, r)
                                          for a, r in zip(k64s, p64s)])
+        check(unchanged, f"K4 {entry} wrote one of its inputs")
         for i, e in enumerate(case["f64_rel"]):
             check(e <= 1e-9, f"K4 {entry} output {i} f64 relative")
             check(case["f32_abs"][i] <= 2.0 * case["plain_f32_abs"][i],
@@ -815,7 +858,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     emit(k2w)
     del Aw, Bw, cw, out, args32
 
-    # ---- K2 and K4a on ragged batches and padded widths, f64 --------------
+    # ---- K2 and K4a-c on ragged batches and padded widths, f64 ------------
     # batches that are no multiple of the tile (its last block runs lanes
     # past B) and widths off the exact instances (the padded ones), on a
     # random LTV near the identity with a ±1.5 box, against the plain
@@ -834,55 +877,85 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                 "u_ref": t(0.1 * rng.standard_normal((horizon, m, batch))),
                 "q": t(rng.standard_normal((horizon, n, batch))),
                 "u_eff": t(rng.standard_normal((horizon, m, batch))),
-                "D": t(rng.uniform(0.5, 2.0, (horizon, m, batch)))}
+                "D": t(rng.uniform(0.5, 2.0, (horizon, m, batch))),
+                "rhs": t(rng.standard_normal((horizon, m, batch))),
+                "k": t(rng.standard_normal((horizon, m, batch))),
+                "dx0": t(rng.standard_normal((n, batch)))}
+
+    def edge_passes(p):
+        """K4a-c against their plain passes at f64 on ``synthetic``'s
+        problem (K4b and K4c on the plain pass's K and G, K4c from a
+        nonzero dx0): each launched once, each within 1e-9 relative, and
+        their inputs left as they were."""
+        nonlocal k4_max_abs
+        pa = [p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R")]
+        K_, G_ = riccati_soa.fused_backward_plain(*pa)[1:3]
+        args = {"fused_backward": pa,
+                "vector_backward": [p["A"], p["Bm"], p["rhs"], K_, G_],
+                "forward": [p["A"], p["Bm"], K_, p["k"], p["dx0"]]}
+        out = {}
+        for entry, a in args.items():
+            before, count = [t.clone() for t in a], riccati_bwd.launches[entry]
+            got = getattr(riccati_bwd, entry)(*a)
+            want = plain_pass[entry](*a)
+            got, want = ((got,), (want,)) if torch.is_tensor(got) else (got,
+                                                                        want)
+            torch.cuda.synchronize()
+            out[f"{entry}_f64_rel"] = [rel_err(g, w) for g, w in zip(got,
+                                                                     want)]
+            check(riccati_bwd.launches[entry] == count + 1,
+                  f"a ragged or padded case did not launch {entry}")
+            check(all(torch.equal(t, b) for t, b in zip(a, before)),
+                  f"K4 {entry} wrote one of its inputs")
+            for i, e in enumerate(out[f"{entry}_f64_rel"]):
+                check(e <= 1e-9, f"K4 {entry} ragged/padded output {i}")
+            k4_max_abs = max([k4_max_abs] + [abs_err(g, w)
+                                             for g, w in zip(got, want)])
+        return out
 
     edge = {"phase": "ragged_and_padded", "dtype": "float64", "H": 12,
             "cases": {}}
-    for n_, m_, batch, keys in ((12, 6, 1000, ()), (12, 6, 1, ("x_ref",
-                                                               "u_ref")),
-                                (24, 12, 100, ("x_ref",)),
-                                (6, 3, 1001, ("x_ref",)),
-                                (13, 7, 77, ("x_ref", "u_ref"))):
+    def tile_case(n_, m_, batch, keys):
+        """K2 and K4a-c at widths (n_, m_) on ``batch`` scenarios, f64,
+        against their plain versions; K2 in the modes ``keys``."""
+        nonlocal k2_max_abs
         p = synthetic(n_, m_, batch)
         tile = _tile.tile_config(n_, m_, f64)
         args = [p[k] for k in ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb",
                                "ub")]
         kw = {k: p[k] for k in keys}
-        before = (pdip_whole.launches,
-                  riccati_bwd.launches["fused_backward"])
+        before = pdip_whole.launches
         (u_k, x_k), (u_p, x_p) = (
             riccati_soa.solve_box_mpc_riccati_soa_fused(
                 *args, iters=ITERS, use_kernels=uk, **kw)
             for uk in ("whole", "never"))
-        pa = [p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R")]
-        outs_k = riccati_bwd.fused_backward(*pa)
-        outs_p = riccati_soa.fused_backward_plain(*pa)
         torch.cuda.synchronize()
         case = {"exact_instance": tile.exact, "tile_scenarios": tile.scenarios,
                 "modes": list(keys) or ["regulator"],
                 "k2_f64_rel": {"u": rel_err(u_k, u_p), "xs": rel_err(x_k,
                                                                      x_p)},
-                "k4a_f64_rel": [rel_err(a, r) for a, r in zip(outs_k,
-                                                              outs_p)],
+                **edge_passes(p),
                 "active_bounds": int((u_p.abs() > 1.5 - 1e-9).sum())}
-        edge["cases"][f"n={n_},m={m_},B={batch}"] = case
-        check(pdip_whole.launches == before[0] + 1
-              and riccati_bwd.launches["fused_backward"] == before[1] + 1,
-              "a ragged or padded case did not launch K2 and K4a")
+        check(pdip_whole.launches == before + 1,
+              f"{n_, m_, batch} did not launch K2")
         check(batch % tile.scenarios != 0, "the batch is a multiple of the "
               "tile: not a ragged case")
         for o, e in case["k2_f64_rel"].items():
-            check(e <= 1e-9, f"K2 ragged/padded {n_, m_, batch} f64 {o}")
-        for i, e in enumerate(case["k4a_f64_rel"]):
-            check(e <= 1e-9, f"K4a ragged/padded {n_, m_, batch} output {i}")
+            check(e <= 1e-9, f"K2 {n_, m_, batch} f64 {o}")
         k2_max_abs = max(k2_max_abs, abs_err(u_k, u_p), abs_err(x_k, x_p))
-        k4_max_abs = max([k4_max_abs] + [abs_err(a, r)
-                                         for a, r in zip(outs_k, outs_p)])
+        return case
+
+    for n_, m_, batch, keys in ((12, 6, 1000, ()), (12, 6, 1, ("x_ref",
+                                                               "u_ref")),
+                                (24, 12, 100, ("x_ref",)),
+                                (6, 3, 1001, ("x_ref",)),
+                                (13, 7, 77, ("x_ref", "u_ref"))):
+        edge["cases"][f"n={n_},m={m_},B={batch}"] = tile_case(n_, m_, batch,
+                                                              keys)
     check(any(not c["exact_instance"] for c in edge["cases"].values())
           and any(c["active_bounds"] > 0 for c in edge["cases"].values()),
           "no padded instance or no active bound among the edge cases")
     emit(edge)
-    del p, args, pa, outs_k, outs_p
 
     # ---- phase 5: the flagship solve through the kernels -----------------
     prob32 = flagship_problem(mpc, dev, f32)
@@ -1092,6 +1165,148 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
           "floating-arm outputs are not finite or of the wrong shape")
     check(err_fa <= 1e-3,
           "floating-arm f32 controls more than 1e-3 from the CPU f64 solve")
+
+    # ---- the widest instances, f64 ----------------------------------------
+    # K1/K5 on the 16-segment beam (16 joints, n = 32) at B = 77 and 1001;
+    # K2 and K4a-c at (32, 16), its exact instance, and at (26, 13), its
+    # padded one, H = 12; K3a/K3b at n = 17 and 32 (B = 1001, 5 right-hand
+    # sides); then the beam's make_kte_mpc solve through K1 and K2 against
+    # the CPU child's plain f64 solve.  All against plain versions, ≤1e-9
+    # relative.
+    beam = models.flexible_beam(BEAM_SEGMENTS)
+    nvb = beam.nv
+    wide = {"phase": "wide_widths", "dtype": "float64", "k1_k5": {},
+            "tile": {}, "k3": {}}
+    for batch in (77, 1001):
+        xb = on(np.concatenate([rng.uniform(-0.05, 0.05, (nvb, batch)),
+                                rng.uniform(-0.5, 0.5, (nvb, batch))]), f64)
+        ub_ = on(rng.uniform(-5.0, 5.0, (nvb, batch)), f64)
+        before = (kte_step.launches, kte_core.launches)
+        got1 = kte_step.make_step_lanes(beam, BEAM_DT)(xb, ub_)
+        got5 = kte_core.make_core_lanes(beam)(xb, ub_)
+        want1 = kte_step.make_step_plain(beam, BEAM_DT)(xb, ub_)
+        want5 = kte_core.make_core_plain(beam)(xb, ub_)
+        torch.cuda.synchronize()
+        case = {"k1_f64_rel": {nm: rel_err(a, r)
+                               for nm, a, r in zip(names, got1, want1)},
+                "k5_f64_rel": {nm: rel_err(a, r) for nm, a, r in
+                               zip(("qdd", "dqdd", "minv"), got5, want5)}}
+        wide["k1_k5"][f"{beam.name},B={batch}"] = case
+        check((kte_step.launches, kte_core.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"{beam.name} B={batch} did not launch K1 and K5")
+        for key in ("k1_f64_rel", "k5_f64_rel"):
+            for nm, e in case[key].items():
+                check(e <= 1e-9, f"{key[:2].upper()} {beam.name} B={batch} "
+                      f"{nm} f64 relative error")
+        k1_max_abs = max([k1_max_abs] + [abs_err(a, r)
+                                         for a, r in zip(got1, want1)])
+        k5_max_abs = max([k5_max_abs] + [abs_err(a, r)
+                                         for a, r in zip(got5, want5)])
+    del xb, ub_, got1, got5, want1, want5
+    for n_, m_, batch, keys in ((32, 16, 1001, ("x_ref",)),
+                                (26, 13, 77, ("x_ref", "u_ref"))):
+        wide["tile"][f"n={n_},m={m_},B={batch}"] = tile_case(n_, m_, batch,
+                                                             keys)
+    check(wide["tile"]["n=32,m=16,B=1001"]["exact_instance"]
+          and not wide["tile"]["n=26,m=13,B=77"]["exact_instance"],
+          "the (32, 16) cases did not run the exact and the padded instance")
+    for n in (17, 32):
+        G_np, r_np = spd(n, 1001), rng.standard_normal((n, 5, 1001))
+        g, r = on(G_np, f64), on(r_np, f64)
+        before = dict(chol_lanes.launches)
+        got_a = chol_lanes.solve_lanes(g, r[:, 0].contiguous())
+        got_b = chol_lanes.solve_lanes_multi(g, r)
+        want = riccati_soa._chol_solve_lanes(g, r)
+        torch.cuda.synchronize()
+        wide["k3"][f"n={n}"] = {"solve_lanes_f64_rel": rel_err(got_a,
+                                                               want[:, 0]),
+                                "solve_lanes_multi_f64_rel": rel_err(got_b,
+                                                                     want)}
+        check(all(chol_lanes.launches[e] == before[e] + 1
+                  for e in chol_lanes.launches), f"K3 n={n} did not launch")
+        for key, e in wide["k3"][f"n={n}"].items():
+            check(e <= 1e-9, f"K3 n={n} {key}")
+        k3_err["solve_lanes"] = max(k3_err["solve_lanes"],
+                                    abs_err(got_a, want[:, 0]))
+        k3_err["solve_lanes_multi"] = max(k3_err["solve_lanes_multi"],
+                                          abs_err(got_b, want))
+    del g, r, got_a, got_b, want
+    prob_bm = beam_config(mpc, beam, dev, f64)
+    x0_bm = on(beam_states(beam), f64)
+    u0_bm = torch.zeros(BEAM_B, BEAM_H, nvb, dtype=f64, device=dev)
+    solve_bm = mpc.make_kte_mpc(beam, prob_bm, BEAM_DT, qp_iters=ITERS)
+    reset_counts()
+    (us_bm, xs_bm), t_bm = timed(lambda: solve_bm(x0_bm, u0_bm))
+    main_runs["beam"] = counts()
+    wide["beam_solve"] = {
+        "segments": BEAM_SEGMENTS, "n": 2 * nvb, "m": nvb, "B": BEAM_B,
+        "H": BEAM_H, "dt": BEAM_DT, "iters": ITERS, "ms": t_bm,
+        "launches": main_runs["beam"],
+        "u_rel_vs_cpu_f64": rel_err(us_bm.cpu(),
+                                    torch.as_tensor(refs["beam_us"])),
+        "xs_rel_vs_cpu_f64": rel_err(xs_bm.cpu(),
+                                     torch.as_tensor(refs["beam_xs"])),
+        "active_bounds": int((us_bm.abs() > 30.0 - 1e-6).sum())}
+    # each wide instance per launch at B = 8192, f64, beside its bound over
+    # the float64 peak: K1/K5 on the beam, K2 and K4a-c at (32, 16) with
+    # H = 12, K3a/K3b at n = 32 (one and 32 right-hand sides)
+    wide["per_launch_f64"] = {}
+
+    def wide_row(key, fn, args, plain, reps):
+        outs = fn(*args)
+        outs = (outs,) if torch.is_tensor(outs) else outs
+        bound_ms, bound_by = bound(
+            nbytes(*args, *outs), B * ops_per_scenario(
+                plain, lambda nb: cpu_args(args, B, nb)), PEAK_F64_S)
+        wide["per_launch_f64"][key] = {
+            "ms": cuda_ms(lambda: fn(*args), reps=reps),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+    xw = on(np.concatenate([rng.uniform(-0.05, 0.05, (nvb, B)),
+                            rng.uniform(-0.5, 0.5, (nvb, B))]), f64)
+    uw = on(rng.uniform(-5.0, 5.0, (nvb, B)), f64)
+    wide_row("kte_step@16x16", kte_step.make_step_lanes(beam, BEAM_DT),
+             (xw, uw), kte_step.make_step_plain(beam, BEAM_DT), 3)
+    wide_row("kte_core@16x16", kte_core.make_core_lanes(beam), (xw, uw),
+             kte_core.make_core_plain(beam), 3)
+    del xw, uw
+    pw = synthetic(32, 16, B)
+    k2w_args = tuple(pw[k] for k in ("A", "Bm", "c", "Q", "QN", "R", "x0",
+                                     "lb", "ub"))
+    wide_row("pdip_whole@32x16",
+             lambda *a: riccati_soa.solve_box_mpc_riccati_soa_fused(
+                 *a, iters=ITERS, use_kernels="whole"), k2w_args,
+             lambda *a: riccati_soa._fused_scan(*a, iters=ITERS), 2)
+    pa = tuple(pw[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R"))
+    K_w, G_w = riccati_soa.fused_backward_plain(*pa)[1:3]
+    for e, a in (("fused_backward", pa),
+                 ("vector_backward", (pw["A"], pw["Bm"], pw["rhs"], K_w,
+                                      G_w)),
+                 ("forward", (pw["A"], pw["Bm"], K_w, pw["k"], pw["dx0"]))):
+        wide_row(f"riccati_bwd.{e}@32x16", getattr(riccati_bwd, e), a,
+                 plain_pass[e], 3)
+    del pw, k2w_args, pa, K_w, G_w
+    g = on(spd(32, B), f64)
+    for e, k in (("solve_lanes", 1), ("solve_lanes_multi", 32)):
+        r = on(rng.standard_normal((32, B) if k == 1 else (32, k, B)), f64)
+        wide_row(f"chol_lanes.{e}@32", getattr(chol_lanes, e), (g, r),
+                 lambda gg, rr: riccati_soa._chol_solve_lanes(
+                     gg, rr if rr.dim() == 3 else rr[:, None]), 5)
+    del g, r
+    emit(wide)
+    check(main_runs["beam"]["kte_step"] == BEAM_H
+          and main_runs["beam"]["pdip_whole"] == 1,
+          f"the beam solve did not run on K1 and K2: {main_runs['beam']}")
+    check(tuple(us_bm.shape) == (BEAM_B, BEAM_H, nvb)
+          and bool(torch.isfinite(us_bm).all())
+          and bool(torch.isfinite(xs_bm).all()),
+          "beam outputs are not finite or of the wrong shape")
+    for key in ("u_rel_vs_cpu_f64", "xs_rel_vs_cpu_f64"):
+        check(wide["beam_solve"][key] <= 1e-9, f"beam solve {key}")
+    check(wide["beam_solve"]["active_bounds"] > 0,
+          "no active bound in the beam solve")
+    del us_bm, xs_bm, x0_bm, u0_bm
 
     # ---- the flagship chain at H=256 on K5 and K4a-c ---------------------
     # bench.py:139-149's phase split, composed from the public functions, at

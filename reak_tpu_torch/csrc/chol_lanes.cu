@@ -1,4 +1,4 @@
-// Batched Cholesky factor and solve of tiny SPD systems (n <= 16), one or k
+// Batched Cholesky factor and solve of tiny SPD systems (n <= 32), one or k
 // right-hand sides: the hand-written Hopper port of the Pallas kernels
 // reak_tpu/ops/chol_lanes.py::solve_lanes (K3a, one right-hand side) and
 // ::solve_lanes_multi (K3b, k right-hand sides, one factorization).
@@ -19,9 +19,13 @@
 // its scenario's G itself (the redundant factorizations of one scenario hit
 // L1/L2, not device memory).  Neighbouring threads take neighbouring
 // scenarios, so every load and store of the scenario-last layout coalesces
-// with no transpose.  N is a template argument (1..16, picked by a switch at
-// launch) so the packed factor (N(N+1)/2 <= 136 values) unrolls into
-// registers.  The recurrence is the TPU kernel's, operation for operation:
+// with no transpose.  N is a template argument (1..32, picked by a switch at
+// launch) so the packed factor unrolls into registers: N(N+1)/2 <= 136
+// values up to n = 16, the systems of the fixed-base arms and the floating
+// arm; beyond, up to 528 values for a floating beam's n = 32, what exceeds a
+// thread's 255 registers spills to local memory, which the L1 cache holds
+// (ptxas' stack frame in the build report).  The recurrence is the TPU
+// kernel's, operation for operation:
 // d = rsqrt(s), L_jj = s·d, off-diagonals and both substitutions multiply by
 // the inverse diagonal d.  Any B >= 1 is taken: the TPU's B % 1024 rule is a
 // tile rule, not part of the function.
@@ -83,7 +87,7 @@ __global__ void chol_lanes_kernel(const T* __restrict__ G,
 template <typename T>
 int launch(const void* G, const void* rhs, void* x, int n, int k, int B,
            void* stream) {
-  if (n < 1 || n > 16 || k < 1 || k > 65535 || B < 1)
+  if (n < 1 || n > 32 || k < 1 || k > 65535 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 128;
   const dim3 grid((B + threads - 1) / threads, k);
@@ -99,7 +103,12 @@ int launch(const void* G, const void* rhs, void* x, int n, int k, int B,
     REAK_CHOL_CASE(5) REAK_CHOL_CASE(6) REAK_CHOL_CASE(7) REAK_CHOL_CASE(8)
     REAK_CHOL_CASE(9) REAK_CHOL_CASE(10) REAK_CHOL_CASE(11)
     REAK_CHOL_CASE(12) REAK_CHOL_CASE(13) REAK_CHOL_CASE(14)
-    REAK_CHOL_CASE(15) REAK_CHOL_CASE(16)
+    REAK_CHOL_CASE(15) REAK_CHOL_CASE(16) REAK_CHOL_CASE(17)
+    REAK_CHOL_CASE(18) REAK_CHOL_CASE(19) REAK_CHOL_CASE(20)
+    REAK_CHOL_CASE(21) REAK_CHOL_CASE(22) REAK_CHOL_CASE(23)
+    REAK_CHOL_CASE(24) REAK_CHOL_CASE(25) REAK_CHOL_CASE(26)
+    REAK_CHOL_CASE(27) REAK_CHOL_CASE(28) REAK_CHOL_CASE(29)
+    REAK_CHOL_CASE(30) REAK_CHOL_CASE(31) REAK_CHOL_CASE(32)
 #undef REAK_CHOL_CASE
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,7 +11,7 @@
 // M⁻¹, and the order-`order` exponential-series discretization
 //   S = Σ dt^k A^{k-1}/k!,  Ad = I + A S,  Bd = S B,  x_new = x + S f0,
 //   cd = x_new − Ad x − Bd u.
-// Every fixed-base chain of at most 8 joints: REVOLUTE, PRISMATIC and FIXED
+// Every fixed-base chain of at most 16 joints: REVOLUTE, PRISMATIC and FIXED
 // joints, offsets, springs, dampers, full inertia tensors.
 //
 // What bounds it on the H100: registers and latency (fewer registers a
@@ -45,7 +45,10 @@
 //   kept, only the anchors and axes of the joints up to it.
 // - A block is a tile of TS scenarios × n directions: TS = 32 in f32 (16 in
 //   f64), so a warp is 32 scenarios of one direction (two directions of 16
-//   in f64) and every load and store row is one 128 B line.
+//   in f64) and every load and store row is one 128 B line, up to the
+//   block of 384 threads that leaves a thread the 168 registers the (6, 6)
+//   f32 instance takes; a wider chain halves TS (nv = 16: 8 scenarios, four
+//   directions a warp).
 // - The work every direction shares is done once per scenario.  A primal
 //   phase (the threads of the last direction, whose own run is the lightest)
 //   runs the forward kinematics in Dual numbers (value and inner tangent) and
@@ -88,7 +91,9 @@
 namespace reak {
 namespace {
 
-constexpr int MAXJ = 8;  // joints (= bodies) a chain, at most
+constexpr int MAXJ = 16;  // joints (= bodies) a chain, at most
+// threads a block, at most: 65,536 registers an SM / 384 = 170 a thread
+constexpr int STEP_THREADS = 384;
 // chain table: J_STRIDE values per joint, then gravity (3)
 constexpr int J_TYPE = 0, J_AXIS = 1, J_OFFP = 4, J_OFFQ = 7, J_COM = 11,
               J_MASS = 14, J_INER = 15, J_STIFF = 24, J_REST = 25,
@@ -107,12 +112,18 @@ constexpr int S_ANC = 0, S_QOFF = 3, S_AXIS = 7, S_SC = 10, S_PPRI = 11,
 // it): shared memory in rows of TS values — the factor of M, 1/its
 // diagonal and q̈ in joint order, q̈ in dof order; then the primal phase's
 // anchors, whose rows K1's series (∂q̈/∂x, M⁻¹, S) reuses once every
-// direction is past the kinematics.  TS and MIN_BLOCKS: ops/kte_variants.py
-// re-measures them.
+// direction is past the kinematics.  TS is a 128 B row (TS0), halved while
+// the block would pass STEP_THREADS.  TS0 and MIN_BLOCKS:
+// ops/kte_variants.py re-measures them.
+constexpr int fit_threads(int ts, int n) {
+  return ts * n <= STEP_THREADS ? ts : fit_threads(ts / 2, n);
+}
+
 template <typename T, int NJ, int NV, bool kCoreOnly>
 struct StepShape {
-  static constexpr int TS = int(sizeof(T)) == 4 ? 32 : 16;
   static constexpr int N = 2 * NV;
+  static constexpr int TS0 = int(sizeof(T)) == 4 ? 32 : 16;
+  static constexpr int TS = fit_threads(TS0, N);
   static constexpr int NT = TS * N;
   static constexpr int MIN_BLOCKS = 1;
   static constexpr int CHOL_ROWS = NJ * NJ + 2 * NJ + NV;
@@ -786,7 +797,7 @@ int occupancy(int* blocks) {
 #endif
 static_assert(REAK_NMAX >= 1 && REAK_NMAX <= reak::MAXJ && REAK_MMAX >= 1 &&
                   REAK_MMAX <= REAK_NMAX,
-              "a fixed-base chain of 1..8 joints and 1..joints dofs");
+              "a fixed-base chain of 1..16 joints and 1..joints dofs");
 
 extern "C" {
 

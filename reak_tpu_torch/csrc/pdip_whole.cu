@@ -33,12 +33,9 @@
 // version's.  The reductions run over (H, m) only, the division in the step
 // rule is guarded, sigma = (mu_aff / max(mu, 1e-30))³, the last stage uses
 // QN, and the affine and corrector passes share each stage's factor — as in
-// the TPU kernel.  Instances: (12, 6), (24, 12), and padded (16, 8) and
-// (24, 12) for every other width.
+// the TPU kernel.  Instances: (12, 6), (24, 12), (32, 16), and padded
+// (16, 8), (24, 12) and (32, 16) for every other width.
 #include <cuda_runtime.h>
-
-#include <cstdint>
-#include <initializer_list>
 
 #include "riccati_tile.cuh"
 
@@ -192,13 +189,15 @@ __global__ void __launch_bounds__(Tile<T, NB, MB, EXACT>::NT)
   rollout_pass<TL>(sm, ltv, c, x0, w.u, w.xs, H, th);
 
   const T N2 = T(2.0 * H * m);
+  const TileArr<const T>* const no_dx0 = nullptr;
   const TileArr<T>* const no_dx = nullptr;
   for (int it = 0; it < iters; ++it) {
     // ---- phase 1: fused reverse pass (adjoint + Riccati + affine rhs) ----
     reverse_pass<TL>(sm, io, ltv, H, th);
 
     // ---- phase 2: affine forward (du_aff overwrites k_aff in w1) ---------
-    forward_pass<TL>(sm, ltv, w.K, w.w1, no_dx, H, th);
+    forward_pass<TL>(sm, ltv, w.K.in(), w.w1.in(), w.w1, no_dx0, no_dx, H,
+                     th);
 
     // ---- phase 3: Mehrotra centering + corrector rhs ----------------------
     __syncthreads();  // du_aff of every column is there
@@ -245,10 +244,12 @@ __global__ void __launch_bounds__(Tile<T, NB, MB, EXACT>::NT)
     }
 
     // ---- phase 4: corrector reverse pass, reusing the stage factors ------
-    vector_pass<TL>(sm, ltv, w.K, w.factor, w.w2, H, th);
+    vector_pass<TL, false>(sm, ltv, w.K.in(), w.factor.in(), w.w2.in(), w.w2,
+                           H, th);
 
     // ---- phase 5: corrector forward (du overwrites k2; dxs stored) -------
-    forward_pass<TL>(sm, ltv, w.K, w.w2, &w.dxs, H, th);
+    forward_pass<TL>(sm, ltv, w.K.in(), w.w2.in(), w.w2, no_dx0, &w.dxs, H,
+                     th);
 
     // ---- phase 6: step lengths + update (the trajectory is affine in u) --
     __syncthreads();  // du of every column is there
@@ -308,13 +309,6 @@ __global__ void __launch_bounds__(Tile<T, NB, MB, EXACT>::NT)
   rollout_pass<TL>(sm, ltv, c, x0, w.u, xs_out, H, th);
 }
 
-// every pointer a multiple of 16 B
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
-
 // scratch values a scenario: K, the packed factors, seven (H, m) and two
 // (H, n) arrays (ops/pdip_whole.py::scratch_values)
 inline long long scratch_values(int H, int n, int m) {
@@ -339,8 +333,7 @@ int launch(const void* A, const void* Bm, const void* c, const void* xr,
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int vec16 = aligned16({A, Bm, c, scratch}) &&
-                    (static_cast<long long>(B) * sizeof(T)) % 16 == 0;
+  const int vec16 = streams16<T>(B, {A, Bm, c, scratch});
   kernel<<<blocks, TL::NT, TL::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(c), static_cast<const T*>(xr),
@@ -373,7 +366,8 @@ extern "C" {
       const void* R, const void* lb, const void* ub, void* u_out,            \
       void* xs_out, void* scratch, long long scratch_count, int H, int n,    \
       int m, int B, int iters, int smem_bytes, void* stream) {               \
-    constexpr int EN = reak::exact_width(NM), EM = reak::exact_width(MM);    \
+    constexpr int EN = reak::ExactWidths<NM, MM>::N,                         \
+                  EM = reak::ExactWidths<NM, MM>::M;                         \
     if (H < 1 || n < 1 || n > NM || m < 1 || m > MM || B < 1 || iters < 0)   \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     if (n == EN && m == EM)                                                  \

@@ -1,8 +1,9 @@
 // The Riccati passes of the Mehrotra PDIP on a tile of scenarios per block:
 // the code shared by the whole-solve kernel (pdip_whole.cu, the port of
-// reak_tpu/ops/pdip_whole_pallas.py::make_whole_pdip) and the fused reverse
-// pass (riccati_bwd.cu, the port of
-// reak_tpu/ops/riccati_bwd_pallas.py::make_fused_backward).
+// reak_tpu/ops/pdip_whole_pallas.py::make_whole_pdip) and the per-pass
+// kernels (riccati_bwd.cu, the ports of
+// reak_tpu/ops/riccati_bwd_pallas.py::make_fused_backward,
+// ::make_vector_backward and ::make_forward).
 //
 // What bounds the passes on the H100: by the card's peaks, bytes (a stage of
 // a scenario reads A and B once and does ~14k flops at n = 12, m = 6).  The
@@ -21,17 +22,17 @@
 // memory, scenario innermost ([i][k][TS]): lane s reads its own scenario,
 // so no bank conflicts and no broadcasts.  The stages are streamed: while
 // stage h computes, cp.async copies A_{h−1}, B_{h−1} (and, in the vector
-// and forward passes, K, the factor and the stage's vectors) into a second
-// buffer, 16 B a thread, so each stage is read from device memory once a
-// pass and never on the dependent chain.  The m×m Schur block is factored
-// once a stage by the threads of the last column, in registers, with the
-// recurrence of the plain _chol_solve_lanes (d = 1/√s, multiply by d); the n
-// columns of K = G⁻¹F are then solved one per column thread.  Columns
-// exchange V·B, F, the factor and the vectors through shared memory, five
-// __syncthreads() a reverse stage.
+// and forward passes, K, the factor or the Schur block and the stage's
+// vectors) into a second buffer, 16 B a thread, so each stage is read from
+// device memory once a pass and never on the dependent chain.  The m×m
+// Schur block is factored once a stage by the threads of the last column,
+// in registers, with the recurrence of the plain _chol_solve_lanes
+// (d = 1/√s, multiply by d); the n columns of K = G⁻¹F are then solved one
+// per column thread.  Columns exchange V·B, F, the factor and the vectors
+// through shared memory, five __syncthreads() a reverse stage.
 //
 // A padded instance (EXACT = false) takes any n ≤ NB, m ≤ MB: loads beyond
-// (n, m) give 0 (1 on R's diagonal), which leaves the true block's
+// (n, m) give 0 (1 on R's and G's diagonal), which leaves the true block's
 // arithmetic unchanged, and stores are predicated.  Scenarios past B (the
 // ragged edge) load zeros and store nothing but reach every barrier.
 //
@@ -43,41 +44,69 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 namespace reak {
+
+// an H100 block's dynamic shared memory
+constexpr int MAX_SHARED_BYTES = 232448;
+
+// ts, halved until it is no more than `most`
+constexpr int fit_rows(int ts, int most) {
+  return ts <= most ? ts : fit_rows(ts / 2, most);
+}
+
+// 1 where the streamed arrays can be copied 16 B a thread: every base a
+// multiple of 16 B, and so a scenario-last row of B values
+template <typename T>
+inline int streams16(long long B, std::initializer_list<const void*> bases) {
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
+  return (B * static_cast<long long>(sizeof(T))) % 16 == 0;
+}
 
 // The launch shape of one instance, mirrored by ops/_tile.py: TS scenarios
 // × NB columns a block; shared memory in rows of TS values: two A+B stage
 // buffers, the work area (V, V·B, F, the Schur block; the other passes put
 // their K and factor buffers and the reductions there), the vectors, and
-// Q, QN, R once a block.
+// Q, QN, R once a block.  TS gives 128 B rows up to NB = 12 and 64 B rows
+// above, halved while the rows do not fit a block's shared memory (the
+// (32, 16) bound: 32 B rows).
 template <typename T, int NB_, int MB_, bool EXACT_>
 struct Tile {
   static_assert(MB_ <= NB_, "the tile takes m <= n");
   static constexpr int NB = NB_, MB = MB_;
   static constexpr bool EXACT = EXACT_;
-  static constexpr int TS = (NB_ <= 12 ? 128 : 64) / int(sizeof(T));
-  static constexpr int NT = TS * NB_;
   static constexpr int AB_ROWS = NB_ * NB_ + NB_ * MB_;
   static constexpr int WORK_ROWS = NB_ * NB_ + 2 * NB_ * MB_ + MB_ * MB_;
   static constexpr int VEC_ROWS = 4 * NB_ + 4 * MB_;
   static constexpr int ROWS = 2 * AB_ROWS + WORK_ROWS + VEC_ROWS;
   static constexpr int CONSTS = 2 * NB_ * NB_ + MB_ * MB_;
+  static constexpr int TS = fit_rows((NB_ <= 12 ? 128 : 64) / int(sizeof(T)),
+      (MAX_SHARED_BYTES / int(sizeof(T)) - CONSTS) / ROWS);
+  static constexpr int NT = TS * NB_;
   static constexpr int SMEM = int(sizeof(T)) * (ROWS * TS + CONSTS);
   // two blocks an SM where their shared memory (and 1 KB each that the
   // system takes) fits the SM's 228 KB
   static constexpr int BLOCKS_PER_SM = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
-  static_assert(SMEM <= 232448, "over a block's shared memory");
+  static_assert(SMEM <= MAX_SHARED_BYTES, "over a block's shared memory");
   static_assert(NT <= 1024, "over a block's threads");
+  static_assert(TS * int(sizeof(T)) % 16 == 0, "a row is whole 16 B copies");
 };
 
 // The widths an entry point named by the bound (NMAX, MMAX) runs on an
-// instance of their own (ops/_tile.py::EXACT): (12, 6) under (16, 8), the
-// bound itself otherwise.
-constexpr int exact_width(int bound) {
-  return bound == 16 ? 12 : bound == 8 ? 6 : bound;
-}
+// instance of their own (ops/_tile.py::EXACT): the bound itself, but (12, 6)
+// under (16, 8).
+template <int NMAX, int MMAX>
+struct ExactWidths {
+  static constexpr int N = NMAX, M = MMAX;
+};
+template <>
+struct ExactWidths<16, 8> {
+  static constexpr int N = 12, M = 6;
+};
 
 struct TileThread {
   int tid, s, j;  // thread of the block, scenario of the tile, column
@@ -208,6 +237,10 @@ struct TileArr {
                         U value) const {
     if (has(i, k, th)) p[at(h, i, k, th)] = value;
   }
+  // the same array, read only
+  __device__ TileArr<const T> in() const {
+    return {p, r, c, stride, limit, vec16};
+  }
 };
 
 template <class TL, typename T>
@@ -230,10 +263,19 @@ __device__ inline void stream_ab(T* buf, const TileLtv<T>& ltv, int h,
   stream_arr<TL>(buf + TL::NB * TL::NB * TL::TS, ltv.Bm, h, TL::MB, th);
 }
 
+// A padded instance clears the stage buffers, whose slots beyond (n, m) no
+// copy ever writes; a barrier must follow before they are read.
+template <class TL, typename T>
+__device__ inline void tile_clear_stages(const TileSmem<TL, T>& sm,
+                                         const TileThread& th) {
+  if (!TL::EXACT)
+    for (int e = th.tid; e < 2 * TL::AB_ROWS * TL::TS; e += TL::NT)
+      sm.ab[0][e] = T(0);
+}
+
 // Q, QN, R into shared memory, padded to (NB, MB) with zeros (ones on R's
-// diagonal, so the padded Schur block stays positive definite); a padded
-// instance also clears the stage buffers, whose slots beyond (n, m) no copy
-// ever writes.
+// diagonal, so the padded Schur block stays positive definite), and the
+// stage buffers cleared.
 template <class TL, typename T>
 __device__ inline void tile_setup(const TileSmem<TL, T>& sm, const T* Q,
                                   const T* QN, const T* R, int n, int m,
@@ -249,9 +291,7 @@ __device__ inline void tile_setup(const TileSmem<TL, T>& sm, const T* Q,
     const int i = e / MB, k = e % MB;
     sm.R[e] = (i < m && k < m) ? R[i * m + k] : (i == k ? T(1) : T(0));
   }
-  if (!TL::EXACT)
-    for (int e = th.tid; e < 2 * TL::AB_ROWS * TL::TS; e += TL::NT)
-      sm.ab[0][e] = T(0);
+  tile_clear_stages<TL>(sm, th);
   __syncthreads();
 }
 
@@ -541,15 +581,18 @@ __device__ inline void tile_enter(const TileSmem<TL, T>& sm,
   }
 }
 
-// The closed-loop forward pass from dx_0 = 0: du_h = −K_h dx − k_h,
-// dx ← A_h dx + B_h du_h.  `kdu` (H, m) holds k and receives du; dx goes to
-// `dx_out` (H, n) where that is given.  Thread j owns row j of du (j < m)
-// and of dx; A, B, K and k are streamed a stage ahead.
+// The closed-loop forward pass: du_h = −K_h dx − k_h, dx ← A_h dx + B_h du_h
+// from dx_0 = `dx0` (n), or 0 where that is not given.  k (H, m) is read,
+// du (H, m) written (the whole-solve kernel hands the same array as both);
+// dx goes to `dx_out` (H, n) where that is given.  Thread j owns row j of
+// du (j < m) and of dx; A, B, K and k are streamed a stage ahead.
 template <class TL, typename T>
 __device__ inline void forward_pass(const TileSmem<TL, T>& sm,
                                     const TileLtv<T>& ltv,
-                                    const TileArr<T>& K,
-                                    const TileArr<T>& kdu,
+                                    const TileArr<const T>& K,
+                                    const TileArr<const T>& k,
+                                    const TileArr<T>& du,
+                                    const TileArr<const T>* dx0,
                                     const TileArr<T>* dx_out, int H,
                                     const TileThread& th) {
   constexpr int NB = TL::NB, MB = TL::MB, TS = TL::TS;
@@ -561,11 +604,11 @@ __device__ inline void forward_pass(const TileSmem<TL, T>& sm,
     const int buf = h & 1;
     stream_ab<TL>(sm.ab[buf], ltv, h, th);
     stream_arr<TL>(tile_k_buffer(sm, buf), K, h, NB, th);
-    stream_arr<TL>(kb + buf * MB * TS, kdu, h, 1, th);
+    stream_arr<TL>(kb + buf * MB * TS, k, h, 1, th);
     cp_async_commit();
   };
   tile_enter<TL>(sm, th);
-  REAK_ROW(dxv, j) = T(0);
+  REAK_ROW(dxv, j) = dx0 != nullptr ? dx0->load(0, j, 0, th) : T(0);
   stream(0);
   for (int h = 0; h < H; ++h) {
     const int cur = h & 1;
@@ -579,39 +622,47 @@ __device__ inline void forward_pass(const TileSmem<TL, T>& sm,
     if (j < MB) {
       T t = T(0);
 #pragma unroll
-      for (int k = 0; k < NB; ++k)
-        t += REAK_ROW(Ks, j * NB + k) * REAK_ROW(dx, k);
-      const T du = -t - REAK_ROW(kb, cur * MB + j);
-      REAK_ROW(duv, j) = du;
-      kdu.store(h, j, 0, th, du);
+      for (int c = 0; c < NB; ++c)
+        t += REAK_ROW(Ks, j * NB + c) * REAK_ROW(dx, c);
+      const T du_j = -t - REAK_ROW(kb, cur * MB + j);
+      REAK_ROW(duv, j) = du_j;
+      du.store(h, j, 0, th, du_j);
     }
     __syncthreads();  // (2) du is there
     T a = T(0), bb = T(0);
 #pragma unroll
-    for (int k = 0; k < NB; ++k)
-      a += REAK_ROW(As, j * NB + k) * REAK_ROW(dx, k);
+    for (int c = 0; c < NB; ++c)
+      a += REAK_ROW(As, j * NB + c) * REAK_ROW(dx, c);
 #pragma unroll
-    for (int k = 0; k < MB; ++k)
-      bb += REAK_ROW(Bs, j * MB + k) * REAK_ROW(duv, k);
+    for (int c = 0; c < MB; ++c)
+      bb += REAK_ROW(Bs, j * MB + c) * REAK_ROW(duv, c);
     const T x1 = a + bb;
     REAK_ROW(dxv, (cur ^ 1) * NB + j) = x1;
     if (dx_out != nullptr) dx_out->store(h, j, 0, th, x1);
   }
 }
 
-// The corrector's vector reverse pass on stored gains and packed factors:
-// w = rhs_h + B_hᵀ v, k_h = G_h⁻¹ w, v ← A_hᵀ v − K_hᵀ w.  `rhs_k` (H, m)
-// holds the right-hand sides and receives k.  Thread j owns element j of w
-// (j < m) and of v; the last column does the substitutions, off the chain
-// that carries v.
-template <class TL, typename T>
+// The corrector's vector reverse pass on stored gains: w = rhs_h + B_hᵀ v,
+// k_h = G_h⁻¹ w, v ← A_hᵀ v − K_hᵀ w.  rhs (H, m) is read, k (H, m) written
+// (the whole-solve kernel hands the same array as both).  kFactor: `G`
+// holds the Schur blocks unfactored, and the last column factors each in
+// shared memory while the columns of w form it (the per-pass kernel, which
+// factors G again each stage as the TPU kernel does); else `G` holds the
+// packed factors of the reverse pass (strict lower triangle L, diagonal
+// 1 / diag L).  Thread j owns element j of w (j < m) and of v; the last
+// column does the factor and the substitutions, off the chain that carries
+// v.
+template <class TL, bool kFactor, typename T>
 __device__ inline void vector_pass(const TileSmem<TL, T>& sm,
-                                   const TileLtv<T>& ltv, const TileArr<T>& K,
-                                   const TileArr<T>& factor,
-                                   const TileArr<T>& rhs_k, int H,
+                                   const TileLtv<T>& ltv,
+                                   const TileArr<const T>& K,
+                                   const TileArr<const T>& G,
+                                   const TileArr<const T>& rhs,
+                                   const TileArr<T>& k, int H,
                                    const TileThread& th) {
   constexpr int NB = TL::NB, MB = TL::MB, TS = TL::TS;
   const int s = th.s, j = th.j;
+  const bool factor_column = j == NB - 1;
   T* const vv = sm.vec;            // [2][NB]
   T* const ws = vv + 2 * NB * TS;  // [MB]
   T* const rb = ws + MB * TS;      // [2][MB]
@@ -619,8 +670,8 @@ __device__ inline void vector_pass(const TileSmem<TL, T>& sm,
     const int buf = h & 1;
     stream_ab<TL>(sm.ab[buf], ltv, h, th);
     stream_arr<TL>(tile_k_buffer(sm, buf), K, h, NB, th);
-    stream_arr<TL>(tile_factor_buffer(sm, buf), factor, h, MB, th);
-    stream_arr<TL>(rb + buf * MB * TS, rhs_k, h, 1, th);
+    stream_arr<TL>(tile_factor_buffer(sm, buf), G, h, MB, th);
+    stream_arr<TL>(rb + buf * MB * TS, rhs, h, 1, th);
     cp_async_commit();
   };
   tile_enter<TL>(sm, th);
@@ -631,33 +682,40 @@ __device__ inline void vector_pass(const TileSmem<TL, T>& sm,
     const T* const As = sm.ab[cur];
     const T* const Bs = As + NB * NB * TS;
     const T* const Ks = tile_k_buffer(sm, cur);
+    T* const L = tile_factor_buffer(sm, cur);
     const T* const v = vv + cur * NB * TS;
     cp_async_wait_all();
     __syncthreads();  // (1) stage h and v are there
     if (h > 0) stream(h - 1);
+    if (kFactor && factor_column) {
+      // a padded block's diagonal beyond m is 1, so its factor stays I
+      if (!TL::EXACT)
+        for (int a = G.r; a < MB; ++a) REAK_ROW(L, a * MB + a) = T(1);
+      tile_chol_factor<TL>(L, s);
+    }
     if (j < MB) {
       T t = T(0);
 #pragma unroll
-      for (int k = 0; k < NB; ++k)
-        t += REAK_ROW(Bs, k * MB + j) * REAK_ROW(v, k);
+      for (int c = 0; c < NB; ++c)
+        t += REAK_ROW(Bs, c * MB + j) * REAK_ROW(v, c);
       REAK_ROW(ws, j) = REAK_ROW(rb, cur * MB + j) + t;
     }
-    __syncthreads();  // (2) w is there
+    __syncthreads();  // (2) w and the factor are there
     T w[MB];
 #pragma unroll
     for (int a = 0; a < MB; ++a) w[a] = REAK_ROW(ws, a);
     T av = T(0), kw = T(0);
 #pragma unroll
-    for (int k = 0; k < NB; ++k)
-      av += REAK_ROW(As, k * NB + j) * REAK_ROW(v, k);
+    for (int c = 0; c < NB; ++c)
+      av += REAK_ROW(As, c * NB + j) * REAK_ROW(v, c);
 #pragma unroll
     for (int a = 0; a < MB; ++a) kw += REAK_ROW(Ks, a * NB + j) * w[a];
     REAK_ROW(vv, (cur ^ 1) * NB + j) = av - kw;
-    if (j == NB - 1) {
-      T k[MB];
-      tile_chol_apply<TL>(tile_factor_buffer(sm, cur), w, k, s);
+    if (factor_column) {
+      T kh[MB];
+      tile_chol_apply<TL>(L, w, kh, s);
 #pragma unroll
-      for (int a = 0; a < MB; ++a) rhs_k.store(h, a, 0, th, k[a]);
+      for (int a = 0; a < MB; ++a) k.store(h, a, 0, th, kh[a]);
     }
   }
 }

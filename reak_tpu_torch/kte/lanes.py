@@ -349,7 +349,8 @@ def make_rollout_ltv_fullfused(spec: ChainSpec, dt: float, horizon: int,
     """Rollout with the ENTIRE step (core + series discretization) in one
     kernel launch (ops/kte_step.make_step_lanes); same contract as
     make_rollout_ltv_lanes.  On CPU tensors the wrapper takes the plain
-    step."""
+    step; the kernel's instance is chosen, and a chain it does not take
+    refused, at the first call on a device tensor."""
     from reak_tpu_torch.ops import kte_step
 
     step = kte_step.make_step_lanes(spec, dt, order=order)

@@ -1,8 +1,9 @@
 """Named robot chain builders (port of ``reak_tpu/kte/models.py``).
 
-Ported so far: the flagship arm, the planar 2-link arm and the two
-free-base chains of the scenario MPC; the rest of the zoo follows with the
-later slices.  ``mixed_chain`` is the port's own: a chain drawn from a seed
+Ported so far: the flagship arm, the planar 2-link arm, the two free-base
+chains of the scenario MPC and the two flexible beams (the widest chains of
+the reference's tests); the rest of the zoo follows with the later slices.
+``mixed_chain`` is the port's own: a chain drawn from a seed
 that takes every branch of the rollout-step kernel.
 """
 from __future__ import annotations
@@ -149,6 +150,91 @@ def floating_arm(
         inertias=inert,
         gravity=(0.0, 0.0, 0.0),
         name="floating_arm",
+    )
+
+
+def flexible_beam(
+    n_segments=8,
+    length=1.0,
+    mass=1.0,
+    EI=50.0,
+    axis=(0.0, 1.0, 0.0),
+    gravity=9.81,
+    tip_mass=0.0,
+    rayleigh_beta=0.002,
+) -> ChainSpec:
+    """Cantilever Euler-Bernoulli beam as a pseudo-rigid-body chain: n
+    elastic revolute pseudo-joints of stiffness k = EI/h at the midpoints
+    of n equal elements (the first at h/2 from the clamp), bending about
+    ``axis``, extending along +x.  Damping is stiffness-proportional
+    (Rayleigh), d = β·k a joint.
+
+    The ODE is stiff: an explicit step (RK4, or the order-4 series of the
+    rollout step) needs dt ≲ 2.8/(β ω_max²) on its fastest, overdamped
+    mode."""
+    n = n_segments
+    h = length / n
+    seg_mass = mass / n
+    k = EI / h
+    axes = np.tile(np.asarray(axis, np.float64), (n, 1))
+    offs = np.zeros((n, 3))
+    offs[0, 0] = h / 2  # first pivot at the midpoint of element 0
+    offs[1:, 0] = h
+    # body i spans joint i → joint i+1 (length h); the last body is the tip
+    # half-element (length h/2); the clamped proximal half-element is static
+    com = np.zeros((n, 3))
+    com[:-1, 0] = h / 2
+    masses = np.full(n, seg_mass)
+    inert = np.zeros((n, 3, 3))
+    for i in range(n - 1):
+        inert[i][1, 1] = inert[i][2, 2] = seg_mass * h * h / 12.0
+        inert[i][0, 0] = 1e-8
+    m_tip_seg = seg_mass / 2
+    m_last = m_tip_seg + tip_mass
+    com[-1, 0] = (m_tip_seg * h / 4 + tip_mass * h / 2) / m_last
+    masses[-1] = m_last
+    inert[-1][1, 1] = inert[-1][2, 2] = m_tip_seg * (h / 2) ** 2 / 12.0
+    inert[-1][0, 0] = 1e-8
+    return ChainSpec.build(
+        joint_types=[REVOLUTE] * n,
+        axes=axes,
+        offsets_pos=offs,
+        com_pos=com,
+        masses=masses,
+        inertias=inert,
+        stiffness=np.full(n, k),
+        damping=np.full(n, rayleigh_beta * k),
+        gravity=(0.0, 0.0, -gravity),
+        name=f"flexible_beam_{n}",
+    )
+
+
+def floating_flexible_beam(
+    n_segments=4,
+    length=1.0,
+    mass=1.0,
+    EI=50.0,
+    base_mass=10.0,
+    rayleigh_beta=0.002,
+) -> ChainSpec:
+    """A free-flying rigid hub (a solid sphere of radius 0.25) carrying a
+    ``flexible_beam`` appendage, in zero gravity: nv = 6 + n_segments."""
+    beam = flexible_beam(n_segments=n_segments, length=length, mass=mass,
+                         EI=EI, gravity=0.0, rayleigh_beta=rayleigh_beta)
+    n = n_segments
+    hub_I = np.eye(3) * (0.4 * base_mass * 0.25**2)
+    return ChainSpec.build(
+        joint_types=[FREE] + list(beam.joint_types),
+        axes=np.vstack([[0.0, 0.0, 1.0], np.asarray(beam.axes)]),
+        offsets_pos=np.vstack([np.zeros(3), np.asarray(beam.offsets_pos)]),
+        com_pos=np.vstack([np.zeros(3), np.asarray(beam.com_pos)]),
+        masses=np.concatenate([[base_mass], np.asarray(beam.masses)]),
+        inertias=np.concatenate(
+            [hub_I[None], np.asarray(beam.inertias).reshape(n, 3, 3)]),
+        stiffness=np.concatenate([[0.0], np.asarray(beam.stiffness)]),
+        damping=np.concatenate([[0.0], np.asarray(beam.damping)]),
+        gravity=(0.0, 0.0, 0.0),
+        name=f"floating_flexible_beam_{n}",
     )
 
 

@@ -1,6 +1,6 @@
 """The launch shapes of the tile kernels: the whole-solve PDIP
-(``csrc/pdip_whole.cu``) and the fused reverse pass (K4a of
-``csrc/riccati_bwd.cu``), both on ``csrc/riccati_tile.cuh``.
+(``csrc/pdip_whole.cu``) and the per-pass kernels (K4a–c of
+``csrc/riccati_bwd.cu``), all on ``csrc/riccati_tile.cuh``.
 
 A block takes TS neighbouring scenarios × NB matrix columns.  ``tile_config``
 mirrors ``riccati_tile.cuh::Tile``: it says which instance a problem of
@@ -17,11 +17,12 @@ from dataclasses import dataclass
 import torch
 
 # the (NMAX, MMAX) bounds the C entry points are named by, smallest first
-INSTANCES = ((16, 8), (24, 12))
+INSTANCES = ((16, 8), (24, 12), (32, 16))
 # the widths each bound's entry point runs at compile-time widths of their
-# own (the fixed-base arms and the satellite; the floating arm's tangent);
-# every other (n, m) within the bound runs its padded instance
-EXACT = {(16, 8): (12, 6), (24, 12): (24, 12)}
+# own (riccati_tile.cuh::ExactWidths: the fixed-base arms and the
+# satellite; the floating arm's tangent; a 16-segment beam); every other
+# (n, m) within the bound runs its padded instance
+EXACT = {(16, 8): (12, 6), (24, 12): (24, 12), (32, 16): (32, 16)}
 # an H100 block: dynamic shared memory and threads
 MAX_SHARED_BYTES = 232448
 MAX_THREADS = 1024
@@ -69,15 +70,18 @@ def tile_config(n: int, m: int, dtype,
     """The instance that takes widths (n, m) in ``dtype`` and its launch
     shape (``riccati_tile.cuh::Tile``): rows of TS values for two A+B stage
     buffers, the work area (V, V·B, F, the Schur block) and the vectors,
-    then Q, QN, R once."""
+    then Q, QN, R once.  TS gives 128 B rows up to NB = 12 and 64 B above,
+    halved while the rows do not fit a block's shared memory."""
     size = {"f32": 4, "f64": 8}[type_suffix(dtype)]
     bound = instance_for(n, m, what)
     exact = (n, m) == EXACT[bound]
     nb, mb = (n, m) if exact else bound
-    ts = (128 if nb <= 12 else 64) // size
     rows = (2 * (nb * nb + nb * mb) + (nb * nb + 2 * nb * mb + mb * mb)
             + 4 * nb + 4 * mb)
     consts = 2 * nb * nb + mb * mb
+    ts = (128 if nb <= 12 else 64) // size
+    while size * (rows * ts + consts) > MAX_SHARED_BYTES:
+        ts //= 2
     return TileConfig(bound=bound, widths=(nb, mb), exact=exact,
                       scenarios=ts, threads=ts * nb,
                       shared_bytes=size * (rows * ts + consts))

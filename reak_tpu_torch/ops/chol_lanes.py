@@ -8,7 +8,7 @@ the Pallas kernels ``reak_tpu/ops/chol_lanes.py::solve_lanes`` (K3a) and
 - ``solve(G (B, n, n), rhs (B, n)) → x (B, n)``, the standard layout over
   ``solve_lanes``.
 
-On CUDA tensors each wrapper launches the kernel (n ≤ 16, any B); on CPU
+On CUDA tensors each wrapper launches the kernel (n ≤ 32, any B); on CPU
 tensors it takes the plain version, ``ctrl/riccati_soa._chol_solve_lanes``
 (the same recurrence as tensor ops).  The plain version itself never
 dispatches, so the plain paths that call it stay plain on the card.  Inputs
@@ -24,7 +24,7 @@ import torch
 from reak_tpu_torch.ctrl.riccati_soa import _chol_solve_lanes as solve_plain
 from reak_tpu_torch.ops import _build
 
-MAX_N = 16  # csrc/chol_lanes.cu template range
+MAX_N = 32  # csrc/chol_lanes.cu template range
 
 # launches of each kernel entry since the counts were last set to 0
 launches = {"solve_lanes": 0, "solve_lanes_multi": 0}
@@ -41,13 +41,7 @@ SIGNATURES = {
 
 
 def _checked(G, rhs, rhs_shape):
-    """Contiguous G and rhs after checking device, type and shape."""
-    if not (G.is_cuda and rhs.device == G.device):
-        raise ValueError(f"G on {G.device}, rhs on {rhs.device}: expected "
-                         "both on one CUDA device")
-    if G.dtype not in (torch.float32, torch.float64) or rhs.dtype != G.dtype:
-        raise TypeError(f"G {G.dtype}, rhs {rhs.dtype}: expected float32 or "
-                        "float64, the same for both")
+    """Contiguous G and rhs after checking shape, device and type."""
     n, B = G.shape[0], G.shape[-1]
     if G.shape != (n, n, B) or B < 1:
         raise ValueError(f"G has shape {tuple(G.shape)}: expected (n, n, B)")
@@ -56,6 +50,12 @@ def _checked(G, rhs, rhs_shape):
     if tuple(rhs.shape) != rhs_shape(n, B):
         raise ValueError(f"rhs has shape {tuple(rhs.shape)}: expected "
                          f"{rhs_shape(n, B)}")
+    if not (G.is_cuda and rhs.device == G.device):
+        raise ValueError(f"G on {G.device}, rhs on {rhs.device}: expected "
+                         "both on one CUDA device")
+    if G.dtype not in (torch.float32, torch.float64) or rhs.dtype != G.dtype:
+        raise TypeError(f"G {G.dtype}, rhs {rhs.dtype}: expected float32 or "
+                        "float64, the same for both")
     return G.contiguous(), rhs.contiguous()
 
 

@@ -43,9 +43,7 @@ SIGNATURES = {"core": [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _CI, _CI,
 
 def make_core_lanes(spec: ChainSpec):
     """q̈, ∂q̈/∂x and M⁻¹ in one kernel launch, lanes layout (see module)."""
-    widths = instance_for(spec, "the core kernel")
-    nj, nv = widths
-    n = 2 * nv
+    n = 2 * spec.nv
     plain = make_core_plain(spec)
     tables = {}
 
@@ -53,6 +51,8 @@ def make_core_lanes(spec: ChainSpec):
         global launches
         if x.device.type == "cpu" and u.device.type == "cpu":
             return plain(x, u)
+        widths = instance_for(spec, "the core kernel")
+        nj, nv = widths
         B = check_inputs(x, u, n, nv)
         x, u = x.contiguous(), u.contiguous()
         if x.dtype not in tables:

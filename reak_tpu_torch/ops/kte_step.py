@@ -19,9 +19,12 @@ one direction in f32); the value and inner tangent of the
 kinematics are computed once per scenario and shared through shared memory,
 as are the factor of M and q̈; the q and q̇ directions run code of their own
 (a q̇ direction moves no position and skips M); the chain's constants are a
-kernel parameter passed by value.  Any fixed-base chain of at most 8 joints
-runs (REVOLUTE, PRISMATIC and FIXED joints, offsets, springs, dampers, full
-inertia tensors), at any B ≥ 1, in float32 and float64.
+kernel parameter passed by value.  Any fixed-base chain of at most 16
+joints runs (REVOLUTE, PRISMATIC and FIXED joints, offsets, springs,
+dampers, full inertia tensors), at any B ≥ 1, in float32 and float64; the
+tile halves where a block would pass 384 threads (8 scenarios at 16 dofs).
+The instance is chosen, and a chain it cannot take refused, at the first
+call on a device tensor, so a caller on CPU tensors never needs one.
 ``ops/kte_variants.py`` re-measures the tile (TS) and the blocks an SM that
 ``__launch_bounds__`` asks for.
 
@@ -41,7 +44,8 @@ from reak_tpu_torch.kte.lanes import make_step_ltv_lanes as make_step_plain
 from reak_tpu_torch.kte.spec import ChainSpec, JointType, FREE
 from reak_tpu_torch.ops import _build
 
-MAX_JOINTS = 8  # csrc/kte_step.cu MAXJ
+MAX_JOINTS = 16  # csrc/kte_step.cu MAXJ
+STEP_THREADS = 384  # csrc/kte_step.cu: threads a block, at most
 SLOTS = 21  # csrc/kte_step.cu: the values a joint leaves for the directions
 
 # launches of the kernel since the count was last set to 0
@@ -61,7 +65,9 @@ def instance_for(spec: ChainSpec, what: str = "the step kernel"):
     if spec.n_joints > MAX_JOINTS or any(
             JointType(t) == FREE for t in spec.joint_types):
         raise NotImplementedError(
-            f"{what} takes fixed-base chains of at most {MAX_JOINTS} joints")
+            f"{what} takes fixed-base chains of at most {MAX_JOINTS} joints; "
+            f"got {spec.n_joints} joints"
+            + (" with a free base" if spec.has_free_base else ""))
     if spec.nv < 1:
         raise NotImplementedError(f"{what} takes chains with a dof")
     return spec.n_joints, spec.nv
@@ -85,10 +91,12 @@ def launch_shape(nj: int, nv: int, dtype, core: bool = False) -> StepShape:
     q̈ (joint and dof order), then the larger of the kinematics' anchors
     (value and inner tangent, SLOTS a joint) and K1's series (∂q̈/∂x, M⁻¹,
     S), which reuses their rows.  TS is 32 in float32 and 16 in float64 (one
-    128 B row)."""
+    128 B row), halved while the block would pass ``STEP_THREADS``."""
     size = {"f32": 4, "f64": 8}[type_suffix(dtype)]
-    ts = 32 if size == 4 else 16
     n = 2 * nv
+    ts = 32 if size == 4 else 16
+    while ts * n > STEP_THREADS:
+        ts //= 2
     chol = nj * nj + 2 * nj + nv
     fk = 2 * SLOTS * nj
     series = 0 if core else nv * n + nv * nv + n * n
@@ -155,9 +163,7 @@ def check_inputs(x, u, n: int, nv: int) -> int:
 
 def make_step_lanes(spec: ChainSpec, dt: float, order: int = 4):
     """One rollout step in one kernel launch, lanes layout (see module)."""
-    widths = instance_for(spec)
-    nj, nv = widths
-    n = 2 * nv
+    n = 2 * spec.nv
     plain = make_step_plain(spec, dt, order)
     tables = {}
 
@@ -165,6 +171,8 @@ def make_step_lanes(spec: ChainSpec, dt: float, order: int = 4):
         global launches
         if x.device.type == "cpu" and u.device.type == "cpu":
             return plain(x, u)
+        widths = instance_for(spec)
+        nj, nv = widths
         B = check_inputs(x, u, n, nv)
         if not (x.is_contiguous() and u.is_contiguous()):
             raise ValueError("x and u must be contiguous")

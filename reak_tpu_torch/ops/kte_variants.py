@@ -1,6 +1,6 @@
 """Measure the rollout-step kernel (K1) and its core instance (K5) under
 other launch shapes than the one they ship with — the experiment behind the
-constants ``StepShape::TS`` and ``StepShape::MIN_BLOCKS`` of
+constants ``StepShape::TS0`` and ``StepShape::MIN_BLOCKS`` of
 ``csrc/kte_step.cu``.
 
 Run on a machine with one NVIDIA GPU and ``nvcc``, from the root of a
@@ -39,7 +39,7 @@ WIDTHS, B = (6, 6), 8192
 DEFINES = ("-DREAK_NMAX=6", "-DREAK_MMAX=6", "-DREAK_TYPE=float",
            "-DREAK_SUFFIX=f32")
 # knob: the line of the source that sets it, with {} for its value
-KNOBS = {"ts": "static constexpr int TS = int(sizeof(T)) == 4 ? {} : 16;",
+KNOBS = {"ts": "static constexpr int TS0 = int(sizeof(T)) == 4 ? {} : 16;",
          "blocks": "static constexpr int MIN_BLOCKS = {};"}
 # the variants beside the shipped one (which is read from the source)
 OTHERS = ({"blocks": 2}, {"ts": 16}, {"ts": 16, "blocks": 2})

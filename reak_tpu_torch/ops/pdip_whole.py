@@ -18,8 +18,8 @@ cap, and it goes after latency instead: a tile of scenarios per block, a
 warp per matrix column, widths at compile time, every stage copied into
 shared memory a stage ahead of its use (``csrc/riccati_tile.cuh``).  The
 launch shape and the scratch size come from ``ops/_tile.tile_config``: the
-widths (12, 6) and (24, 12) run instances of their own, every other width
-within (24, 12) a padded one; any B ≥ 1 is taken.
+widths (12, 6), (24, 12) and (32, 16) run instances of their own, every
+other width within (32, 16) a padded one; any B ≥ 1 is taken.
 """
 from __future__ import annotations
 

@@ -13,22 +13,26 @@ Mehrotra iteration in one launch — the Hopper port of the Pallas kernels
 - ``forward(A, Bm, K, k, dx0 (n,B)) → (du (H,m,B), dx (H,n,B))``: the
   closed-loop forward pass.
 
+The inputs are never written.
+
 On CUDA tensors each wrapper launches its kernel; on CPU tensors it takes
 its plain version in ``ctrl/riccati_soa`` (``fused_backward_plain``,
 ``vector_backward_plain``, ``forward_plain``), the passes of the plain scan.
 The entry points are named by the whole-solve kernel's (NMAX, MMAX) bounds,
-(16, 8) and (24, 12); the wrappers take the smallest that holds (n, m).
+(16, 8), (24, 12) and (32, 16); the wrappers take the smallest that holds
+(n, m).
 Inputs are made contiguous before a launch (a layout step, not a
 fallback); any B ≥ 1 is taken.
 
 By the card's peaks each pass is bound by bytes (a stage reads A and B once:
 0.8–0.9 ms a pass at H=256, B=8192 in f32); what a kernel reaches depends on
-how it hides the latency along the chain of stages.  K4a runs on the tile of
-``csrc/riccati_tile.cuh`` (a tile of scenarios per block, a warp per matrix
-column, widths at compile time, the next stage copied into shared memory
-while this one computes), with the launch shape of ``ops/_tile.tile_config``:
-(12, 6) and (24, 12) on instances of their own, other widths on padded ones.
-K4b and K4c keep one thread per scenario.
+how it hides the latency along the chain of stages.  All three run on the
+tile of ``csrc/riccati_tile.cuh`` (a tile of scenarios per block, a warp per
+matrix column, widths at compile time, the next stage copied into shared
+memory while this one computes), with the launch shape of
+``ops/_tile.tile_config``: (12, 6), (24, 12) and (32, 16) on instances of
+their own, other widths on padded ones; K4b factors each stage's G in
+shared memory.
 """
 from __future__ import annotations
 
@@ -40,8 +44,7 @@ from reak_tpu_torch.ctrl.riccati_soa import (forward_plain,
                                              fused_backward_plain,
                                              vector_backward_plain)
 from reak_tpu_torch.ops import _build
-from reak_tpu_torch.ops._tile import (INSTANCES, instance_for, tile_config,
-                                      type_suffix)
+from reak_tpu_torch.ops._tile import INSTANCES, tile_config, type_suffix
 
 # launches of each kernel entry since the counts were last set to 0
 launches = {"fused_backward": 0, "vector_backward": 0, "forward": 0}
@@ -51,10 +54,10 @@ _ARGS = {
     # A, Bm, q, u_eff, D, Q, QN, R, grad, K, G, k, H, n, m, B, shared
     # bytes, stream
     "fused_backward": [_VP] * 12 + [_CI] * 5 + [_VP],
-    # A, Bm, rhs, K, G, k, H, n, m, B, stream
-    "vector_backward": [_VP] * 6 + [_CI] * 4 + [_VP],
-    # A, Bm, K, k, dx0, du, dx, H, n, m, B, stream
-    "forward": [_VP] * 7 + [_CI] * 4 + [_VP],
+    # A, Bm, rhs, K, G, k, H, n, m, B, shared bytes, stream
+    "vector_backward": [_VP] * 6 + [_CI] * 5 + [_VP],
+    # A, Bm, K, k, dx0, du, dx, H, n, m, B, shared bytes, stream
+    "forward": [_VP] * 7 + [_CI] * 5 + [_VP],
 }
 
 
@@ -96,16 +99,13 @@ def _launch(entry, named, outs, H, n, m):
             raise ValueError(f"{name} has shape {tuple(t.shape)}: expected "
                              f"{shape}")
         ins.append(t.contiguous())
-    bound = instance_for(n, m, what="the per-pass kernels")
+    tile = tile_config(n, m, dtype, what="the per-pass kernels")
     B = first.shape[-1]
-    # K4a runs on the tile and is told its shared memory
-    shape = [tile_config(n, m, dtype, what="the per-pass kernels")
-             .shared_bytes] if entry == "fused_backward" else []
-    name = library(bound, dtype)
+    name = library(tile.bound, dtype)
     lib = _build.load(name, LIBRARIES[name])
-    rc = getattr(lib, entry_point(entry, bound, dtype))(
-        *(_build.ptr(t) for t in ins + list(outs)), H, n, m, B, *shape,
-        _build.stream_ptr(device))
+    rc = getattr(lib, entry_point(entry, tile.bound, dtype))(
+        *(_build.ptr(t) for t in ins + list(outs)), H, n, m, B,
+        tile.shared_bytes, _build.stream_ptr(device))
     _build.check(lib, rc, f"riccati_bwd {entry} kernel")
     launches[entry] += 1
 

@@ -7,13 +7,15 @@ there the reference is the JAX package's own unrolled recurrence
 (``ctrl/riccati_soa._chol_solve_lanes`` off the TPU), the code the kernel
 mirrors operation for operation.  Bar: ≤1e-12 relative to the largest entry
 of the reference."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from reak_tpu.ops import chol_lanes as jchol
-from reak_tpu_torch.ops import chol_lanes
+from reak_tpu_torch.ops import _build, chol_lanes
 
 torch.set_num_threads(1)
 
@@ -82,12 +84,46 @@ def test_right_hand_sides_from_expanded_views(rng):
                                rtol=1e-10, atol=1e-13)
 
 
+@pytest.mark.parametrize("n", [17, 32])
+def test_wrapper_takes_systems_up_to_32(n):
+    """The kernel's switch covers every n up to the wrapper's ``MAX_N`` =
+    32 (a floating beam of up to 26 segments), and off the CPU the wrapper
+    lets such a system through its size check: a meta tensor, standing in
+    for a device tensor, is refused for its device only."""
+    text = (_build.CSRC / "chol_lanes.cu").read_text()
+    cases = {int(c) for c in re.findall(r"REAK_CHOL_CASE\((\d+)\)", text)}
+    assert cases == set(range(1, chol_lanes.MAX_N + 1))
+    assert f"n > {chol_lanes.MAX_N} ||" in text and chol_lanes.MAX_N == 32
+    G = torch.empty(n, n, 4, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        chol_lanes.solve_lanes(G, torch.empty(n, 4, dtype=torch.float64,
+                                              device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        chol_lanes.solve_lanes_multi(
+            G, torch.empty(n, 3, 4, dtype=torch.float64, device="meta"))
+
+
+@pytest.mark.parametrize("n", [17, 32])
+def test_solves_past_16_match_jax(rng, n):
+    """At the widths the kernel now takes, the CPU path against the JAX
+    package's recurrence ``_chol_solve_lanes`` (which the Pallas kernels
+    mirror), one and 5 right-hand sides."""
+    from reak_tpu.ctrl.riccati_soa import _chol_solve_lanes
+
+    G, r = _spd(rng, n, 64), rng.standard_normal((n, 5, 64))
+    want = _chol_solve_lanes(jnp.asarray(G), jnp.asarray(r))
+    got = chol_lanes.solve_lanes_multi(torch.as_tensor(G), torch.as_tensor(r))
+    _assert_rel(got.numpy(), want)
+    got1 = chol_lanes.solve_lanes(torch.as_tensor(G), torch.as_tensor(r[:, 0]))
+    _assert_rel(got1.numpy(), np.asarray(want)[:, 0])
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(rng):
     """Off the CPU the wrapper checks device and size before it builds or
     launches anything (a meta tensor stands in for a device tensor)."""
-    G = torch.empty(17, 17, 4, dtype=torch.float64, device="meta")
-    r = torch.empty(17, 4, dtype=torch.float64, device="meta")
-    with pytest.raises(ValueError):
+    G = torch.empty(33, 33, 4, dtype=torch.float64, device="meta")
+    r = torch.empty(33, 4, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="n <= 32"):
         chol_lanes.solve_lanes(G, r)
     G_cpu = torch.as_tensor(_spd(rng, 3, 4))
     with pytest.raises(ValueError):

@@ -151,6 +151,9 @@ def test_free_base_chain_is_not_ported():
                      dtype=torch.float64), torch.zeros(6, 1,
                                                        dtype=torch.float64))
     assert M.shape == (6, 6, 1) and f.shape == (6, 1)
-    with pytest.raises(NotImplementedError):
-        kte_step.make_step_lanes(free, 0.01)
+    step = kte_step.make_step_lanes(free, 0.01)  # the kernel is chosen later
+    with pytest.raises(NotImplementedError, match="free base"):
+        # at its first call on a device tensor (a meta tensor stands in)
+        step(torch.empty(12, 2, dtype=torch.float64, device="meta"),
+             torch.empty(6, 2, dtype=torch.float64, device="meta"))
     assert spec.nv == 6

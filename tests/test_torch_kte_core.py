@@ -68,8 +68,12 @@ def test_core_wrapper_takes_plain_version_on_cpu(rng):
 
 
 def test_core_kernel_refuses_free_base_chains():
-    """The core kernel is the fixed-base step kernel's first half."""
+    """The core kernel is the fixed-base step kernel's first half: it
+    refuses a free-base chain at its first call on a device tensor (a meta
+    tensor stands in for a CUDA one)."""
     free = convert.spec_from(jmodels.manip_3r3r()).__class__.build(
         joint_types=[3], masses=[1.0])
-    with pytest.raises(NotImplementedError):
-        kte_core.make_core_lanes(free)
+    core = kte_core.make_core_lanes(free)
+    with pytest.raises(NotImplementedError, match="free base"):
+        core(torch.empty(12, 2, dtype=torch.float64, device="meta"),
+             torch.empty(6, 2, dtype=torch.float64, device="meta"))

@@ -59,52 +59,96 @@ def _assert_rel(got, want, rel=1e-10):
 
 # ---- launch shapes --------------------------------------------------------
 
-def _source_constant(text, name):
-    """``constexpr <type> <name> = <expression>;`` of the source, as Python
-    over NJ, NV, size and the other constants (C's ``a ? b : c`` becomes
-    ``(b if a else c)``)."""
-    m = re.search(rf"constexpr (?:int|bool) {name} =\s*([^;]+);", text)
-    assert m, name
-    expr = re.sub(r"\s+", " ", m.group(1)).replace("int(sizeof(T))", "size")
+def _c_to_python(expr):
+    """A C expression of the source as Python: ``int(sizeof(T))`` is
+    ``size``, ``a ? b : c`` is ``(b if a else c)``, ``/`` on ints ``//``."""
+    expr = re.sub(r"\s+", " ", expr).replace("int(sizeof(T))", "size")
     expr = expr.replace("true", "True").replace("false", "False")
+    expr = expr.replace("/", "//")
     while "?" in expr:
         expr = re.sub(r"([^?()]+)\?([^:()]+):([^;()]+)",
                       r"((\2) if (\1) else (\3))", expr, count=1)
     return expr
 
 
+def _source_constant(text, name):
+    """``constexpr <type> <name> = <expression>;`` of the source, as Python
+    over NJ, NV, size and the other constants."""
+    m = re.search(rf"constexpr (?:int|bool) {name} =\s*([^;]+);", text)
+    assert m, name
+    return _c_to_python(m.group(1))
+
+
+def _source_function(text, name, env):
+    """``constexpr int <name>(int a, int b) { return <expression>; }`` of
+    the source as a Python function over ``env`` (it may call itself)."""
+    m = re.search(rf"constexpr int {name}\(([^)]*)\) \{{\s*return ([^;]+);",
+                  text)
+    assert m, name
+    params = [p.split()[-1] for p in m.group(1).split(",")]
+    cond, rest = m.group(2).split("?", 1)  # one ternary at the top level
+    then, other = rest.split(":", 1)
+    body = (f"(({_c_to_python(then)}) if ({_c_to_python(cond)}) "
+            f"else ({_c_to_python(other)}))")
+    return lambda *args: eval(body, {}, {**env, **dict(zip(params, args))})
+
+
 @pytest.mark.parametrize("core", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6), (8, 8), (1, 1)])
+@pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6), (8, 8), (1, 1),
+                                    (9, 9), (16, 16), (16, 8)])
 def test_launch_shape_mirrors_the_source(widths, dtype, core):
     """TS, threads and shared memory of ``launch_shape`` are what
     ``kte_step.cu::StepShape`` computes for the same instance (the C entry
     point refuses a launch whose shared size differs), inside an H100
     block, with a warp of 32 scenarios per direction in f32 and whole
-    128 B rows."""
+    128 B rows unless that would pass the block's thread cap, which halves
+    the rows (TS = 8 at 16 dofs)."""
     text = SOURCE.read_text()
     size = 4 if dtype == torch.float32 else 8
-    env = {"NJ": widths[0], "NV": widths[1], "size": size, "kCoreOnly": core}
-    for name in ("SLOTS", "TS", "N", "NT", "CHOL_ROWS", "FK_ROWS",
+    env = {"NJ": widths[0], "NV": widths[1], "size": size, "kCoreOnly": core,
+           "STEP_THREADS": int(_source_constant(text, "STEP_THREADS"))}
+    env["fit_threads"] = _source_function(text, "fit_threads", env)
+    for name in ("SLOTS", "N", "TS0", "TS", "NT", "CHOL_ROWS", "FK_ROWS",
                  "SERIES_ROWS", "ROWS", "SMEM"):
         env[name] = eval(_source_constant(text, name), {}, dict(env))
     assert env["SLOTS"] == kte_step.SLOTS
+    assert env["STEP_THREADS"] == kte_step.STEP_THREADS
     shape = kte_step.launch_shape(*widths, dtype, core=core)
     assert shape.widths == widths
     assert (shape.scenarios, shape.threads, shape.shared_bytes) == (
         env["TS"], env["NT"], env["SMEM"])
     assert shape.threads == shape.scenarios * 2 * widths[1]
+    assert shape.threads <= kte_step.STEP_THREADS
     assert shape.threads <= 1024 == _tile.MAX_THREADS
     assert shape.shared_bytes <= 232448 == _tile.MAX_SHARED_BYTES
-    assert shape.scenarios * size == 128
+    full_rows = 128 // size
+    if full_rows * 2 * widths[1] <= kte_step.STEP_THREADS:
+        assert shape.scenarios * size == 128
+    else:
+        assert 2 * shape.threads > kte_step.STEP_THREADS
+    assert (shape.scenarios * size) % 16 == 0
     assert shape.blocks(8192) * shape.scenarios == 8192
 
 
+@pytest.mark.parametrize("widths,dtype,shape", [
+    ((6, 6), torch.float32, (32, 384)), ((6, 6), torch.float64, (16, 192)),
+    ((2, 2), torch.float64, (16, 64)), ((8, 6), torch.float64, (16, 192))])
+def test_shipped_instances_keep_their_launch_shape(widths, dtype, shape):
+    """The instances the flagship arm, ``planar_2link`` and the mixed chain
+    run take the scenarios and threads a block they took before the thread
+    cap."""
+    got = kte_step.launch_shape(*widths, dtype)
+    assert (got.scenarios, got.threads) == shape
+
+
 def test_source_constants_agree():
-    """The joint bound and the anchor slots of the source are the
-    wrapper's, and the last slot ends where SLOTS says."""
+    """The joint bound, the thread cap and the anchor slots of the source
+    are the wrapper's, and the last slot ends where SLOTS says."""
     text = SOURCE.read_text()
-    assert int(_source_constant(text, "MAXJ")) == kte_step.MAX_JOINTS
+    assert int(_source_constant(text, "MAXJ")) == kte_step.MAX_JOINTS == 16
+    assert int(_source_constant(text, "STEP_THREADS")) == \
+        kte_step.STEP_THREADS
     slots = dict(re.findall(r"(S_[A-Z]+) = (\d+)", text))
     assert int(slots["S_COM"]) + 3 == kte_step.SLOTS
     assert "__launch_bounds__" in text and "__grid_constant__" in text
@@ -146,11 +190,14 @@ def test_wrappers_take_the_one_launch_shape():
 
 # ---- libraries per chain ------------------------------------------------
 
-@pytest.mark.parametrize("chain,widths", [("manip_3r3r", (6, 6)),
-                                          ("planar_2link", (2, 2))])
+@pytest.mark.parametrize("chain,widths", [
+    (models.manip_3r3r, (6, 6)), (models.planar_2link, (2, 2)),
+    (lambda: models.flexible_beam(9), (9, 9)),
+    (lambda: models.flexible_beam(16), (16, 16))],
+    ids=["manip_3r3r", "planar_2link", "flexible_beam_9", "flexible_beam_16"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_library_per_chain(chain, widths, dtype):
-    spec = getattr(models, chain)()
+    spec = chain()
     assert kte_step.instance_for(spec) == widths
     suffix = "f32" if dtype == torch.float32 else "f64"
     name = kte_step.library(widths, dtype)
@@ -169,15 +216,29 @@ def test_mixed_chain_runs_its_own_width():
     assert len({_build.library_path(n) for n in names}) == 6
 
 
+def _meta(*shape):
+    """A device tensor that is not on the CPU and holds no data."""
+    return torch.empty(shape, dtype=torch.float64, device="meta")
+
+
 def test_chains_the_kernel_does_not_take_raise():
-    too_long = models.manip_3r3r().__class__.build(
-        joint_types=[0] * 9, masses=[1.0] * 9)
+    """A chain of more than 16 joints, or one with a free base, is refused
+    at the first call on a device tensor, with the cap in the message (a
+    meta tensor stands in for a CUDA one); building the wrappers, and the
+    rollout and the MPC solver on top of them, raises nothing, and on CPU
+    tensors they take the plain versions."""
+    too_long = models.flexible_beam(17)
     free = models.floating_arm()
     for spec in (too_long, free):
-        with pytest.raises(NotImplementedError):
-            kte_step.make_step_lanes(spec, 0.01)
-        with pytest.raises(NotImplementedError):
-            kte_core.make_core_lanes(spec)
+        step = kte_step.make_step_lanes(spec, 0.01)
+        core = kte_core.make_core_lanes(spec)
+        x, u = _meta(2 * spec.nv, 4), _meta(spec.nv, 4)
+        for fn in (step, core):
+            with pytest.raises(NotImplementedError, match="at most 16 joints"):
+                fn(x, u)
+    roll = lanes.make_rollout_ltv_fullfused(too_long, 1e-6, 2)
+    with pytest.raises(NotImplementedError, match="at most 16 joints"):
+        roll(_meta(4, 2 * too_long.nv), _meta(4, 2, too_long.nv))
 
 
 # ---- entry points and the table -------------------------------------------
@@ -205,12 +266,14 @@ def test_signatures_name_entry_points_of_the_source(widths, dtype):
         assert len(args) == len(c_args[name]), name
 
 
-def test_table_by_value_fits_a_kernel_parameter():
+@pytest.mark.parametrize("joints", [8, 16])
+def test_table_by_value_fits_a_kernel_parameter(joints):
     """The kernel takes the chain table by value: at 8 joints in f64 it is
-    8 × 27 + 3 values, well inside 4 KB."""
-    spec = convert.spec_from(_mixed_chain_jax())
+    8 × 27 + 3 values, at the cap of 16 joints 16 × 27 + 3, inside 4 KB."""
+    spec = (convert.spec_from(_mixed_chain_jax()) if joints == 8
+            else models.flexible_beam(joints))
     table = kte_step.chain_table(spec, "cpu", torch.float64)
-    assert table.shape == (8 * 27 + 3,)
+    assert table.shape == (joints * 27 + 3,)
     assert table.numel() * table.element_size() <= 4096
     assert table.device.type == "cpu"
 

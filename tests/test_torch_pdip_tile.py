@@ -1,6 +1,6 @@
 """What Python decides for the tile kernels of the port — the whole-solve
-PDIP (``csrc/pdip_whole.cu``) and the fused reverse pass (K4a of
-``csrc/riccati_bwd.cu``), both on ``csrc/riccati_tile.cuh``.  The kernels run
+PDIP (``csrc/pdip_whole.cu``) and the per-pass kernels (K4a–c of
+``csrc/riccati_bwd.cu``), all on ``csrc/riccati_tile.cuh``.  The kernels run
 on the card only; held here are the launch shape of each instance
 (``ops/_tile.tile_config`` against an H100 block's limits and against the
 constants of the header), which instance a width runs on, the C entry points
@@ -20,14 +20,17 @@ from reak_tpu_torch.ops import _build, _tile, pdip_whole, riccati_bwd
 torch.set_num_threads(1)
 
 DTYPES = (torch.float32, torch.float64)
-MAIN_WIDTHS = ((12, 6), (24, 12))
+# the exact widths and the bytes of a shared-memory row each takes: 128 B
+# up to n = 12, 64 B above, halved where the rows would not fit a block
+MAIN_WIDTHS = {(12, 6): 128, (24, 12): 64, (32, 16): 32}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nm", MAIN_WIDTHS)
 def test_main_widths_run_exact_instances_within_a_block(nm, dtype):
-    """(12, 6) and (24, 12) run instances of their own widths, inside an
-    H100 block's shared memory and threads, with whole 32 B sectors a row."""
+    """(12, 6), (24, 12) and (32, 16) run instances of their own widths,
+    inside an H100 block's shared memory and threads, with whole 32 B
+    sectors a row."""
     tile = _tile.tile_config(*nm, dtype)
     size = 4 if dtype == torch.float32 else 8
     assert tile.exact and tile.widths == nm
@@ -35,7 +38,23 @@ def test_main_widths_run_exact_instances_within_a_block(nm, dtype):
     assert tile.threads == tile.scenarios * nm[0] <= 1024 == _tile.MAX_THREADS
     assert tile.threads % 32 == 0
     assert (tile.scenarios * size) % 32 == 0
-    assert tile.scenarios * size == (128 if nm[0] <= 12 else 64)
+    assert tile.scenarios * size == MAIN_WIDTHS[nm]
+
+
+@pytest.mark.parametrize("nm,dtype,shape", [
+    ((12, 6), torch.float32, (32, 384, 107280)),
+    ((12, 6), torch.float64, (16, 192, 108576)),
+    ((24, 12), torch.float32, (16, 384, 207936)),
+    ((24, 12), torch.float64, (8, 192, 213120)),
+    ((32, 16), torch.float32, (8, 256, 187392)),
+    ((32, 16), torch.float64, (4, 128, 196608))])
+def test_launch_shapes_of_the_exact_instances(nm, dtype, shape):
+    """(12, 6) and (24, 12) keep the scenarios, threads and shared memory
+    they had before the (32, 16) bound; (32, 16) takes the largest tile
+    that fits a block: 8 scenarios in f32, 4 in f64 (at 16 and 8 it would
+    need 365,568 and 374,784 B)."""
+    tile = _tile.tile_config(*nm, dtype)
+    assert (tile.scenarios, tile.threads, tile.shared_bytes) == shape
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -43,7 +62,11 @@ def test_main_widths_run_exact_instances_within_a_block(nm, dtype):
                                       ((16, 8), (16, 8)), ((4, 2), (16, 8)),
                                       ((16, 9), (24, 12)),
                                       ((17, 3), (24, 12)),
-                                      ((12, 7), (16, 8))])
+                                      ((12, 7), (16, 8)),
+                                      ((25, 6), (32, 16)),
+                                      ((12, 13), (32, 16)),
+                                      ((26, 13), (32, 16)),
+                                      ((32, 15), (32, 16))])
 def test_other_widths_run_the_padded_instance_of_their_bound(nm, bound,
                                                              dtype):
     tile = _tile.tile_config(*nm, dtype)
@@ -53,7 +76,7 @@ def test_other_widths_run_the_padded_instance_of_their_bound(nm, bound,
     assert tile.threads <= _tile.MAX_THREADS
 
 
-@pytest.mark.parametrize("nm", [(25, 6), (12, 13), (30, 30)])
+@pytest.mark.parametrize("nm", [(33, 6), (12, 17), (30, 30)])
 def test_beyond_the_widest_instance_raises(nm):
     with pytest.raises(NotImplementedError):
         _tile.tile_config(*nm, torch.float32)
@@ -86,28 +109,50 @@ def test_scratch_is_padded_to_whole_tiles(B, padded, blocks):
     assert tile.padded_batch(B) == padded and tile.blocks(B) == blocks
 
 
-def _cuh_constant(name):
-    """``static constexpr int <name> = <expression>;`` of the header, as
-    Python source over NB, MB, TS, size and the other constants."""
-    text = (_build.CSRC / "riccati_tile.cuh").read_text()
-    m = re.search(rf"static constexpr int {name} =\s*([^;]+);", text)
-    assert m, name
-    expr = m.group(1).replace("NB_", "NB").replace("MB_", "MB")
+def _cuh_python(expr):
+    """A C expression of the header as Python over NB, MB, size and the
+    other constants (``a ? b : c`` as ``a and b or c``, ints divided by
+    ``//``)."""
+    expr = expr.replace("NB_", "NB").replace("MB_", "MB")
     expr = expr.replace("int(sizeof(T))", "size").replace("?", " and ")
     return re.sub(r"\s+", " ", expr.replace(":", " or ").replace("/", "//"))
 
 
+def _cuh_constant(name):
+    """``static constexpr int <name> = <expression>;`` of the header, as
+    Python source."""
+    text = (_build.CSRC / "riccati_tile.cuh").read_text()
+    m = re.search(rf"static constexpr int {name} =\s*([^;]+);", text)
+    assert m, name
+    return _cuh_python(m.group(1))
+
+
+def _cuh_env():
+    """The header's free constants and its ``fit_rows``, as Python."""
+    text = (_build.CSRC / "riccati_tile.cuh").read_text()
+    m = re.search(r"constexpr int MAX_SHARED_BYTES = (\d+);", text)
+    env = {"MAX_SHARED_BYTES": int(m.group(1))}
+    m = re.search(r"constexpr int fit_rows\(int ts, int most\) \{\s*"
+                  r"return ([^;]+);", text)
+    body = _cuh_python(m.group(1))
+    env["fit_rows"] = lambda ts, most: eval(body, {},
+                                            {**env, "ts": ts, "most": most})
+    return env
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("nm", [(12, 6), (24, 12), (6, 3), (16, 9)])
+@pytest.mark.parametrize("nm", [(12, 6), (24, 12), (6, 3), (16, 9),
+                                (32, 16), (26, 13)])
 def test_tile_config_mirrors_the_header(nm, dtype):
     """The shared memory and threads that ``tile_config`` hands the launch
     are what ``riccati_tile.cuh::Tile`` computes for the same instance (the
     C entry point refuses a launch whose size differs)."""
     tile = _tile.tile_config(*nm, dtype)
-    env = {"NB": tile.widths[0], "MB": tile.widths[1],
+    env = {**_cuh_env(), "NB": tile.widths[0], "MB": tile.widths[1],
            "size": 4 if dtype == torch.float32 else 8}
-    for name in ("TS", "NT", "AB_ROWS", "WORK_ROWS", "VEC_ROWS", "ROWS",
-                 "CONSTS", "SMEM"):
+    assert env["MAX_SHARED_BYTES"] == _tile.MAX_SHARED_BYTES
+    for name in ("AB_ROWS", "WORK_ROWS", "VEC_ROWS", "ROWS", "CONSTS", "TS",
+                 "NT", "SMEM"):
         env[name] = eval(_cuh_constant(name), {}, dict(env))
     assert env["TS"] == tile.scenarios
     assert env["NT"] == tile.threads
@@ -115,16 +160,18 @@ def test_tile_config_mirrors_the_header(nm, dtype):
 
 
 def test_exact_widths_mirror_the_header():
-    """``exact_width`` of the header maps each bound to ``_tile.EXACT``."""
+    """``ExactWidths`` of the header, keyed by the whole bound (its
+    specializations; the bound itself otherwise), is ``_tile.EXACT``."""
     text = (_build.CSRC / "riccati_tile.cuh").read_text()
-    m = re.search(r"constexpr int exact_width\(int bound\) \{\s*return "
-                  r"bound == (\d+) \? (\d+) : bound == (\d+) \? (\d+) : bound;",
-                  text)
-    assert m
-    mapping = {int(m.group(1)): int(m.group(2)),
-               int(m.group(3)): int(m.group(4))}
+    special = {(int(a), int(b)): (int(c), int(d)) for a, b, c, d in re.findall(
+        r"struct ExactWidths<(\d+), (\d+)> \{\s*static constexpr int "
+        r"N = (\d+), M = (\d+);", text)}
+    assert special == {(16, 8): (12, 6)}
+    assert re.search(r"struct ExactWidths \{\s*static constexpr int "
+                     r"N = NMAX, M = MMAX;", text)
+    assert set(_tile.EXACT) == set(_tile.INSTANCES)
     for bound, exact in _tile.EXACT.items():
-        assert tuple(mapping.get(b, b) for b in bound) == exact
+        assert special.get(bound, bound) == exact
 
 
 def _entry_points(source, bound, suffix):
@@ -184,20 +231,28 @@ def test_instance_libraries_select_one_bound_and_type():
         _build.CSRC / "kte_step.cu", [])
     paths = {_build.library_path(name) for name in
              (*pdip_whole.LIBRARIES, *riccati_bwd.LIBRARIES)}
-    assert len(paths) == 8
+    assert len(paths) == 4 * len(_tile.INSTANCES) == 12
     assert pdip_whole.library((16, 8), torch.float32) == \
         _build.instance_library("pdip_whole", (16, 8), "f32")
 
 
 def test_both_kernels_include_the_shared_stage_code():
-    """The reverse stage lives once, in ``riccati_tile.cuh``."""
+    """The reverse, vector and forward stages live once, in
+    ``riccati_tile.cuh``, and every PDIP kernel runs on them: the
+    one-thread-per-scenario design and its header are gone."""
     for source in ("pdip_whole", "riccati_bwd"):
         text = (_build.CSRC / f"{source}.cu").read_text()
         assert '#include "riccati_tile.cuh"' in text
         assert "reverse_pass<TL>" in text
         assert "__launch_bounds__" in text
+        assert "vector_pass<TL," in text and "forward_pass<TL>" in text
+        assert "lanes.cuh" not in text
+    k4 = (_build.CSRC / "riccati_bwd.cu").read_text()
+    assert "vector_pass<TL, true>" in k4 and "chol_factor(" not in k4
+    assert not (_build.CSRC / "lanes.cuh").exists()
     header = (_build.CSRC / "riccati_tile.cuh").read_text()
-    assert header.count("inline void reverse_pass(") == 1
+    for fn in ("reverse_pass", "vector_pass", "forward_pass"):
+        assert header.count(f"inline void {fn}(") == 1
     assert "cp.async" in header and "cudaFuncAttributeMaxDynamicShared" \
         "MemorySize" in (_build.CSRC / "pdip_whole.cu").read_text()
 

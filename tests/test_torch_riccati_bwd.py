@@ -129,15 +129,44 @@ def test_wrapper_takes_plain_pass_on_cpu(rng, name):
 
 
 def test_every_pass_is_built_for_the_whole_solve_bounds():
-    """Three passes × the (16, 8) and (24, 12) instances × f32 and f64."""
+    """Three passes × the (16, 8), (24, 12) and (32, 16) instances × f32 and
+    f64; beyond (32, 16) the per-pass kernels refuse, naming the cap."""
     assert len(riccati_bwd.SIGNATURES) == 3 * len(pdip_whole.INSTANCES) * 2
+    assert pdip_whole.INSTANCES[-1] == (32, 16)
     for name in PLAIN:
         for bound in pdip_whole.INSTANCES:
             for dtype in (torch.float32, torch.float64):
                 assert riccati_bwd.entry_point(name, bound, dtype) \
                     in riccati_bwd.SIGNATURES
-    with pytest.raises(NotImplementedError, match="per-pass"):
-        pdip_whole.instance_for(25, 6, what="the per-pass kernels")
+    assert pdip_whole.instance_for(25, 6) == (32, 16)
+    with pytest.raises(NotImplementedError, match="per-pass.*n <= 32"):
+        pdip_whole.instance_for(33, 6, what="the per-pass kernels")
+
+
+@pytest.mark.parametrize("name", list(PLAIN))
+def test_wrappers_leave_their_inputs_unchanged(rng, rbp, name):
+    """The wrappers are pure, as the JAX functions are: the solver hands the
+    vector pass its right-hand sides and the forward pass its gains k and
+    reads them again.  On CPU tensors each wrapper returns what the JAX
+    kernel returns (the forward pass from a nonzero dx0) and leaves every
+    input as it was."""
+    make = {"fused_backward": rbp.make_fused_backward,
+            "vector_backward": rbp.make_vector_backward,
+            "forward": rbp.make_forward}[name]
+    inputs = _pass_inputs(rng)[name]
+    if name == "forward":
+        assert np.all(inputs["dx0"] != 0.0)
+    want = make(H, N, M, tile=2, interpret=True)(
+        *(jnp.asarray(v) for v in inputs.values()))
+    args = [torch.as_tensor(v) for v in inputs.values()]
+    before = [a.clone() for a in args]
+    got = getattr(riccati_bwd, name)(*args)
+    if name == "vector_backward":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= 1e-12
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
 
 
 def test_unknown_kernel_choice_raises(rng):

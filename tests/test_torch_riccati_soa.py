@@ -216,14 +216,18 @@ def test_wide_instance_matches_jax_scan(rng):
 
 @pytest.mark.parametrize("nm,bound", [((12, 6), (16, 8)), ((16, 8), (16, 8)),
                                       ((16, 9), (24, 12)),
-                                      ((24, 12), (24, 12))])
+                                      ((24, 12), (24, 12)),
+                                      ((25, 6), (32, 16)),
+                                      ((12, 13), (32, 16)),
+                                      ((32, 16), (32, 16))])
 def test_smallest_instance_that_holds_the_problem(nm, bound):
-    """The flagship (12, 6) keeps the (16, 8) instance."""
+    """The flagship (12, 6) keeps the (16, 8) instance; a 16-segment beam,
+    (32, 16), has an instance of its own."""
     assert pdip_whole.instance_for(*nm) == bound
     assert pdip_whole.entry_point(bound, torch.float32) in pdip_whole.SIGNATURES
 
 
-@pytest.mark.parametrize("nm", [(25, 6), (12, 13)])
+@pytest.mark.parametrize("nm", [(33, 6), (12, 17)])
 def test_beyond_the_widest_instance_raises(nm):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="n <= 32, m <= 16"):
         pdip_whole.make_whole_pdip(4, *nm, iters=2)
