@@ -32,8 +32,16 @@ flagship arm at B=1, 77, 1001, on ``planar_2link`` and on a mixed chain of
 full inertia tensors; phase ``kte_chains``).  Phase ``wide_widths`` takes
 the widest instances at f64: K1/K5 on a 16-segment flexible beam (16
 joints), K2 and K4a-c at (32, 16) and at a padded width under it, K3a/K3b
-at n = 17 and 32, and one ``make_kte_mpc`` solve of the beam against the
-plain f64 solve of the CPU child.  The build line reports ptxas'
+at n = 17 and 32 (and timed at 32, 48 and 64), and one ``make_kte_mpc``
+solve of the beam against the plain f64 solve of the CPU child.  Phase
+``k3_vs_plain`` holds K3a/K3b at the main paths' shapes and at n = 17, 32,
+33, 48, 64, 70, 241 and 341 in both types (bit for bit their plain version;
+past n = 240 in f64 and 340 in f32 on the device-memory work area).  The RK4 step of the line search and the
+floating arm's step and LTV are replayed from CUDA graphs
+(``ops/graphs.py``); phase ``graphs_vs_eager`` holds a replayed
+line-search rollout and a free-base stage to the eager functions at f64,
+and the two-pass flagship and the floating arm are timed on their first
+call (which captures) and on a warm one.  The build line reports ptxas'
 registers and stack frame of every kernel instance and the blocks an SM
 holds of each K1/K5 instance.
 
@@ -50,6 +58,7 @@ and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the scr
 exits non-zero and prints no last line; with no CUDA device it exits 1 at
 once.  Imports no JAX.
 """
+import functools
 import json
 import os
 import struct
@@ -118,6 +127,36 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, name):
+    """Device time per launch of the kernels whose name holds ``name``, from
+    torch.profiler's CUDA activity over ``reps`` calls of fn() after a
+    warm-up; None where the profiler records no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in events)
+    total_us = sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0.0) for e in events)
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def wall_ms(fn, reps):
+    """Host time per call of fn() over ``reps`` back-to-back calls ended by
+    one synchronize, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def timed(fn):
@@ -192,6 +231,39 @@ def bound(bytes_moved, ops, peak_ops_s=PEAK_F32_S):
     t_ops = ops / peak_ops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def chol_rows_plain(G, rhs):
+    """``riccati_soa._chol_solve_lanes`` with each step of the factor and of
+    the forward substitution taken over all the rows it updates at once:
+    every entry gets the same operations in the same order (k ascending,
+    the product rounded, then the difference), so the result is the plain
+    version's bit for bit (phase ``k3_vs_plain`` checks it at n = 70), at
+    O(n²) tensor ops instead of O(n³).  The backward substitution sums in
+    the plain version's order, which a sweep over rows would reverse, so it
+    stays one op per term.  G (n, n, B), rhs (n, k, B) → (n, k, B)."""
+    n = G.shape[0]
+    L = torch.zeros_like(G)
+    inv_d = []
+    for j in range(n):
+        t = G[j:, j]
+        for k in range(j):
+            t = t - L[j:, k] * L[j, k]
+        d = torch.rsqrt(t[0])
+        inv_d.append(d)
+        L[j + 1:, j] = t[1:] * d
+    t = rhs
+    ys = []
+    for i in range(n):
+        ys.append(t[0] * inv_d[i][None])
+        t = t[1:] - L[i + 1:, i][:, None] * ys[i]
+    xs = [None] * n
+    for i in reversed(range(n)):
+        t = ys[i]
+        for k in range(i + 1, n):
+            t = t - L[k, i][None] * xs[k]
+        xs[i] = t * inv_d[i][None]
+    return torch.stack(xs, dim=0)
 
 
 def k2_design_bytes(horizon, n, m, batch, iters, itemsize):
@@ -482,9 +554,11 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                 for e in riccati_bwd.launches:
                     wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib,
                                                        f"{e}_kernel{w}")
+    # K3a/K3b: the unrolled instances of the hot widths, and the instance
+    # of any other width (0)
     wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
                    for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E",
-                             "IdLi17E", "IfLi32E", "IdLi32E")})
+                             "IfLi0E", "IdLi0E")})
     # K1 and K5 per chain width (joints x dofs) and type, with the blocks
     # of each that an SM holds
     occupancy = {}
@@ -735,17 +809,36 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     # G SPD as bench.py:193-195 makes it (G Gᵀ + 3I); shapes of the main
     # paths: the line-search rollout (n=6, one right-hand side, B=8192), the
     # floating-arm LTV (n=12, k=36, B=2048), bench.py's (6, 18, 1024), and
-    # K3a through the standard-layout chol_lanes.solve at (12, 2048)
+    # K3a through the standard-layout chol_lanes.solve at (12, 2048); then
+    # the widths past the unrolled instances, n = 17, 32, 33, 48, 64, 70
+    # (one and 5 right-hand sides, B = 1001: a ragged tile; 70 is past the
+    # substitutions' local-memory vector), and two right-hand sides at
+    # n = 241 (B = 77; in f64 a scenario's triangle no longer fits a block's
+    # shared memory) and n = 341 (B = 33; nor in f32), whose work area is
+    # the device-memory workspace.  Past n = 70 the plain version is taken
+    # in its row-vectorized form (chol_rows_plain), held bitwise to the
+    # plain version at n = 70
     def spd(n, batch):
         g = rng.standard_normal((n, n, batch))
         return np.einsum("ikz,jkz->ijz", g, g) + 3.0 * np.eye(n)[:, :, None]
 
-    k3_cases = {}
-    for entry, n, k, batch in (("solve_lanes", 6, 1, B),
+    def k3_bytes(g, r):
+        """What K3 must move: G's lower triangle (n(n+1)/2 rows of B
+        scenarios) read once, the right-hand sides read and x written."""
+        n, batch = g.shape[0], g.shape[-1]
+        return n * (n + 1) // 2 * batch * g.element_size() + 2 * nbytes(r)
+
+    k3_cases, k3_profiled = {}, {}
+    k3_wide = [(e, n, k, 1001) for n in (17, 32, 33, 48, 64, 70)
+               for e, k in (("solve_lanes", 1), ("solve_lanes_multi", 5))]
+    k3_workspace = [("solve_lanes_multi", 241, 2, 77),
+                    ("solve_lanes_multi", 341, 2, 33)]
+    for entry, n, k, batch in [("solve_lanes", 6, 1, B),
                                ("solve_lanes_multi", 6, 1, B),
                                ("solve_lanes_multi", 12, 36, FA_B),
                                ("solve_lanes_multi", 6, 18, 1024),
-                               ("solve", 12, 1, FA_B)):
+                               ("solve", 12, 1, FA_B)] + k3_wide \
+            + k3_workspace:
         G_np, r_np = spd(n, batch), rng.standard_normal((n, k, batch))
         if entry == "solve_lanes_multi":
             kern = lambda g, r: chol_lanes.solve_lanes_multi(g, r)
@@ -755,24 +848,56 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             kern = lambda g, r: chol_lanes.solve(
                 g.permute(2, 0, 1).contiguous(),
                 r[:, 0].T.contiguous()).T[:, None]
-        res = {}
+        res, rows_bitwise = {}, {}
         for dt in (f64, f32):
             g, r = on(G_np, dt), on(r_np, dt)
-            res[dt] = (kern(g, r), riccati_soa._chol_solve_lanes(g, r))
+            plain_ = (riccati_soa._chol_solve_lanes(g, r) if n <= 70
+                      else chol_rows_plain(g, r))
+            if n == 70:
+                rows_bitwise[str(dt)] = torch.equal(
+                    chol_rows_plain(g, r), plain_)
+            res[dt] = (kern(g, r), plain_)
         torch.cuda.synchronize()
         (k64_, p64_), (k32_, p32_) = res[f64], res[f32]
         key = f"{entry}(n={n},k={k},B={batch})"
         k3_cases[key] = {"f64_rel": rel_err(k64_, p64_),
                          "f64_abs": abs_err(k64_, p64_),
                          "f32_abs": abs_err(k32_, p64_),
-                         "plain_f32_abs": abs_err(p32_, p64_)}
+                         "plain_f32_abs": abs_err(p32_, p64_),
+                         "bitwise": {"f64": torch.equal(k64_, p64_),
+                                     "f32": torch.equal(k32_, p32_)}}
+        if n > 70:  # which types ran with the device-memory work area
+            ws = {"f64": chol_lanes.workspace_values(n, batch, 8) > 0,
+                  "f32": chol_lanes.workspace_values(n, batch, 4) > 0}
+            k3_cases[key]["workspace"] = ws
+            check(ws["f64"] and ws["f32"] == (n == 341),
+                  f"K3 {key} did not run the workspace cases: {ws}")
+        if rows_bitwise:
+            k3_cases[key]["rows_plain_bitwise"] = rows_bitwise
+            check(all(rows_bitwise.values()),
+                  f"K3 {key}: chol_rows_plain is not the plain version")
         check(k3_cases[key]["f64_rel"] <= 1e-9, f"K3 {key} f64 relative")
         check(k3_cases[key]["f32_abs"] <= 2.0 * k3_cases[key]["plain_f32_abs"],
               f"K3 {key} f32 error above twice the plain f32 error")
-        if entry != "solve" and k in (1, 36):
-            # times at the line-search and the floating-arm LTV shapes
+        # each product rounded alone (csrc/chol_lanes.cu mul_rn): the
+        # kernel is its plain version bit for bit
+        check(all(k3_cases[key]["bitwise"].values()),
+              f"K3 {key} is not its plain version bit for bit")
+        if entry != "solve" and (n, k, batch) in ((6, 1, B), (12, 36, FA_B)):
+            # times at the line-search and the floating-arm LTV shapes, on
+            # contiguous inputs made beforehand: per call by CUDA events
+            # over 50 back-to-back calls (as in earlier runs), the device
+            # alone by the profiler, and the host's wall time per call
             g, r = on(G_np, f32), on(r_np, f32)
-            k3_cases[key]["ms"] = cuda_ms(lambda: kern(g, r), reps=50)
+            r1 = r[:, 0].contiguous()
+            call = (functools.partial(chol_lanes.solve_lanes, g, r1)
+                    if entry == "solve_lanes"
+                    else functools.partial(chol_lanes.solve_lanes_multi, g,
+                                           r))
+            k3_cases[key]["ms"] = cuda_ms(call, reps=50)
+            k3_cases[key]["wall_ms"] = wall_ms(call, 50)
+            # the profiler runs last in the script (phase times)
+            k3_profiled[key] = call
             k3_cases[key]["plain_ms"] = cuda_ms(
                 lambda: riccati_soa._chol_solve_lanes(g, r), reps=5)
             # one PyTorch call computing the same solves (standard layout)
@@ -780,7 +905,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             r_std = r.permute(2, 0, 1).contiguous()
             k3_cases[key]["library_ms"] = cuda_ms(
                 lambda: torch.linalg.solve(g_std, r_std), reps=20)
-            k3_cases[key]["bytes"] = nbytes(g, r, r)
+            k3_cases[key]["bytes"] = k3_bytes(g, r)
             k3_cases[key]["ops"] = batch * ops_per_scenario(
                 riccati_soa._chol_solve_lanes,
                 lambda nb: (torch.eye(n, dtype=f64)[:, :, None].repeat(
@@ -857,6 +982,54 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     k2w["plain_ms"] = cuda_ms(lambda: wide("never"), reps=1)
     emit(k2w)
     del Aw, Bw, cw, out, args32
+
+    # ---- the CUDA graphs against the eager functions, f64 ----------------
+    # the free-base stage (step + LTV) at the last state of the loop above
+    # and inputs ±2 from the seed, replayed from the graphs that loop captured, against the uncaptured
+    # functions; one line-search rollout of the flagship (B=8192, H=50,
+    # inputs ±5 from the seed): its first call captures the RK4 step and
+    # replays it for the later steps, its second call replays every step,
+    # both against the rollout with every step eager
+    gr = {"phase": "graphs_vs_eager", "dtype": "float64", "stage": {}}
+    u_gr = on(rng.uniform(-2.0, 2.0, (nv_fa, FA_B)), f64)
+    stage_g = (step_fa(x, u_gr), *ltv_fa(x, u_gr))
+    stage_e = (step_fa.eager(x, u_gr), *ltv_fa.eager(x, u_gr))
+    torch.cuda.synchronize()
+    for nm, a, e in zip(("step", "A_d", "B_d", "c_d"), stage_g, stage_e):
+        gr["stage"][nm] = {"rel": rel_err(a, e), "bitwise": torch.equal(a, e)}
+    gr["stage_seconds"] = {nm: next(iter(f.captured.values())).seconds
+                           for nm, f in (("step", step_fa), ("ltv", ltv_fa))}
+    del stage_g, stage_e
+    roll_ls = lanes.make_rollout_lanes(spec, DT)
+    x0_ls = on(x0_np, f64)
+    u_ls = on(rng.uniform(-5.0, 5.0, (H, M, B)), f64)
+    k3a_at = [chol_lanes.launches["solve_lanes"]]
+    xs_first, t_first = timed(lambda: roll_ls(x0_ls, u_ls))
+    k3a_at.append(chol_lanes.launches["solve_lanes"])
+    xs_replay, t_replay = timed(lambda: roll_ls(x0_ls, u_ls))
+    k3a_at.append(chol_lanes.launches["solve_lanes"])
+    xs_eager, t_eager = timed(lambda: roll_ls.eager(x0_ls, u_ls))
+    cap = next(iter(roll_ls.step.captured.values()))
+    gr["rollout"] = {
+        "H": H, "B": B, "replay_rel": rel_err(xs_replay, xs_eager),
+        "replay_bitwise": torch.equal(xs_replay, xs_eager),
+        "first_rel": rel_err(xs_first, xs_eager),
+        "first_bitwise": torch.equal(xs_first, xs_eager),
+        "first_ms": t_first, "replay_ms": t_replay, "eager_ms": t_eager,
+        "step_seconds": cap.seconds,
+        "k3a_launches": [k3a_at[1] - k3a_at[0], k3a_at[2] - k3a_at[1]]}
+    emit(gr)
+    for nm, e in gr["stage"].items():
+        check(e["rel"] <= 1e-12, f"free-base {nm} replayed from its graph "
+              "against the eager function")
+    for key in ("replay_rel", "first_rel"):
+        check(gr["rollout"][key] <= 1e-12, f"line-search rollout {key}")
+    check(gr["rollout"]["k3a_launches"] == [4 * H, 4 * H],
+          f"the line-search rollout did not count 4 K3a launches a step: "
+          f"{gr['rollout']['k3a_launches']}")
+    check(bool(torch.isfinite(xs_replay).all()),
+          "the replayed rollout is not finite")
+    del roll_ls, xs_first, xs_replay, xs_eager, x0_ls, u_ls
 
     # ---- K2 and K4a-c on ragged batches and padded widths, f64 ------------
     # batches that are no multiple of the tile (its last block runs lanes
@@ -1096,10 +1269,15 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     del us_sat_p, xs_sat, xs_satp
 
     # ---- the flagship with two SQP passes and the line search -----------
+    # the first call captures the line search's RK4 step; the warm call
+    # replays it
     solve2 = mpc.make_kte_mpc(spec, prob32, DT, qp_iters=ITERS, sqp_iters=2)
     reset_counts()
     (us2, xs2), t_sqp2 = timed(lambda: solve2(x0_32, u0_32))
     main_runs["flagship_sqp"] = counts()
+    reset_counts()
+    (us2w, _), t_sqp2_warm = timed(lambda: solve2(x0_32, u0_32))
+    sqp2_warm_launches = counts()
     traj_cost, _ = mpc.make_traj_cost(spec, prob32, DT)
     J_init = traj_cost(x0_32, u0_32.permute(1, 2, 0))
     J_sqp = traj_cost(x0_32, us2.permute(1, 2, 0).contiguous())
@@ -1112,6 +1290,10 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     reset_counts()
     (us_fa, xs_fa), t_fa = timed(lambda: solve_fa(x0_fa32, xr_fa32, u0_fa32))
     main_runs["floating_arm"] = counts()
+    reset_counts()
+    (us_faw, _), t_fa_warm = timed(lambda: solve_fa(x0_fa32, xr_fa32,
+                                                    u0_fa32))
+    fa_warm_launches = counts()
 
     refs, ref_wait = cpu_references()
     err2 = np.abs(us2[:N_REF].double().cpu().numpy()
@@ -1119,6 +1301,9 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     sqp = {"phase": "flagship_sqp", "B": B, "H": H, "iters": ITERS,
            "sqp_iters": 2, "dtype": "float32",
            "launches": main_runs["flagship_sqp"],
+           "warm_launches": sqp2_warm_launches,
+           "first_ms": t_sqp2, "warm_ms": t_sqp2_warm,
+           "warm_max_abs_u_vs_first": abs_err(us2w, us2),
            "max_abs_u_vs_cpu_f64": float(err2.max()),
            "share_within_1e-3": float(np.mean(err2 <= 1e-3)),
            "reference_scenarios": N_REF,
@@ -1132,6 +1317,12 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     for name in ("kte_step", "pdip_whole", "chol_lanes.solve_lanes"):
         check(sqp["launches"][name] > 0,
               f"the two-pass flagship solve did not launch {name}")
+    # 2 passes × 5 RK4 rollouts (4 priced candidates and the trajectory of
+    # the choice) × H steps × 4 rates, on the first and the warm call
+    for run in (sqp["launches"], sqp["warm_launches"]):
+        check(run["chol_lanes.solve_lanes"] == 2 * 5 * H * 4,
+              f"the two-pass flagship launched K3a "
+              f"{run['chol_lanes.solve_lanes']} times, not {2 * 5 * H * 4}")
     check(bool(torch.isfinite(us2).all()) and bool(torch.isfinite(xs2).all()),
           "two-pass flagship outputs are not finite")
     # the line search never raises the true RK4 cost; the slack covers the
@@ -1147,6 +1338,9 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     fa_res = {"phase": "floating_arm", "B": FA_B, "H": FA_H, "dt": FA_DT,
               "n": 2 * nv_fa, "m": nv_fa, "sqp_iters": 1, "iters": ITERS,
               "dtype": "float32", "launches": main_runs["floating_arm"],
+              "warm_launches": fa_warm_launches,
+              "first_ms": t_fa, "warm_ms": t_fa_warm,
+              "warm_max_abs_u_vs_first": abs_err(us_faw, us_fa),
               "max_abs_u_vs_cpu_f64": err_fa,
               "max_abs_xs_vs_cpu_f64": abs_err(
                   xs_fa[:N_REF].cpu(),
@@ -1159,6 +1353,11 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                  "chol_lanes.solve_lanes_multi"):
         check(fa_res["launches"][name] > 0,
               f"the floating-arm solve did not launch {name}")
+    # one LTV a stage: K3b FA_H times a one-pass solve, first and warm
+    for run in (fa_res["launches"], fa_res["warm_launches"]):
+        check(run["chol_lanes.solve_lanes_multi"] == FA_H,
+              f"the floating arm launched K3b "
+              f"{run['chol_lanes.solve_lanes_multi']} times, not {FA_H}")
     check(tuple(us_fa.shape) == (FA_B, FA_H, nv_fa)
           and bool(torch.isfinite(us_fa).all())
           and bool(torch.isfinite(xs_fa).all()),
@@ -1250,14 +1449,16 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         "active_bounds": int((us_bm.abs() > 30.0 - 1e-6).sum())}
     # each wide instance per launch at B = 8192, f64, beside its bound over
     # the float64 peak: K1/K5 on the beam, K2 and K4a-c at (32, 16) with
-    # H = 12, K3a/K3b at n = 32 (one and 32 right-hand sides)
+    # H = 12, K3a/K3b at n = 32, 48 and 64 (one and n right-hand sides)
     wide["per_launch_f64"] = {}
 
-    def wide_row(key, fn, args, plain, reps):
+    def wide_row(key, fn, args, plain, reps, moved=None):
+        """``moved``: the bytes the function must move, where that is not
+        its inputs and outputs whole"""
         outs = fn(*args)
         outs = (outs,) if torch.is_tensor(outs) else outs
         bound_ms, bound_by = bound(
-            nbytes(*args, *outs), B * ops_per_scenario(
+            moved or nbytes(*args, *outs), B * ops_per_scenario(
                 plain, lambda nb: cpu_args(args, B, nb)), PEAK_F64_S)
         wide["per_launch_f64"][key] = {
             "ms": cuda_ms(lambda: fn(*args), reps=reps),
@@ -1287,12 +1488,20 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         wide_row(f"riccati_bwd.{e}@32x16", getattr(riccati_bwd, e), a,
                  plain_pass[e], 3)
     del pw, k2w_args, pa, K_w, G_w
-    g = on(spd(32, B), f64)
-    for e, k in (("solve_lanes", 1), ("solve_lanes_multi", 32)):
-        r = on(rng.standard_normal((32, B) if k == 1 else (32, k, B)), f64)
-        wide_row(f"chol_lanes.{e}@32", getattr(chol_lanes, e), (g, r),
-                 lambda gg, rr: riccati_soa._chol_solve_lanes(
-                     gg, rr if rr.dim() == 3 else rr[:, None]), 5)
+    for n in (32, 48, 64):
+        a = on(rng.standard_normal((n, n, B)), f64)
+        # contiguous, so that the wrapper makes no copy inside the timing
+        # (einsum's product comes out in another layout)
+        g = (torch.einsum("ikz,jkz->ijz", a, a)
+             + 3.0 * torch.eye(n, dtype=f64, device=dev)[:, :, None]
+             ).contiguous()
+        del a
+        for e, k in (("solve_lanes", 1), ("solve_lanes_multi", n)):
+            r = on(rng.standard_normal((n, B) if k == 1 else (n, k, B)), f64)
+            wide_row(f"chol_lanes.{e}@{n}", getattr(chol_lanes, e), (g, r),
+                     lambda gg, rr: riccati_soa._chol_solve_lanes(
+                         gg, rr if rr.dim() == 3 else rr[:, None]), 5,
+                     moved=k3_bytes(g, r))
     del g, r
     emit(wide)
     check(main_runs["beam"]["kte_step"] == BEAM_H
@@ -1487,6 +1696,11 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     xk, uk = x0_32.T.contiguous(), u0_32[:, 0].T.contiguous()
     t_step = cuda_ms(lambda: step_k(xk, uk), reps=20)
     t_step_p = cuda_ms(lambda: step_p(xk, uk), reps=3, warmup=0)
+    # K3's device time alone, by the profiler, which runs last: its tracing
+    # could leave costs on the host for what follows
+    for key, call in k3_profiled.items():
+        k3_cases[key]["device_ms"] = device_ms(call, 50, "chol_lanes_kernel")
+    del k3_profiled
     # what each timed launch must move and compute, for its bound: inputs
     # and outputs of the call; operations of its plain version per scenario
     # (the K3 rows were filled in their phase, the K4 rows above)
@@ -1512,10 +1726,18 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     # the free-base and two-pass solves, each timed on its checked run
     emit({"phase": "times_slice2", "card": card, "dtype": "float32",
           "flagship_sqp2_ms": t_sqp2, "flagship_sqp2_solves_per_s":
-          B / t_sqp2 * 1e3, "sat_ms": t_sat,
+          B / t_sqp2 * 1e3, "flagship_sqp2_warm_ms": t_sqp2_warm,
+          "flagship_sqp2_warm_solves_per_s": B / t_sqp2_warm * 1e3,
+          "floating_arm_warm_ms": t_fa_warm,
+          "floating_arm_warm_solves_per_s": FA_B / t_fa_warm * 1e3,
+          "sat_ms": t_sat,
           "sat_solves_per_s": SAT_B / t_sat * 1e3, "floating_arm_ms": t_fa,
           "floating_arm_solves_per_s": FA_B / t_fa * 1e3,
           "k3a_line_search_shape_ms": k3a_case["ms"],
+          "k3a_line_search_shape_device_ms": k3a_case["device_ms"],
+          "k3a_line_search_shape_wall_ms": k3a_case["wall_ms"],
+          "k3b_ltv_shape_device_ms": k3b_case["device_ms"],
+          "k3b_ltv_shape_wall_ms": k3b_case["wall_ms"],
           "k3a_line_search_shape_plain_ms": k3a_case["plain_ms"],
           "k3b_ltv_shape_ms": k3b_case["ms"],
           "k3b_ltv_shape_plain_ms": k3b_case["plain_ms"],
@@ -1539,10 +1761,13 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
 
-    k3_rows = [row(f"chol_lanes.{entry}", "chol_lanes.cu",
-                   f"reak_tpu/ops/chol_lanes.py:{line}", k3_err[entry],
-                   case["ms"], case["plain_ms"], case["bytes"], case["ops"],
-                   case["library_ms"])
+    # K3's ms is per call by CUDA events, as in earlier runs; beside it the
+    # device alone (profiler) and the host's wall time per call
+    k3_rows = [{**row(f"chol_lanes.{entry}", "chol_lanes.cu",
+                      f"reak_tpu/ops/chol_lanes.py:{line}", k3_err[entry],
+                      case["ms"], case["plain_ms"], case["bytes"],
+                      case["ops"], case["library_ms"]),
+                "device_ms": case["device_ms"], "wall_ms": case["wall_ms"]}
                for entry, line, case in (("solve_lanes", 68, k3a_case),
                                          ("solve_lanes_multi", 130,
                                           k3b_case))]

@@ -58,13 +58,18 @@ def make_traj_cost(spec, problem: MPCProblem, dt: float):
     costs; a non-finite cost becomes +inf.  ``xr_l``/``ur_l`` are lanes
     references (H, w, 1|B) or None."""
     roll = lanes.make_rollout_lanes(spec, dt)
+    weights = {}  # (dtype, device) → Q, QN, R, made once
 
     def cost(x0s, ul, xr_l=None, ur_l=None):
         xs = roll(x0s, ul)                                  # (H, n, B)
         dx = xs if xr_l is None else xs - xr_l
         du = ul if ur_l is None else ul - ur_l
-        Q, QN, R = (torch.as_tensor(a, dtype=xs.dtype, device=xs.device)
-                    for a in (problem.Q, problem.QN, problem.R))
+        key = (xs.dtype, xs.device)
+        if key not in weights:
+            weights[key] = tuple(
+                torch.as_tensor(a, dtype=xs.dtype, device=xs.device)
+                for a in (problem.Q, problem.QN, problem.R))
+        Q, QN, R = weights[key]
         qx = torch.einsum("hib,ij,hjb->b", dx[:-1], Q, dx[:-1])
         qn = torch.einsum("ib,ij,jb->b", dx[-1], QN, dx[-1])
         ru = torch.einsum("hib,ij,hjb->b", du, R, du)

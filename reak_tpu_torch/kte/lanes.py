@@ -31,10 +31,38 @@ from reak_tpu_torch.kte.soa import _fk_soa
 from reak_tpu_torch.kte.spec import (ChainSpec, JointType, REVOLUTE,
                                      PRISMATIC, FIXED, FREE)
 from reak_tpu_torch.math import rot_lanes as rl
-from reak_tpu_torch.ops import chol_lanes
+from reak_tpu_torch.ops import chol_lanes, graphs
 
-def _const(a, like):
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+class _Consts:
+    """A chain's host constants (numpy arrays) as tensors, made once per
+    (dtype, device) at their first use: a tensor made from host memory
+    cannot be captured into a CUDA graph (ops/graphs.py), and each one is a
+    copy from the host.  Floating arrays take the type of ``like``, integer
+    ones keep theirs."""
+
+    def __init__(self, **arrays):
+        self._arrays = {k: np.asarray(v) for k, v in arrays.items()}
+        self._made = {}
+
+    def __call__(self, like) -> dict:
+        key = (like.dtype, like.device)
+        made = self._made.get(key)
+        if made is None:
+            made = self._made[key] = {
+                k: torch.as_tensor(
+                    a, dtype=like.dtype if a.dtype.kind == "f" else None,
+                    device=like.device)
+                for k, a in self._arrays.items()}
+        return made
+
+
+def _inertial(spec: ChainSpec, **arrays) -> _Consts:
+    """The constants of ``_terms_from_jacobians`` and ``arrays``."""
+    return _Consts(masses=np.asarray(spec.masses, np.float64),
+                   inertias=np.asarray(spec.inertias, np.float64).reshape(
+                       spec.n_joints, 3, 3),
+                   gravity=np.asarray(spec.gravity, np.float64), **arrays)
 
 
 def _bcast_stack(items, batch_shape, dtype, device):
@@ -55,15 +83,14 @@ def _bcast_stack(items, batch_shape, dtype, device):
 # ---------------------------------------------------------------------------
 
 
-def _terms_from_jacobians(spec: ChainSpec, jac_map, q, qd, q_rate):
+def _terms_from_jacobians(consts: dict, jac_map, q, qd, q_rate):
     """(M, f) without the passive joint elements, from the per-body
     Jacobians ``jac_map(q) → (Jv (nb, nv, 3, B) world, Jw (nb, nv, 3, B)
     body)``: M = Σ m Jvᵀ Jv + Jwᵀ I Jw, f = Jᵀ of the gravity, bias and
     gyroscopic forces.  One jvp along ``q_rate`` (the configuration rate of
-    q̇) gives the J̇q̇ bias accelerations (kte/dynamics.py trick)."""
-    nb = spec.n_joints
-    masses = _const(np.asarray(spec.masses), q)
-    I_all = _const(np.asarray(spec.inertias).reshape(nb, 3, 3), q)
+    q̇) gives the J̇q̇ bias accelerations (kte/dynamics.py trick).
+    ``consts``: masses, inertias and gravity as tensors (``_inertial``)."""
+    masses, I_all = consts["masses"], consts["inertias"]
 
     def vel_map(qq):
         Jv, Jw = jac_map(qq)
@@ -75,7 +102,7 @@ def _terms_from_jacobians(spec: ChainSpec, jac_map, q, qd, q_rate):
     M = torch.einsum("b,bkcz,blcz->klz", masses, Jv, Jv) + torch.einsum(
         "bkrz,brc,blcz->klz", Jw, I_all, Jw
     )
-    a_tot = a_b - _const(np.asarray(spec.gravity), q)[None, :, None]
+    a_tot = a_b - consts["gravity"][None, :, None]
     f_lin = -masses[:, None, None] * a_tot
     Iw = torch.einsum("brc,bcz->brz", I_all, w)
     Ial = torch.einsum("brc,bcz->brz", I_all, al_b)
@@ -111,6 +138,8 @@ def make_terms_lanes(spec: ChainSpec):
     stiff_np = np.array([spec.stiffness[i] for i in jidx])
     rest_np = np.array([spec.rest_q[i] for i in jidx])
     damp_np = np.array([spec.damping[i] for i in jidx])
+    consts = _inertial(spec, mask=mask_np, is_pri=is_pri_np, stiff=stiff_np,
+                       rest=rest_np, damp=damp_np)
 
     def jac_map(q):
         """q (nv, B) → Jv (nb, nv, 3, B) world, Jw (nb, nv, 3, B) body."""
@@ -122,23 +151,25 @@ def make_terms_lanes(spec: ChainSpec):
         anchors = stack([fkr.anchors[i] for i in jidx])
         axes_g = stack([fkr.axes_g[i] for i in jidx])
 
-        mask = _const(mask_np, q)[:, :, None, None]
-        is_pri = _const(is_pri_np, q)[None, :, None, None]
+        c = consts(q)
+        mask = c["mask"][:, :, None, None]
+        is_pri = c["is_pri"][None, :, None, None]
 
         r = coms[:, None] - anchors[None]  # (nb, nv, 3, B)
         Jv_rev = rl.cross_l(axes_g[None], r)
         Jv = (is_pri * axes_g[None] + (1.0 - is_pri) * Jv_rev) * mask
-        ax_rev = axes_g * (1.0 - _const(is_pri_np, q)[:, None, None])
+        ax_rev = axes_g * (1.0 - c["is_pri"][:, None, None])
         Jw = rl.qrot_inv_l(quats[:, None], ax_rev[None]) * mask
         return Jv, Jw
 
     def terms(q, qd):
-        M, f = _terms_from_jacobians(spec, jac_map, q, qd, qd)
+        c = consts(q)
+        M, f = _terms_from_jacobians(c, jac_map, q, qd, qd)
         # passive joint springs/dampers (smooth part, hot path)
         f = (
             f
-            - _const(stiff_np, q)[:, None] * (q - _const(rest_np, q)[:, None])
-            - _const(damp_np, q)[:, None] * qd
+            - c["stiff"][:, None] * (q - c["rest"][:, None])
+            - c["damp"][:, None] * qd
         )
         return M, f
 
@@ -176,6 +207,11 @@ def _make_terms_lanes_generic(spec: ChainSpec):
         qsel_np[vi] = ci
         ci += 1
         vi += 1
+    # row i: the bodies at or past joint i
+    joint_mask_np = (np.arange(nb)[None, :]
+                     >= np.arange(nb)[:, None]).astype(np.float64)
+    consts = _inertial(spec, joint_mask=joint_mask_np, stiff=stiff_np,
+                       damp=damp_np, rest=rest_np, qsel=qsel_np)
 
     def jac_map(q):
         """q (nq, B) → Jv (nb, nv, 3, B) world, Jw (nb, nv, 3, B) body."""
@@ -187,12 +223,12 @@ def _make_terms_lanes_generic(spec: ChainSpec):
         basis = torch.eye(3, dtype=q.dtype, device=q.device)[:, :, None] \
             .expand((3, 3) + batch)
         blocks_v, blocks_w = [], []
+        joint_mask = consts(q)["joint_mask"]
         for i, jt in enumerate(spec.joint_types):
             jt = JointType(jt)
             if jt == FIXED:
                 continue
-            mask = _const((np.arange(nb) >= i).astype(np.float64),
-                          q)[:, None, None, None]
+            mask = joint_mask[i][:, None, None, None]
             anch = stack([fkr.anchors[i]])              # (1, 3, B)
             r = coms[:, None] - anch[None]              # (nb, 1, 3, B)
             if jt == REVOLUTE:
@@ -219,14 +255,14 @@ def _make_terms_lanes_generic(spec: ChainSpec):
         return torch.cat(blocks_v, dim=1), torch.cat(blocks_w, dim=1)
 
     def terms(q, qd):
-        M, f = _terms_from_jacobians(spec, jac_map, q, qd,
+        c = consts(q)
+        M, f = _terms_from_jacobians(c, jac_map, q, qd,
                                      _config_rate_l(q, qd))
-        qsel = torch.as_tensor(qsel_np, device=q.device)
         f = (
             f
-            - _const(stiff_np, q)[:, None]
-            * (q.index_select(0, qsel) - _const(rest_np, q)[:, None])
-            - _const(damp_np, q)[:, None] * qd
+            - c["stiff"][:, None]
+            * (q.index_select(0, c["qsel"]) - c["rest"][:, None])
+            - c["damp"][:, None] * qd
         )
         return M, f
 
@@ -383,7 +419,9 @@ def make_rollout_lanes(spec: ChainSpec, dt: float):
     candidate input sequences of the SQP line search at 4 terms
     evaluations per step.  ``fn(x0 (B, n), us_l (H, m, B)) → xs (H, n, B)``
     (x_1..x_H).  Each stage solves with M through ``chol_lanes.solve_lanes``
-    (the kernel on CUDA tensors)."""
+    (the kernel on CUDA tensors).  On CUDA tensors each RK4 step is replayed
+    from a CUDA graph (``ops/graphs.graphed``, ``fn.step``); ``fn.eager`` is
+    the same rollout with every step run eagerly."""
     if spec.has_free_base:
         raise ValueError("free-base chains use make_kte_manifold_lanes")
     nv = spec.nv
@@ -394,14 +432,21 @@ def make_rollout_lanes(spec: ChainSpec, dt: float):
         M, f = terms(x[:nv], qd)
         return torch.cat([qd, chol_lanes.solve_lanes(M, f + u)], dim=0)
 
-    def rollout(x0, us_l):
+    step = graphs.graphed(lambda x, u: _rk4(rate, x, u, dt))
+
+    def roll(step_fn, x0, us_l):
         x = x0.T.contiguous()
         xs = []
         for t in range(us_l.shape[0]):
-            x = _rk4(rate, x, us_l[t], dt)
+            x = step_fn(x, us_l[t])
             xs.append(x)
         return torch.stack(xs, dim=0)
 
+    def rollout(x0, us_l):
+        return roll(step, x0, us_l)
+
+    rollout.step = step
+    rollout.eager = lambda x0, us_l: roll(step.eager, x0, us_l)
     return rollout
 
 
@@ -421,7 +466,9 @@ def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
 
     ``actuated`` (nv, nu) maps the inputs onto the generalized forces
     (identity when None).  Every solve with M goes through
-    ``ops/chol_lanes``, outside the jvps."""
+    ``ops/chol_lanes``, outside the jvps.  On CUDA tensors both are
+    replayed from CUDA graphs (``ops/graphs.graphed``, one capture per
+    shape and type); ``step.eager`` and ``ltv.eager`` run eagerly."""
     if not spec.has_free_base:
         raise ValueError("fixed-base chains use make_rollout_ltv_lanes")
     nq = spec.nq
@@ -430,11 +477,12 @@ def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
     terms = make_terms_lanes(spec)
     act_np = None if actuated is None else np.asarray(actuated, np.float64)
     nu = nv if act_np is None else act_np.shape[1]
+    act = None if act_np is None else _Consts(S=act_np)
 
     def tau_of(u):
-        if act_np is None:
+        if act is None:
             return u
-        return torch.einsum("vu,uz->vz", _const(act_np, u), u)
+        return torch.einsum("vu,uz->vz", act(u)["S"], u)
 
     def state_rate(x, tau):
         q, qd = x[:nq], x[nq:]
@@ -477,7 +525,7 @@ def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
         rhs_t = rhs.permute(1, 0, 2)            # (nv, d, B)
         S_u = (torch.eye(nv, dtype=dtype, device=device)[:, :, None]
                .expand((nv, nv) + batch) if act_np is None else
-               _const(act_np, x)[:, :, None].expand((nv, nu) + batch))
+               act(x)["S"][:, :, None].expand((nv, nu) + batch))
         sol = chol_lanes.solve_lanes_multi(M, torch.cat([rhs_t, S_u], dim=1))
         dqdd = sol[:, :d]                       # (nv, d, B)
         Minv_S = sol[:, d:]                     # (nv, nu, B)
@@ -503,4 +551,4 @@ def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
         c_d = -_mv(B_d, u)
         return A_d, B_d, c_d
 
-    return step, ltv
+    return graphs.graphed(step), graphs.graphed(ltv)

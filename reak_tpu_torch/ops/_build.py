@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-split-compile=0")
 
 _libs: dict[str, ctypes.CDLL] = {}
+# {(library, function): the function, its argtypes declared}
+_functions: dict = {}
+# {module name: module} of every kernel wrapper; each one's ``launches`` (an
+# int, or a dict of ints by entry) counts its kernel's launches, and
+# ops/graphs credits a replayed graph's launches to them
+launch_counters: dict = {}
 
 
 def _nvcc() -> str:
@@ -118,7 +125,7 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library ``name``, built on first use, with
     ``signatures`` ({function: argtypes}, each returning a CUDA error
     code) declared on it.  Several wrappers may share one library, each
-    declaring its own functions."""
+    declaring its own functions; a function is declared once."""
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
@@ -126,15 +133,37 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         lib.reak_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     for fn, argtypes in signatures.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        if (name, fn) not in _functions:
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _functions[(name, fn)] = f
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def function(name: str, fn: str, signatures: dict):
+    """The C function ``fn`` of the library ``name``, ready to call: a
+    launch's one lookup (the first also builds and loads the library and
+    declares ``signatures`` on it, as ``load``)."""
+    f = _functions.get((name, fn))
+    if f is None:
+        load(name, signatures)
+        f = _functions[(name, fn)]
+    return f
+
+
+def count_launches(module_name: str) -> None:
+    """Register the wrapper module ``module_name`` (called by the module
+    at its import) as one whose ``launches`` counts its kernel's
+    launches."""
+    launch_counters[module_name] = sys.modules[module_name]
+
+
+def check(name: str, rc: int, what: str) -> None:
+    """Raise if a launch of the library ``name`` returned a CUDA error
+    code."""
     if rc != 0:
-        msg = lib.reak_cuda_error_string(rc).decode()
+        msg = _libs[name].reak_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 

@@ -8,12 +8,17 @@ the Pallas kernels ``reak_tpu/ops/chol_lanes.py::solve_lanes`` (K3a) and
 - ``solve(G (B, n, n), rhs (B, n)) → x (B, n)``, the standard layout over
   ``solve_lanes``.
 
-On CUDA tensors each wrapper launches the kernel (n ≤ 32, any B); on CPU
+On CUDA tensors each wrapper launches the kernel (any n ≥ 1, any B); on CPU
 tensors it takes the plain version, ``ctrl/riccati_soa._chol_solve_lanes``
-(the same recurrence as tensor ops).  The plain version itself never
-dispatches, so the plain paths that call it stay plain on the card.  Inputs
+(the same recurrence as tensor ops, whose result the kernel gives bit for
+bit: it rounds each product before subtracting it, as the plain version
+does).  The plain version itself never dispatches, so the plain paths that
+call it stay plain on the card.  Inputs
 are made contiguous before a launch (the right-hand sides are often built
-from expanded views); that copy is a layout step, not a fallback.
+from expanded views); that copy is a layout step, not a fallback, and
+contiguous inputs are not copied.  Where one scenario's packed factor does
+not fit a block's shared memory (n > 240 in f64, n > 340 in f32) the
+wrapper hands the kernel a workspace in device memory.
 """
 from __future__ import annotations
 
@@ -24,49 +29,57 @@ import torch
 from reak_tpu_torch.ctrl.riccati_soa import _chol_solve_lanes as solve_plain
 from reak_tpu_torch.ops import _build
 
-MAX_N = 32  # csrc/chol_lanes.cu template range
+# csrc/chol_lanes.cu's kSmemMax: a block's shared memory on the H100
+SMEM_MAX = 232448
 
 # launches of each kernel entry since the counts were last set to 0
 launches = {"solve_lanes": 0, "solve_lanes_multi": 0}
+_build.count_launches(__name__)
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {
-    # G, rhs, x, n, B, stream
-    "reak_chol_solve_lanes_f32": [_VP, _VP, _VP, _CI, _CI, _VP],
-    "reak_chol_solve_lanes_f64": [_VP, _VP, _VP, _CI, _CI, _VP],
-    # G, rhs, x, n, k, B, stream
-    "reak_chol_solve_lanes_multi_f32": [_VP, _VP, _VP, _CI, _CI, _CI, _VP],
-    "reak_chol_solve_lanes_multi_f64": [_VP, _VP, _VP, _CI, _CI, _CI, _VP],
-}
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# G, rhs, x, workspace, workspace values, n, k, B, stream; K3a is k = 1
+SIGNATURES = {f"reak_chol_solve_{s}": [_VP, _VP, _VP, _VP, _LL, _CI, _CI,
+                                       _CI, _VP] for s in ("f32", "f64")}
+_ENTRY = {torch.float32: "reak_chol_solve_f32",
+          torch.float64: "reak_chol_solve_f64"}
+
+
+def workspace_values(n: int, B: int, itemsize: int) -> int:
+    """Values of the device-memory work area that the kernel needs at
+    width n (0 where a scenario's packed triangle, padded to an odd length,
+    fits a block's shared memory): that length for each of B scenarios
+    rounded up to 32, as ``csrc/chol_lanes.cu::launch`` checks."""
+    stride = (n * (n + 1) // 2) | 1
+    return 0 if stride * itemsize <= SMEM_MAX else -(-B // 32) * 32 * stride
 
 
 def _checked(G, rhs, rhs_shape):
-    """Contiguous G and rhs after checking shape, device and type."""
+    """Contiguous G and rhs after checking shape, type and device."""
     n, B = G.shape[0], G.shape[-1]
-    if G.shape != (n, n, B) or B < 1:
+    if G.shape != (n, n, B) or n < 1 or B < 1:
         raise ValueError(f"G has shape {tuple(G.shape)}: expected (n, n, B)")
-    if n > MAX_N:
-        raise ValueError(f"the Cholesky kernel takes n <= {MAX_N}, got {n}")
     if tuple(rhs.shape) != rhs_shape(n, B):
         raise ValueError(f"rhs has shape {tuple(rhs.shape)}: expected "
                          f"{rhs_shape(n, B)}")
-    if not (G.is_cuda and rhs.device == G.device):
-        raise ValueError(f"G on {G.device}, rhs on {rhs.device}: expected "
-                         "both on one CUDA device")
     if G.dtype not in (torch.float32, torch.float64) or rhs.dtype != G.dtype:
         raise TypeError(f"G {G.dtype}, rhs {rhs.dtype}: expected float32 or "
                         "float64, the same for both")
+    if not (G.is_cuda and rhs.device == G.device):
+        raise ValueError(f"G on {G.device}, rhs on {rhs.device}: expected "
+                         "both on one CUDA device")
     return G.contiguous(), rhs.contiguous()
 
 
-def _launch(entry, G, rhs, *dims):
-    lib = _build.load("chol_lanes", SIGNATURES)
-    suffix = "f32" if G.dtype == torch.float32 else "f64"
+def _launch(entry, G, rhs, n, k, B):
+    launch = _build.function("chol_lanes", _ENTRY[G.dtype], SIGNATURES)
     x = torch.empty_like(rhs)
+    ws_values = workspace_values(n, B, G.element_size())
+    ws = (torch.empty(ws_values, dtype=G.dtype, device=G.device)
+          if ws_values else None)
     p = _build.ptr
-    rc = getattr(lib, f"reak_chol_{entry}_{suffix}")(
-        p(G), p(rhs), p(x), *dims, _build.stream_ptr(G.device))
-    _build.check(lib, rc, f"chol_lanes {entry} kernel")
+    rc = launch(p(G), p(rhs), p(x), None if ws is None else p(ws), ws_values,
+                n, k, B, _build.stream_ptr(G.device))
+    _build.check("chol_lanes", rc, f"chol_lanes {entry} kernel")
     launches[entry] += 1
     return x
 
@@ -77,7 +90,7 @@ def solve_lanes(G, rhs):
         return solve_plain(G, rhs[:, None])[:, 0]
     G, rhs = _checked(G, rhs, lambda n, B: (n, B))
     n, B = rhs.shape
-    return _launch("solve_lanes", G, rhs, n, B)
+    return _launch("solve_lanes", G, rhs, n, 1, B)
 
 
 def solve_lanes_multi(G, rhs):

@@ -33,6 +33,7 @@ from reak_tpu_torch.ops.kte_step import (check_inputs, chain_table,
 
 # launches of the kernel since the count was last set to 0
 launches = 0
+_build.count_launches(__name__)
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # {kind: argtypes}.  core: x, u, table, nj, nv, qdd, dqdd, minv, B, shared
@@ -59,15 +60,15 @@ def make_core_lanes(spec: ChainSpec):
             tables[x.dtype] = chain_table(spec, "cpu", x.dtype)
         new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
         qdd, dqdd, minv = new(nv, B), new(nv, n, B), new(nv, nv, B)
-        lib = _build.load(library(widths, x.dtype),
-                          signatures(widths, x.dtype, SIGNATURES))
-        launch = getattr(lib, entry_point("core", widths, x.dtype))
+        name = library(widths, x.dtype)
+        launch = _build.function(name, entry_point("core", widths, x.dtype),
+                                 signatures(widths, x.dtype, SIGNATURES))
         p = _build.ptr
         rc = launch(p(x), p(u), p(tables[x.dtype]), nj, nv, p(qdd), p(dqdd),
                     p(minv), B,
                     launch_shape(nj, nv, x.dtype, core=True).shared_bytes,
                     _build.stream_ptr(x.device))
-        _build.check(lib, rc, "kte_core kernel")
+        _build.check(name, rc, "kte_core kernel")
         launches += 1
         return qdd, dqdd, minv
 

@@ -50,6 +50,7 @@ SLOTS = 21  # csrc/kte_step.cu: the values a joint leaves for the directions
 
 # launches of the kernel since the count was last set to 0
 launches = 0
+_build.count_launches(__name__)
 
 
 def type_suffix(dtype) -> str:
@@ -180,15 +181,15 @@ def make_step_lanes(spec: ChainSpec, dt: float, order: int = 4):
             tables[x.dtype] = chain_table(spec, "cpu", x.dtype)
         new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
         Ad, Bd, cd, xn = new(n, n, B), new(n, nv, B), new(n, B), new(n, B)
-        lib = _build.load(library(widths, x.dtype),
-                          signatures(widths, x.dtype))
-        launch = getattr(lib, entry_point("step", widths, x.dtype))
+        name = library(widths, x.dtype)
+        launch = _build.function(name, entry_point("step", widths, x.dtype),
+                                 signatures(widths, x.dtype))
         p = _build.ptr
         rc = launch(p(x), p(u), p(tables[x.dtype]), nj, nv, float(dt), order,
                     p(Ad), p(Bd), p(cd), p(xn), B,
                     launch_shape(nj, nv, x.dtype).shared_bytes,
                     _build.stream_ptr(x.device))
-        _build.check(lib, rc, "kte_step kernel")
+        _build.check(name, rc, "kte_step kernel")
         launches += 1
         return Ad, Bd, cd, xn
 
@@ -198,9 +199,10 @@ def make_step_lanes(spec: ChainSpec, dt: float, order: int = 4):
 def occupancy(widths, dtype, core: bool = False) -> int:
     """Blocks of the instance an SM of the current card holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib = _build.load(library(widths, dtype), signatures(widths, dtype))
+    name = library(widths, dtype)
     blocks = ctypes.c_int(0)
-    rc = getattr(lib, entry_point("occupancy", widths, dtype))(
-        int(core), ctypes.byref(blocks))
-    _build.check(lib, rc, "kte_step occupancy")
+    rc = _build.function(name, entry_point("occupancy", widths, dtype),
+                         signatures(widths, dtype))(int(core),
+                                                    ctypes.byref(blocks))
+    _build.check(name, rc, "kte_step occupancy")
     return blocks.value

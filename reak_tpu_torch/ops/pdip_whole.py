@@ -34,6 +34,7 @@ from reak_tpu_torch.ops._tile import (INSTANCES, instance_for, tile_config,
 
 # launches of the kernel since the count was last set to 0
 launches = 0
+_build.count_launches(__name__)
 
 
 def scratch_values(H: int, n: int, m: int) -> int:
@@ -117,14 +118,14 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
         scratch = torch.empty(scratch_values(H, n, m) * tile.padded_batch(B),
                               dtype=dtype, device=device)
         name = library(tile.bound, dtype)
-        lib = _build.load(name, LIBRARIES[name])
-        launch = getattr(lib, entry_point(tile.bound, dtype))
+        launch = _build.function(name, entry_point(tile.bound, dtype),
+                                 LIBRARIES[name])
         p = lambda t: None if t is None else _build.ptr(t)
         rc = launch(p(A), p(Bm), p(c), p(refs[0]), p(refs[1]), p(x0), p(Q),
                     p(QN), p(R), p(lb), p(ub), p(u), p(xs), p(scratch),
                     scratch.numel(), H, n, m, B, iters, tile.shared_bytes,
                     _build.stream_ptr(device))
-        _build.check(lib, rc, "pdip_whole kernel")
+        _build.check(name, rc, "pdip_whole kernel")
         launches += 1
         return u, xs
 

@@ -48,6 +48,7 @@ from reak_tpu_torch.ops._tile import INSTANCES, tile_config, type_suffix
 
 # launches of each kernel entry since the counts were last set to 0
 launches = {"fused_backward": 0, "vector_backward": 0, "forward": 0}
+_build.count_launches(__name__)
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGS = {
@@ -102,11 +103,11 @@ def _launch(entry, named, outs, H, n, m):
     tile = tile_config(n, m, dtype, what="the per-pass kernels")
     B = first.shape[-1]
     name = library(tile.bound, dtype)
-    lib = _build.load(name, LIBRARIES[name])
-    rc = getattr(lib, entry_point(entry, tile.bound, dtype))(
-        *(_build.ptr(t) for t in ins + list(outs)), H, n, m, B,
-        tile.shared_bytes, _build.stream_ptr(device))
-    _build.check(lib, rc, f"riccati_bwd {entry} kernel")
+    launch = _build.function(name, entry_point(entry, tile.bound, dtype),
+                             LIBRARIES[name])
+    rc = launch(*(_build.ptr(t) for t in ins + list(outs)), H, n, m, B,
+                tile.shared_bytes, _build.stream_ptr(device))
+    _build.check(name, rc, f"riccati_bwd {entry} kernel")
     launches[entry] += 1
 
 
