@@ -31,9 +31,20 @@ flagship arm at B=1, 77, 1001, on ``planar_2link`` and on a mixed chain of
 8 links (FIXED and PRISMATIC joints, offset quaternions, springs, dampers,
 full inertia tensors; phase ``kte_chains``).  Phase ``wide_widths`` takes
 the widest instances at f64: K1/K5 on a 16-segment flexible beam (16
-joints), K2 and K4a-c at (32, 16) and at a padded width under it, K3a/K3b
+joints), K2 and K4a-c at (32, 16) and at a padded width under it (and
+at (32, 16) in f32 against twice the plain f32 error), K3a/K3b
 at n = 17 and 32 (and timed at 32, 48 and 64), and one ``make_kte_mpc``
 solve of the beam against the plain f64 solve of the CPU child.  Phase
+``past_the_caps`` takes the runtime-width instances: K1/K5 on 17- and
+24-segment beams, K2 and K4a-c at (33, 17), (48, 24) and on the tile's
+device-memory branch ((62, 31) in f64, the mirror's first width in f32;
+every case but the f64 device branch also in f32), each timed beside its bound, and one ``make_kte_mpc`` solve of the
+24-segment beam against the plain f64 solve on the card.  Phase
+``batch_first`` drives the second branch of ``make_kte_mpc``
+(``qp_layout="vmap"``, with ``rollout="lanes"``, and ``rollout="register"``;
+the batch-first PDIP's Schur solves on K3a/K3b, exact launch counts) at
+B=8192 against the K1 + K2 route, and the batch-first route against the C++
+oracle.  Phase
 ``k3_vs_plain`` holds K3a/K3b at the main paths' shapes and at n = 17, 32,
 33, 48, 64, 70, 241 and 341 in both types (bit for bit their plain version;
 past n = 240 in f64 and 340 in f32 on the device-memory work area).  The RK4 step of the line search and the
@@ -83,6 +94,8 @@ H_LONG = 256  # the long-horizon path: past the TPU kernel's VMEM bound
 # fastest mode is overdamped at |λ| ≈ 5.1e5 /s, and the order-4 series is
 # stable for |λ| dt ≤ 2.78
 BEAM_SEGMENTS, BEAM_B, BEAM_H, BEAM_DT = 16, 64, 8, 2e-6
+# scenarios of the second branch's f64 checks (phase batch_first)
+BF_B64 = 8192
 # NVIDIA's published peaks of one H100 SXM at 700 W: HBM3 bytes/s, and
 # float32 and float64 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
@@ -450,15 +463,17 @@ def kte_instances():
 def kernel_libraries():
     """{library: {function: argtypes}} of every kernel of the port.  K1 and
     K5 are two instances of one kernel in csrc/kte_step.cu, built once per
-    chain width and type; K2 and K4a-c are built once per (bound, type),
-    each into a library of its own."""
+    chain width and type, and once per type at run-time widths; K2 and
+    K4a-c are built once per (bound, type) and once per type at run-time
+    widths, each into a library of its own."""
     from reak_tpu_torch.ops import (chol_lanes, kte_core, kte_step,
                                     pdip_whole, riccati_bwd)
 
-    kte = {kte_step.library(w, dt): {
-        **kte_step.signatures(w, dt),
-        **kte_step.signatures(w, dt, kte_core.SIGNATURES)}
-        for _, w, dt in kte_instances()}
+    kte = {kte_step.library(w, dt): kte_step.signatures(w, dt)
+           for _, w, dt in kte_instances()}
+    # the runtime-width instance of each type (chains past 16 joints)
+    kte.update({kte_step.library(None, dt): kte_step.signatures(None, dt)
+                for dt in (torch.float32, torch.float64)})
     return {**kte, "chol_lanes": chol_lanes.SIGNATURES,
             **pdip_whole.LIBRARIES, **riccati_bwd.LIBRARIES}
 
@@ -559,8 +574,18 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
                    for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E",
                              "IfLi0E", "IdLi0E")})
+    # the runtime-width tile of each type
+    for t, suffix in (("f", "f32"), ("d", "f64")):
+        wanted[f"pdip_whole<any,{suffix}>"] = (
+            _build.instance_library("pdip_whole", None, suffix),
+            f"pdip_whole_any_kernelI{t}E")
+        for e in riccati_bwd.launches:
+            wanted[f"riccati_bwd.{e}<any,{suffix}>"] = (
+                _build.instance_library("riccati_bwd", None, suffix),
+                f"{e}_any_kernelI{t}E")
     # K1 and K5 per chain width (joints x dofs) and type, with the blocks
-    # of each that an SM holds
+    # of each that an SM holds; the runtime-width instance of each type,
+    # its blocks an SM at a 17-joint chain's launch shape
     occupancy = {}
     for _, w, dt in kte_instances():
         t = "f" if dt == f32 else "d"
@@ -569,6 +594,15 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             wanted[k] = (kte_step.library(w, dt),
                          f"kte_step_kernelI{t}Li{w[0]}ELi{w[1]}ELb{i}E")
             occupancy[k] = kte_step.occupancy(w, dt, core=bool(i))
+    for dt in (f32, f64):
+        t = "f" if dt == f32 else "d"
+        for i, key in enumerate(("kte_step", "kte_core")):
+            k = f"{key}<{t},any>"
+            wanted[k] = (kte_step.library(None, dt),
+                         f"kte_step_rt_kernelI{t}Lb{i}E")
+            occupancy[k + "@17x17"] = kte_step.occupancy(
+                None, dt, core=bool(i),
+                threads=kte_step.launch_shape(17, 17, dt).threads)
     ptxas = {}
     for key, (name, fragment) in wanted.items():
         lines = _build.ptxas_report(name).splitlines()
@@ -837,6 +871,9 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                                ("solve_lanes_multi", 6, 1, B),
                                ("solve_lanes_multi", 12, 36, FA_B),
                                ("solve_lanes_multi", 6, 18, 1024),
+                               # lqr_backward's G⁻¹F on the batch-first
+                               # routes (phase batch_first)
+                               ("solve_lanes_multi", 6, 12, B),
                                ("solve", 12, 1, FA_B)] + k3_wide \
             + k3_workspace:
         G_np, r_np = spd(n, batch), rng.standard_normal((n, k, batch))
@@ -1086,6 +1123,46 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                                              for g, w in zip(got, want)])
         return out
 
+    def f32_passes(p, label):
+        """K2 (u and xs) and K4a-c on the float32 copy of ``synthetic``'s
+        f64 problem ``p``, each output against the plain f64 result and
+        held to twice the plain float32 path's error against it (K4b and
+        K4c on the plain f64 pass's K and G, rounded)."""
+        q = {k: v.float() for k, v in p.items()}
+        K_, G_ = riccati_soa.fused_backward_plain(*[
+            p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN",
+                           "R")])[1:3]
+
+        def args(d, K, G):
+            return {"k2": [d[k] for k in ("A", "Bm", "c", "Q", "QN", "R",
+                                          "x0", "lb", "ub")],
+                    "fused_backward": [d[k] for k in ("A", "Bm", "q",
+                                                      "u_eff", "D", "Q",
+                                                      "QN", "R")],
+                    "vector_backward": [d["A"], d["Bm"], d["rhs"], K, G],
+                    "forward": [d["A"], d["Bm"], K, d["k"], d["dx0"]]}
+
+        a64, a32 = args(p, K_, G_), args(q, K_.float(), G_.float())
+        kern = {"k2": lambda *a: riccati_soa.solve_box_mpc_riccati_soa_fused(
+                    *a, iters=ITERS, use_kernels="whole"),
+                **{e: getattr(riccati_bwd, e) for e in plain_pass}}
+        plain = {"k2": lambda *a: riccati_soa._fused_scan(*a, iters=ITERS),
+                 **plain_pass}
+        out = {}
+        for key in kern:
+            ref, got, pl = (plain[key](*a64[key]), kern[key](*a32[key]),
+                            plain[key](*a32[key]))
+            ref, got, pl = (((ref,), (got,), (pl,)) if torch.is_tensor(ref)
+                            else (ref, got, pl))
+            out[f"{key}_f32_abs"] = [abs_err(a, r) for a, r in zip(got, ref)]
+            out[f"{key}_plain_f32_abs"] = [abs_err(a, r)
+                                           for a, r in zip(pl, ref)]
+            for i, (e, ep) in enumerate(zip(out[f"{key}_f32_abs"],
+                                            out[f"{key}_plain_f32_abs"])):
+                check(e <= 2.0 * ep, f"{key} {label} f32 output {i} above "
+                      "twice the plain f32 error")
+        return out
+
     edge = {"phase": "ragged_and_padded", "dtype": "float64", "H": 12,
             "cases": {}}
     def tile_case(n_, m_, batch, keys):
@@ -1204,6 +1281,137 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     check(active > 0, "no active box constraint on the oracle instance")
     check(kte_step.launches > before[0] and pdip_whole.launches > before[1],
           "the oracle solve did not go through both kernels")
+
+    # ---- the second branch of make_kte_mpc: batch first and register -----
+    # The JAX package's cross-check routes, each at the flagship width
+    # (f32, B = 8192 timed by phase; f64 at B = BF_B64 held to the K1 + K2
+    # route at the JAX package's layout bars, atol 1e-8, rtol 1e-6); the
+    # rollouts' steps are replayed from CUDA graphs (kte/soa.py,
+    # kte/lanes.make_rollout_ltv_batchfirst; one eager step is timed beside
+    # them), so each solver's first call, which captures, is timed apart
+    # from its warm one:
+    #   vmap        qp_layout="vmap": the register rollout, then the
+    #               batch-first PDIP (ctrl/riccati.py);
+    #   vmap_lanes  qp_layout="vmap", rollout="lanes": the batch-first
+    #               lanes rollout, then the batch-first PDIP;
+    #   register    rollout="register": the register rollout, then the
+    #               unfused lanes PDIP (ctrl/riccati_soa.py).
+    # Launches a solve, from the code: the batch-first PDIP makes one
+    # chol_solve_auto a stage in lqr_backward (K3b, n right-hand sides) and
+    # one in each of the two lqr_solve_rhs (K3a) per iteration, so K3b =
+    # ITERS·H and K3a = 2·ITERS·H; the unfused lanes PDIP makes one
+    # solve_lanes_multi a stage in lqr_backward_soa and in each of the two
+    # vector passes (riccati_soa.py:331-386), so K3b = 3·ITERS·H, K3a = 0.
+    # No route launches K1, K5, K2 or K4.
+    from reak_tpu_torch.ctrl import riccati
+    from reak_tpu_torch.kte import soa
+
+    bf = {"phase": "batch_first", "B": B, "H": H, "iters": ITERS,
+          "f64_B": BF_B64, "routes": {}}
+    routes = {"vmap": dict(qp_layout="vmap"),
+              "vmap_lanes": dict(qp_layout="vmap", rollout="lanes"),
+              "register": dict(rollout="register")}
+    want_k3 = {"vmap": (2 * ITERS * H, ITERS * H),
+               "vmap_lanes": (2 * ITERS * H, ITERS * H),
+               "register": (0, 3 * ITERS * H)}
+    prob64 = flagship_problem(mpc, dev, f64)
+    x0_bf = on(x0_np[:BF_B64], f64)
+    u0_bf = torch.zeros(BF_B64, H, M, dtype=f64, device=dev)
+    us_ref, xs_ref = mpc.make_kte_mpc(spec, prob64, DT, qp_iters=ITERS)(
+        x0_bf, u0_bf)
+    # the K1 rollout's LTV, batch first, that the other rollouts are held to
+    ltv_k1 = [torch.movedim(a, -1, 0) for a in
+              lanes.make_rollout_ltv_fullfused(spec, DT, H)(x0_bf, u0_bf)]
+    ltv_of = {"register": soa.make_rollout_ltv_soa(spec, DT, H),
+              "batchfirst": lanes.make_rollout_ltv_batchfirst(spec, DT, H)}
+    bf["ltv_f64_rel_vs_k1"] = {}
+    for key, roll in ltv_of.items():
+        got = roll(x0_bf, u0_bf)
+        bf["ltv_f64_rel_vs_k1"][key] = [rel_err(a, r)
+                                        for a, r in zip(got, ltv_k1)]
+        for i, e in enumerate(bf["ltv_f64_rel_vs_k1"][key]):
+            check(e <= 1e-7, f"the {key} LTV output {i} against K1's")
+    del ltv_k1, got
+
+    def close(a, b):
+        """max of |a − b| − (atol + rtol |b|): ≤ 0 passes the JAX package's
+        layout bars."""
+        return float(((a - b).abs() - (1e-8 + 1e-6 * b.abs())).max())
+
+    # x0_32, u0_32 and prob32: the flagship's f32 inputs of phase 5
+    eager_step_ms = {}
+    for name, kw in routes.items():
+        res = {}
+        solve64 = mpc.make_kte_mpc(spec, prob64, DT, qp_iters=ITERS, **kw)
+        reset_counts()
+        us64, xs64 = solve64(x0_bf, u0_bf)
+        torch.cuda.synchronize()
+        res["launches_f64"] = counts()
+        res["u_f64_vs_k1_k2"] = close(us64, us_ref)
+        res["xs_f64_vs_k1_k2"] = close(xs64, xs_ref)
+        check(res["u_f64_vs_k1_k2"] <= 0 and res["xs_f64_vs_k1_k2"] <= 0,
+              f"route {name}: f64 controls or states beyond atol 1e-8, "
+              "rtol 1e-6 of the K1 + K2 route")
+        # the first f32 call captures the rollout's step (a CUDA graph per
+        # solver, shape and type); the warm one is the route's run
+        solve32 = mpc.make_kte_mpc(spec, prob32, DT, qp_iters=ITERS, **kw)
+        _, res["first_call_ms"] = timed(lambda: solve32(x0_32, u0_32))
+        reset_counts()
+        (us32, xs32), res["solve_ms"] = timed(lambda: solve32(x0_32, u0_32))
+        main_runs[f"batch_first.{name}"] = res["launches"] = counts()
+        res["u_f32_max_abs_vs_f64"] = abs_err(us32[:BF_B64], us64)
+        check(res["u_f32_max_abs_vs_f64"] <= 1e-3,
+              f"route {name}: f32 controls more than 1e-3 from its f64 solve")
+        check(bool(torch.isfinite(us32).all())
+              and bool(torch.isfinite(xs32).all()),
+              f"route {name}: f32 outputs are not finite")
+        for runs in (res["launches"], res["launches_f64"]):
+            got_k3 = (runs["chol_lanes.solve_lanes"],
+                      runs["chol_lanes.solve_lanes_multi"])
+            check(got_k3 == want_k3[name], f"route {name}: K3a/K3b launches "
+                  f"{got_k3}, expected {want_k3[name]}")
+            check(all(v == 0 for k, v in runs.items()
+                      if not k.startswith("chol_lanes")),
+                  f"route {name} launched K1, K5, K2 or K4: {runs}")
+        # the two phases apart, composed from the same public functions
+        # (the rollout warm: its f32 step captured at its first call)
+        roll = (ltv_of["batchfirst"] if kw.get("rollout") == "lanes"
+                else ltv_of["register"])
+        roll(x0_32, u0_32)
+        (A_, B_, c_, _), res["rollout_ms"] = timed(lambda: roll(x0_32,
+                                                                u0_32))
+        if kw.get("qp_layout") == "vmap":
+            pdip_bf = lambda: riccati.solve_box_mpc_riccati(
+                A_, B_, c_, prob32.Q, prob32.QN, prob32.R, x0_32,
+                prob32.u_min, prob32.u_max, iters=ITERS)
+        else:
+            pdip_bf = lambda: riccati_soa.solve_box_mpc_riccati_soa(
+                torch.movedim(A_, 0, -1), torch.movedim(B_, 0, -1),
+                torch.movedim(c_, 0, -1), prob32.Q, prob32.QN, prob32.R,
+                x0_32.T, prob32.u_min, prob32.u_max, iters=ITERS)
+        _, res["pdip_ms"] = timed(pdip_bf)
+        # one step of the rollout run eagerly (the function its CUDA graph
+        # replays), after a first call; once a rollout
+        if roll not in eager_step_ms:
+            xs_, us_ = x0_32.T.contiguous(), u0_32[:, 0].T.contiguous()
+            roll.step.eager(xs_, us_)
+            _, eager_step_ms[roll] = timed(lambda: roll.step.eager(xs_, us_))
+        res["eager_step_ms"] = eager_step_ms[roll]
+        bf["routes"][name] = res
+        del us64, xs64, us32, xs32, A_, B_, c_
+    # the batch-first route against the independent C++ oracle on phase 6's
+    # instance (H = 8, ±1, 30 iterations), f64
+    A_o, B_o, c_o, _ = lanes.make_rollout_ltv_batchfirst(spec, DT, Ho)(
+        on(x0o[None], f64), torch.zeros(1, Ho, M, dtype=f64, device=dev))
+    u_bfo, _ = riccati.solve_box_mpc_riccati(
+        A_o, B_o, c_o, probo.Q, probo.QN, probo.R, on(x0o[None], f64),
+        probo.u_min, probo.u_max, iters=30)
+    bf["oracle_max_abs_u"] = float(np.abs(u_bfo[0].cpu().numpy()
+                                          - u_cpp).max())
+    emit(bf)
+    check(bf["oracle_max_abs_u"] <= 1e-4,
+          f"batch-first route vs the C++ oracle {bf['oracle_max_abs_u']:.2e}")
+    del us_ref, xs_ref, x0_bf, u0_bf
 
     # ---- the satellite scenario MPC (bench.py:223-263) -------------------
     params, prob_sat32, xr_sat32 = sat_config(mpc, ss_systems, dev, f32)
@@ -1410,6 +1618,13 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     check(wide["tile"]["n=32,m=16,B=1001"]["exact_instance"]
           and not wide["tile"]["n=26,m=13,B=77"]["exact_instance"],
           "the (32, 16) cases did not run the exact and the padded instance")
+    # the widest compile-time instance in float32 (its sums in float32;
+    # the runtime tile's accumulate in float64), H = 4 as past the caps
+    tile32 = _tile.tile_config(32, 16, f32)
+    check(tile32.bound == (32, 16) and tile32.exact,
+          "(32, 16) f32 is not the exact compile-time instance")
+    wide["tile"]["n=32,m=16,B=77,H=4,f32"] = f32_passes(
+        synthetic(32, 16, 77, horizon=4), (32, 16))
     for n in (17, 32):
         G_np, r_np = spd(n, 1001), rng.standard_normal((n, 5, 1001))
         g, r = on(G_np, f64), on(r_np, f64)
@@ -1516,6 +1731,174 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     check(wide["beam_solve"]["active_bounds"] > 0,
           "no active bound in the beam solve")
     del us_bm, xs_bm, x0_bm, u0_bm
+
+    # ---- past the compile-time widths: the runtime-width instances -------
+    # K1/K5 on 17- and 24-segment beams (their runtime-width instance, its
+    # work in device memory), B = 77; K2 and K4a-c at (33, 17) and (48, 24)
+    # (the runtime tile, its rows in shared memory), H = 4, B = 77; the
+    # tile's device-memory branch at the smallest width that reaches it by
+    # the mirror (ops/_tile.tile_config: (62, 31) in f64, (88, 44) in f32 at
+    # m = n/2), B = 33; each at f64 within 1e-9 relative of its plain
+    # version, one f32 case each within twice the plain f32 error; each
+    # case timed per launch beside its f64 bound.  Then one make_kte_mpc
+    # solve of the 24-segment beam (B = 64, H = 8, f64; its fastest mode
+    # has |λ| ≈ 2.6e6 /s, so dt = 4e-7 gives |λ| dt ≈ 1.04, inside the
+    # order-4 series' 2.78) through K1's and K2's runtime instances against
+    # the plain f64 solve on the card.
+    ptc = {"phase": "past_the_caps", "dtype": "float64", "k1_k5": {},
+           "tile": {}}
+
+    def per_launch(fn, args, plain, batch, reps=3):
+        """ms per launch by CUDA events beside the f64 bound of the call;
+        the plain version's operations are counted on the card (at these
+        widths a count on the host takes tens of seconds)."""
+        outs = fn(*args)
+        outs = (outs,) if torch.is_tensor(outs) else outs
+        first = lambda nb: tuple(
+            t[..., :nb].contiguous() if t.dim() > 1 and t.shape[-1] == batch
+            else t for t in args)
+        bound_ms, bound_by = bound(
+            nbytes(*args, *outs), batch * ops_per_scenario(plain, first),
+            PEAK_F64_S)
+        return {"ms": cuda_ms(lambda: fn(*args), reps=reps),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for segs in (17, 24):
+        chain = models.flexible_beam(segs)
+        nvc = chain.nv
+        xb_np = np.concatenate([rng.uniform(-0.05, 0.05, (nvc, 77)),
+                                rng.uniform(-0.5, 0.5, (nvc, 77))])
+        ub_np = rng.uniform(-5.0, 5.0, (nvc, 77))
+        case = {"shape": dict(vars(kte_step.launch_shape(nvc, nvc, f64)))}
+        for dt in (f64, f32):
+            k1 = kte_step.make_step_lanes(chain, BEAM_DT)
+            k5 = kte_core.make_core_lanes(chain)
+            p1 = kte_step.make_step_plain(chain, BEAM_DT)
+            p5 = kte_core.make_core_plain(chain)
+            xc, uc = on(xb_np, dt), on(ub_np, dt)
+            before = (kte_step.launches, kte_core.launches)
+            got1, got5 = k1(xc, uc), k5(xc, uc)
+            torch.cuda.synchronize()
+            check((kte_step.launches, kte_core.launches)
+                  == (before[0] + 1, before[1] + 1),
+                  f"{chain.name} {dt} did not launch K1 and K5")
+            x64, u64 = on(xb_np, f64), on(ub_np, f64)
+            want1, want5 = p1(x64, u64), p5(x64, u64)
+            if dt == f64:
+                case["k1_f64_rel"] = [rel_err(a, r)
+                                      for a, r in zip(got1, want1)]
+                case["k5_f64_rel"] = [rel_err(a, r)
+                                      for a, r in zip(got5, want5)]
+                for key in ("k1_f64_rel", "k5_f64_rel"):
+                    for i, e in enumerate(case[key]):
+                        check(e <= 1e-9, f"{key} {chain.name} output {i}")
+                k1_max_abs = max([k1_max_abs] + [
+                    abs_err(a, r) for a, r in zip(got1, want1)])
+                k5_max_abs = max([k5_max_abs] + [
+                    abs_err(a, r) for a, r in zip(got5, want5)])
+                case["k1_per_launch"] = per_launch(k1, (xc, uc), p1, 77)
+                case["k5_per_launch"] = per_launch(k5, (xc, uc), p5, 77)
+            else:
+                q1, q5 = p1(xc, uc), p5(xc, uc)
+                for key, got, plain32, want in (("k1", got1, q1, want1),
+                                                ("k5", got5, q5, want5)):
+                    case[f"{key}_f32_abs"] = [abs_err(a, r)
+                                              for a, r in zip(got, want)]
+                    case[f"{key}_plain_f32_abs"] = [
+                        abs_err(a, r) for a, r in zip(plain32, want)]
+                    for i, (e, ep) in enumerate(zip(
+                            case[f"{key}_f32_abs"],
+                            case[f"{key}_plain_f32_abs"])):
+                        check(e <= 2.0 * ep, f"{key} {chain.name} f32 "
+                              f"output {i} above twice the plain f32 error")
+        ptc["k1_k5"][chain.name] = case
+    del xc, uc, got1, got5, want1, want5
+
+    def wide_tile_case(n_, m_, batch, f32_too):
+        """K2 and K4a-c of the runtime tile at (n_, m_), H = 4, against their
+        plain versions at f64 (K4 leaving its inputs as they were), and at
+        f32 against twice the plain f32 error; timed per launch at f64."""
+        nonlocal k2_max_abs, k4_max_abs
+        p = synthetic(n_, m_, batch, horizon=4)
+        tile = _tile.tile_config(n_, m_, f64)
+        check(tile.runtime, f"{n_, m_} is not past the compile-time bounds")
+        case = {"branch": tile.branch, "tile_scenarios": tile.scenarios,
+                "threads": tile.threads, "shared_bytes": tile.shared_bytes,
+                "work_values_per_block": tile.block_values}
+        k2a = [p[k] for k in ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb",
+                              "ub")]
+        whole = lambda *a: riccati_soa.solve_box_mpc_riccati_soa_fused(
+            *a, iters=ITERS, use_kernels="whole")
+        plain_k2 = lambda *a: riccati_soa._fused_scan(*a, iters=ITERS)
+        before = pdip_whole.launches
+        u_k, x_k = whole(*k2a)
+        u_p, x_p = plain_k2(*k2a)
+        torch.cuda.synchronize()
+        check(pdip_whole.launches == before + 1, f"{n_, m_} did not launch K2")
+        case["k2_f64_rel"] = {"u": rel_err(u_k, u_p), "xs": rel_err(x_k, x_p)}
+        for o, e in case["k2_f64_rel"].items():
+            check(e <= 1e-9, f"K2 {n_, m_} f64 {o}")
+        k2_max_abs = max(k2_max_abs, abs_err(u_k, u_p), abs_err(x_k, x_p))
+        case.update(edge_passes(p))
+        case["k2_per_launch"] = per_launch(whole, k2a, plain_k2, batch, 2)
+        pa = [p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R")]
+        K_, G_ = riccati_soa.fused_backward_plain(*pa)[1:3]
+        for e, a in (("fused_backward", pa),
+                     ("vector_backward", [p["A"], p["Bm"], p["rhs"], K_,
+                                          G_]),
+                     ("forward", [p["A"], p["Bm"], K_, p["k"], p["dx0"]])):
+            case[f"{e}_per_launch"] = per_launch(getattr(riccati_bwd, e), a,
+                                                 plain_pass[e], batch)
+        if f32_too:
+            case.update(f32_passes(p, (n_, m_)))
+        return case
+
+    for n_, m_, batch in ((33, 17, 77), (48, 24, 77), (62, 31, 33)):
+        ptc["tile"][f"n={n_},m={m_},B={batch}"] = wide_tile_case(
+            n_, m_, batch, f32_too=(n_, m_) != (62, 31))
+    check(ptc["tile"]["n=62,m=31,B=33"]["branch"] == "device"
+          and ptc["tile"]["n=48,m=24,B=77"]["branch"] == "shared",
+          "the tile cases did not take both branches of the runtime tile")
+    # the f32 device-memory branch, where the mirror puts its first width
+    f32_dev = next((2 * m_, m_) for m_ in range(16, 256)
+                   if _tile.tile_config(2 * m_, m_, f32).branch == "device")
+    ptc["tile"][f"n={f32_dev[0]},m={f32_dev[1]},B=33,f32"] = {
+        "branch": _tile.tile_config(*f32_dev, f32).branch,
+        **f32_passes(synthetic(*f32_dev, 33, horizon=4), f32_dev)}
+    # the 24-segment beam through make_kte_mpc: K1 and K2 at run-time widths
+    beam24 = models.flexible_beam(24)
+    nv24, dt24 = beam24.nv, 4e-7
+    prob24 = beam_config(mpc, beam24, dev, f64)
+    x0_24 = on(np.concatenate([rng.uniform(-0.05, 0.05, (BEAM_B, nv24)),
+                               rng.uniform(-0.5, 0.5, (BEAM_B, nv24))],
+                              axis=1), f64)
+    u0_24 = torch.zeros(BEAM_B, BEAM_H, nv24, dtype=f64, device=dev)
+    reset_counts()
+    (us24, xs24), t24 = timed(lambda: mpc.make_kte_mpc(
+        beam24, prob24, dt24, qp_iters=ITERS)(x0_24, u0_24))
+    main_runs["beam24"] = counts()
+    A24, B24, c24, _ = lanes.make_rollout_ltv_lanes(beam24, dt24, BEAM_H)(
+        x0_24, u0_24)
+    ul24, xl24 = riccati_soa.solve_box_mpc_riccati_soa_fused(
+        A24, B24, c24, prob24.Q, prob24.QN, prob24.R, x0_24.T.contiguous(),
+        prob24.u_min, prob24.u_max, iters=ITERS, use_kernels="never")
+    ptc["beam24_solve"] = {
+        "segments": 24, "n": 2 * nv24, "m": nv24, "B": BEAM_B, "H": BEAM_H,
+        "dt": dt24, "iters": ITERS, "ms": t24,
+        "launches": main_runs["beam24"],
+        "u_rel_vs_plain_f64": rel_err(us24, ul24.permute(2, 0, 1)),
+        "xs_rel_vs_plain_f64": rel_err(xs24, xl24.permute(2, 0, 1)),
+        "active_bounds": int((us24.abs() > 30.0 - 1e-6).sum())}
+    emit(ptc)
+    check(main_runs["beam24"]["kte_step"] == BEAM_H
+          and main_runs["beam24"]["pdip_whole"] == 1,
+          f"the 24-segment solve did not run on K1 and K2: "
+          f"{main_runs['beam24']}")
+    check(bool(torch.isfinite(us24).all()) and bool(torch.isfinite(xs24).all()),
+          "24-segment beam outputs are not finite")
+    for key in ("u_rel_vs_plain_f64", "xs_rel_vs_plain_f64"):
+        check(ptc["beam24_solve"][key] <= 1e-9, f"24-segment beam {key}")
+    del us24, xs24, x0_24, u0_24, A24, B24, c24, ul24, xl24
 
     # ---- the flagship chain at H=256 on K5 and K4a-c ---------------------
     # bench.py:139-149's phase split, composed from the public functions, at

@@ -11,11 +11,15 @@ takes its plain torch version on CPU tensors.
 
 Ported so far: the flagship batched KTE-MPC solve,
 ``reak_tpu_torch.ctrl.mpc.make_kte_mpc`` on fixed-base chains (one or
-several SQP passes), the free-base scenario MPC
+several SQP passes, and the JAX package's cross-check routes
+``qp_layout="vmap"`` and ``rollout="register"`` on ``ctrl.riccati``,
+``kte.soa`` and ``math.linalg``), the free-base scenario MPC
 (``reak_tpu_torch.ctrl.manifold_lanes``), and the long-horizon chain on the
 rollout core and the per-pass PDIP (``kte.lanes.make_rollout_ltv_fused``,
 ``ctrl.riccati_soa.solve_box_mpc_riccati_soa_fused(use_kernels="passes")``);
-every Pallas kernel of the JAX package has its CUDA counterpart.
+every Pallas kernel of the JAX package has its CUDA counterpart, and on
+CUDA tensors they take every width the JAX package takes (past their
+compile-time instances on runtime-width ones).
 
 Importing the package changes no global torch state and needs neither CUDA
 nor a compiler; the kernels are built at their first launch.

@@ -11,8 +11,9 @@
 // M⁻¹, and the order-`order` exponential-series discretization
 //   S = Σ dt^k A^{k-1}/k!,  Ad = I + A S,  Bd = S B,  x_new = x + S f0,
 //   cd = x_new − Ad x − Bd u.
-// Every fixed-base chain of at most 16 joints: REVOLUTE, PRISMATIC and FIXED
-// joints, offsets, springs, dampers, full inertia tensors.
+// Every fixed-base chain: REVOLUTE, PRISMATIC and FIXED joints, offsets,
+// springs, dampers, full inertia tensors; up to 16 joints at compile-time
+// widths, past that on one runtime-width instance a type (at the end).
 //
 // What bounds it on the H100: registers and latency (fewer registers a
 // thread spill more, more cost warps: both measured slower), likely also
@@ -85,13 +86,16 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "hyperdual.cuh"
 
 namespace reak {
 namespace {
 
-constexpr int MAXJ = 16;  // joints (= bodies) a chain, at most
+// joints (= bodies) of the widest compile-time instance; a wider chain runs
+// the runtime-width instance (REAK_RUNTIME, below)
+constexpr int UNROLLED_JOINTS = 16;
 // threads a block, at most: 65,536 registers an SM / 384 = 170 a thread
 constexpr int STEP_THREADS = 384;
 // chain table: J_STRIDE values per joint, then gravity (3)
@@ -141,9 +145,9 @@ struct Chain {
 };
 
 // ---- vector and quaternion helpers over a number type N (Dual or HD) ------
-// a × b
-template <typename N>
-__device__ inline void cross_nn(const N a[3], const N b[3], N out[3]) {
+// a × b (a and b arrays, or rows of the runtime instance's work area)
+template <class A3, class B3, typename N>
+__device__ inline void cross_nn(const A3& a, const B3& b, N out[3]) {
   N x = a[1] * b[2] - a[2] * b[1];
   N y = a[2] * b[0] - a[0] * b[2];
   N z = a[0] * b[1] - a[1] * b[0];
@@ -164,8 +168,8 @@ __device__ inline void cross_nc(const N a[3], const T b[3], N out[3]) {
 }
 
 // rotate a constant v by q: v + w t + qv × t with t = 2 qv × v
-template <typename N, typename T>
-__device__ inline void qrot_nc(const N q[4], const T v[3], N out[3]) {
+template <typename N, typename T, class O3>
+__device__ inline void qrot_nc(const N q[4], const T v[3], O3&& out) {
   const N qv[3] = {q[1], q[2], q[3]};
   N t[3], u[3];
   cross_nc(qv, v, t);
@@ -177,8 +181,8 @@ __device__ inline void qrot_nc(const N q[4], const T v[3], N out[3]) {
 }
 
 // rotate v by q⁻¹
-template <typename N, typename T>
-__device__ inline void qrot_inv_nn(const N q[4], const N v[3], N out[3]) {
+template <typename N, typename T, class V3>
+__device__ inline void qrot_inv_nn(const N q[4], const V3& v, N out[3]) {
   const N qv[3] = {-q[1], -q[2], -q[3]};
   N t[3], u[3];
   cross_nn(qv, v, t);
@@ -213,20 +217,22 @@ __device__ inline void qmul_axis(const N q[4], const T a[3], N out[4]) {
 
 // ---- anchors: where the primal phase leaves the value and inner tangent of
 // a chain quantity (slot-major rows of TS scenarios) and each direction
-// takes them back -----------------------------------------------------------
+// takes them back; TS = 0: the runtime-width instance's `ts` ----------------
 template <typename T, int TS>
 struct KeepPrimal {  // the primal phase, in Dual numbers
   T* sm;
   int s;
+  int ts = TS;
+  __device__ int row(int r) const { return r * (TS > 0 ? TS : ts) + s; }
   __device__ void at(const Dual<T>& x, int slot) const {
-    sm[(2 * slot) * TS + s] = x.v;
-    sm[(2 * slot + 1) * TS + s] = x.t;
+    sm[row(2 * slot)] = x.v;
+    sm[row(2 * slot + 1)] = x.t;
   }
   __device__ void sincos(const Dual<T>& a, Dual<T>& sn, Dual<T>& cs,
                          int slot) const {
     sincos_own(a, &sn, &cs);
-    sm[(2 * slot) * TS + s] = sn.v;
-    sm[(2 * slot + 1) * TS + s] = cs.v;
+    sm[row(2 * slot)] = sn.v;
+    sm[row(2 * slot + 1)] = cs.v;
   }
 };
 
@@ -234,8 +240,10 @@ template <typename T, int TS>
 struct TakePrimal {  // a direction, in HD or HDq numbers
   const T* sm;
   int s;
-  __device__ T v(int slot) const { return sm[(2 * slot) * TS + s]; }
-  __device__ T e(int slot) const { return sm[(2 * slot + 1) * TS + s]; }
+  int ts = TS;
+  __device__ int row(int r) const { return r * (TS > 0 ? TS : ts) + s; }
+  __device__ T v(int slot) const { return sm[row(2 * slot)]; }
+  __device__ T e(int slot) const { return sm[row(2 * slot + 1)]; }
   template <class N>
   __device__ void at(N& x, int slot) const {
     x.v = v(slot);
@@ -286,11 +294,14 @@ struct AlongQd {  // the velocity direction of joint jd: q̇_jd moves
 
 // One joint of the forward kinematics: its offset, the joint itself and its
 // body's COM.  p, Q: the frame carried down the chain; anc, axg: the joint's
-// anchor and world axis; com: the body's COM.
-template <typename N, typename T, int NJ, class A>
-__device__ inline void fk_joint(const Chain<T, NJ>& ch, int i, const N& qi,
-                                N p[3], N Q[4], N anc[3], N axg[3], N com[3],
+// anchor and world axis (arrays, or rows of the runtime instance's work
+// area); com: the body's COM.  `ch` is the chain table: a Chain by value,
+// or a ChainRows in device memory (the runtime-width instance).
+template <typename N, class C, class A, class R3>
+__device__ inline void fk_joint(const C& ch, int i, const N& qi, N p[3],
+                                N Q[4], R3&& anc, R3&& axg, N com[3],
                                 const A& an) {
+  using T = std::remove_cv_t<std::remove_reference_t<decltype(ch.c[0])>>;
   const T* c = ch.c + i * J_STRIDE;
   const int sl = i * SLOTS;
   if (c[J_OFFP] != T(0) || c[J_OFFP + 1] != T(0) || c[J_OFFP + 2] != T(0)) {
@@ -348,19 +359,103 @@ __device__ inline void fk_joint(const Chain<T, NJ>& ch, int i, const N& qi,
   for (int k = 0; k < 3; ++k) an.at(com[k], sl + S_COM + k);
 }
 
+// ---- a direction's arrays ---------------------------------------------------
+// At compile-time widths a thread runs one direction and its arrays are
+// registers (Regs1, Regs2; once the loops unroll, every index is a
+// constant).  The runtime-width instance keeps them in its work area
+// (Slot, SlotRows, SlotUpper): element e of a (direction, scenario) slot's
+// array lies `stride` values after element e − 1.
+template <typename X, int N>
+struct Regs1 {
+  X v[N];
+  __device__ X& operator[](int i) { return v[i]; }
+};
+
+template <typename X, int N, int M>
+struct Regs2 {
+  X v[N][M];
+  Regs2() = default;
+  template <class W>
+  __device__ Regs2(const W&, int) {}  // fresh registers
+  __device__ auto operator[](int i) -> X (&)[M] { return v[i]; }
+};
+
+template <typename X>
+struct Slot {
+  X* base;
+  int stride;
+  __device__ X& operator[](int e) const {
+    return base[static_cast<long long>(e) * stride];
+  }
+};
+
+// rows of `width` elements, each read as X from its storage S (an HDq number
+// in an HD slot)
+template <typename X, typename S = X>
+struct SlotRows {
+  S* base;
+  int width, stride;
+  struct Row {
+    S* p;
+    int stride;
+    __device__ X& operator[](int c) const {
+      return *reinterpret_cast<X*>(p + static_cast<long long>(c) * stride);
+    }
+  };
+  __device__ SlotRows(S* base_, int width_, int stride_)
+      : base(base_), width(width_), stride(stride_) {}
+  // a per-joint array of three of the slot's work (W::rows3)
+  template <class W>
+  __device__ SlotRows(const W& w, int which)
+      : base(w.template rows3<S>(which)), width(3), stride(w.slots) {}
+  __device__ Row operator[](int k) const {
+    return {base + static_cast<long long>(k) * width * stride, stride};
+  }
+};
+
+// M above its diagonal, packed by rows: [k][l] for k <= l
+template <typename X>
+struct SlotUpper {
+  X* base;
+  int stride, nj;
+  __device__ Slot<X> operator[](int k) const {
+    return {base + static_cast<long long>(k * nj - k * (k + 1) / 2) * stride,
+            stride};
+  }
+};
+
+// One direction's arrays at compile-time widths: M (above its diagonal)
+// and f in Dual numbers, the factor of the primal M and q̈ (direction 0),
+// the solves' vectors and the series' three.  Joints3<X>: a per-joint
+// array of three, fresh for each run of the kinematics (the anchors and
+// world axes, the Jacobian columns).
+template <typename T, int NJ, int N>
+struct DirRegs {
+  template <typename X>
+  using Joints3 = Regs2<X, NJ, 3>;
+  Regs2<Dual<T>, NJ, NJ> M;
+  Regs1<Dual<T>, NJ> f;
+  Regs2<T, NJ, NJ> L;
+  Regs1<T, NJ> qdd, rhs, y, col;
+  Regs1<T, N> Scol, term, tmp;
+};
+
 // (M, f) of the chain and their outer tangents along the direction `dir`,
 // the kinematics fused with the body loop: body i joins M and f as soon as
 // its frame is known.  M is kept above its diagonal.  Every value and inner
 // tangent of the chain is an anchor taken back from the primal phase, so
 // what the run computes of them is dead code: a direction carries the outer
-// parts.
-template <typename T, int NJ, class Dir, class A>
-__device__ inline void terms(const Chain<T, NJ>& ch, const int jt[NJ],
-                             const T xq[NJ], const T xqd[NJ], const Dir& dir,
-                             const A& an, Dual<T> M[NJ][NJ], Dual<T> f[NJ]) {
+// parts.  jt, xq, xqd: each joint's type, q and q̇ (0 for a FIXED joint).
+template <typename T, class W, class Ch, class Jt, class Xs, class Dir,
+          class A>
+__device__ inline void terms(const Ch& ch, int NJ, const Jt& jt, const Xs& xq,
+                             const Xs& xqd, const Dir& dir, const A& an,
+                             W& dw) {
   using N = typename Dir::N;
   using V = typename Dir::V;
   using D = Dual<T>;
+  auto& M = dw.M;
+  auto& f = dw.f;
 #pragma unroll
   for (int k = 0; k < NJ; ++k) {
     f[k] = D(T(0));
@@ -370,7 +465,7 @@ __device__ inline void terms(const Chain<T, NJ>& ch, const int jt[NJ],
   const T* grav = ch.c + NJ * J_STRIDE;
   N p[3] = {N(T(0)), N(T(0)), N(T(0))};
   N Q[4] = {N(T(1)), N(T(0)), N(T(0)), N(T(0))};
-  N anc[NJ][3], axg[NJ][3];
+  typename W::template Joints3<N> anc(dw, 0), axg(dw, 1);
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
     const N qi = jt[i] != FIXED ? dir.coord(i, xq[i], xqd[i])
@@ -380,7 +475,7 @@ __device__ inline void terms(const Chain<T, NJ>& ch, const int jt[NJ],
 
     // body i: its Jacobian columns (Jv world, Jw body frame) over the joints
     // up to i, its velocity and the J̇q̇ bias in the inner tangent
-    D jv[NJ][3], jw[NJ][3];
+    typename W::template Joints3<D> jv(dw, 0), jw(dw, 1);
     V v[3] = {V(T(0)), V(T(0)), V(T(0))}, w[3] = {V(T(0)), V(T(0)), V(T(0))};
 #pragma unroll
     for (int k = 0; k <= i; ++k) {
@@ -486,19 +581,42 @@ __device__ inline void terms(const Chain<T, NJ>& ch, const int jt[NJ],
   }
 }
 
-// The factor of the primal M and q̈ = M⁻¹(f + u), once per scenario, into
-// shared memory: L below the diagonal (row i·NJ + j), 1/diag at row NJ·NJ + i,
-// q̈ in joint order at NJ·NJ + NJ + i and in dof order at NJ·NJ + 2NJ + dof.
-// A FIXED joint's row and column are the identity's.  K5 also stores q̈.
-template <typename T, int NJ, int TS, bool kCoreOnly>
-__device__ inline void factor_and_solve(const Dual<T> M[NJ][NJ],
-                                        const Dual<T> f[NJ], const int jt[NJ],
-                                        const int dof[NJ], const T* u, int B,
-                                        int b, bool live, T* chol, T* qdd_out,
-                                        int s) {
-  constexpr int R_INVD = NJ * NJ, R_QDD = NJ * NJ + NJ,
-                R_QDOF = NJ * NJ + 2 * NJ;
-  T L[NJ][NJ], rhs[NJ], y[NJ], qdd[NJ];
+// The primal phase: the kinematics in Dual numbers (value and inner
+// tangent), each joint's and body's into the anchor rows through `keep`.
+template <typename T, class Ch, class Jt, class Xs, class K>
+__device__ inline void primal_phase(const Ch& ch, int NJ, const Jt& jt,
+                                    const Xs& xq, const Xs& xqd,
+                                    const K& keep) {
+  using D = Dual<T>;
+  D p[3] = {D(T(0)), D(T(0)), D(T(0))};
+  D Q[4] = {D(T(1)), D(T(0)), D(T(0)), D(T(0))};
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    D anc[3], axg[3], com[3];
+    const D qi = jt[i] == FIXED ? D(T(0)) : D(xq[i], xqd[i]);
+    fk_joint(ch, i, qi, p, Q, anc, axg, com, keep);
+  }
+}
+
+// The factor of the primal M and q̈ = M⁻¹(f + u), once per scenario (by
+// direction 0, whose run holds every body's share of the primal M and f),
+// into the scenario rows: L below the diagonal (row i·NJ + j), 1/diag at row
+// NJ·NJ + i, q̈ in joint order at NJ·NJ + NJ + i and in dof order at
+// NJ·NJ + 2NJ + dof.  A FIXED joint's row and column are the identity's.
+// K5 also stores q̈.
+template <bool kCoreOnly, typename T, class W, class Jt>
+__device__ inline void factor_and_solve(int NJ, int TS, W& dw, const Jt& jt,
+                                        const Jt& dof, const T* u, int B,
+                                        int b, bool live, T* chol,
+                                        T* qdd_out, int s) {
+  const int R_INVD = NJ * NJ, R_QDD = NJ * NJ + NJ,
+            R_QDOF = NJ * NJ + 2 * NJ;
+  auto& M = dw.M;
+  auto& f = dw.f;
+  auto& L = dw.L;
+  auto& rhs = dw.rhs;
+  auto& y = dw.y;
+  auto& qdd = dw.qdd;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     T sj = jt[j] == FIXED ? T(1) : M[j][j].v;
@@ -539,11 +657,10 @@ __device__ inline void factor_and_solve(const Dual<T> M[NJ][NJ],
   }
 }
 
-// one right-hand side through the factor in shared memory
-template <typename T, int NJ, int TS>
-__device__ inline void chol_apply_shared(const T* chol, int s,
-                                         const T rhs[NJ], T out[NJ]) {
-  T y[NJ];
+// one right-hand side through the factor in the scenario rows
+template <typename T, class R, class Y, class O>
+__device__ inline void chol_apply_shared(const T* chol, int s, int NJ, int TS,
+                                         R& rhs, Y& y, O& out) {
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
     T t = rhs[i];
@@ -560,157 +677,98 @@ __device__ inline void chol_apply_shared(const T* chol, int s,
   }
 }
 
-// kCoreOnly (K5) reuses the output pointers: Ad ← ∂q̈/∂x (nv, n, B),
-// Bd ← M⁻¹ (nv, nv, B), cd ← q̈ (nv, B); xn, dt and order are not read.
-template <typename T, int NJ, int NV, bool kCoreOnly>
-__global__ void __launch_bounds__(StepShape<T, NJ, NV, kCoreOnly>::NT,
-                                  StepShape<T, NJ, NV, kCoreOnly>::MIN_BLOCKS)
-    kte_step_kernel(const T* __restrict__ x, const T* __restrict__ u,
-                    const __grid_constant__ Chain<T, NJ> ch, double dt,
-                    int order, T* __restrict__ Ad, T* __restrict__ Bd,
-                    T* __restrict__ cd, T* __restrict__ xn, int B) {
-  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
-  using D = Dual<T>;
-  constexpr int TS = Shape::TS, N = Shape::N;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* chol = reinterpret_cast<T*>(smem_raw);
-  T* fk = chol + Shape::CHOL_ROWS * TS;
-  T* ser = fk;  // the series' rows, once the anchors are spent
-  constexpr int R_QDD = NJ * NJ + NJ, R_QDOF = NJ * NJ + 2 * NJ;
-  constexpr int R_MINV = NV * N, R_S = NV * N + NV * NV;
-  const int s = threadIdx.x;
-  const int d = threadIdx.y;  // outer tangent direction, 0..n-1
-  const int b_raw = blockIdx.x * TS + s;
-  const bool live = b_raw < B;
-  const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
-
-  // joint types and the dof of each joint (uniform); the state by joint;
-  // jd: the joint the direction moves
-  int jt[NJ], dof[NJ], jd = 0;
-  T xq[NJ], xqd[NJ];
-  {
-    int k = 0;
+// Direction d's column of ∂q̈/∂x = M⁻¹(∂f − ∂M q̈), and for d < nv a column
+// of M⁻¹, with the factor from the scenario rows: into K1's series rows, or
+// (K5) straight to device memory in the TPU kernel's layout.
+template <bool kCoreOnly, typename T, class W, class Jt>
+__device__ inline void dqdd_column(int d, int NJ, int NV, int TS, W& dw,
+                                   const Jt& jt, const Jt& dof, const T* chol,
+                                   T* ser, T* Ad, T* Bd, int B, int b,
+                                   bool live, int s) {
+  const int N = 2 * NV, R_QDD = NJ * NJ + NJ, R_MINV = NV * N;
+  auto& M = dw.M;
+  auto& f = dw.f;
+  auto& rhs = dw.rhs;
+  auto& col = dw.col;
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      jt[i] = static_cast<int>(ch.c[i * J_STRIDE + J_TYPE]);
-      dof[i] = jt[i] == FIXED ? -1 : k;
-      xq[i] = jt[i] == FIXED ? T(0) : x[k * B + b];
-      xqd[i] = jt[i] == FIXED ? T(0) : x[(NV + k) * B + b];
-      if (dof[i] == (d < NV ? d : d - NV)) jd = i;
-      k += jt[i] == FIXED ? 0 : 1;
+  for (int k = 0; k < NJ; ++k) {
+    T t = f[k].t;
+    if (d < NV) {  // M moves only along q
+#pragma unroll
+      for (int l = 0; l < NJ; ++l)
+        t -= (k <= l ? M[k][l].t : M[l][k].t) * chol[(R_QDD + l) * TS + s];
+    }
+    rhs[k] = jt[k] == FIXED ? T(0) : t;
+  }
+  chol_apply_shared(chol, s, NJ, TS, rhs, dw.y, col);
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    if (jt[k] == FIXED) continue;
+    if constexpr (kCoreOnly) {
+      if (live) Ad[(dof[k] * N + d) * B + b] = col[k];
+    } else {
+      ser[(dof[k] * N + d) * TS + s] = col[k];
     }
   }
-
-  // ---- M, f and their tangents along this direction; q̈ once a scenario --
-  D M[NJ][NJ], f[NJ];
-  // the primal phase, by the direction with the least work of its own (the
-  // last q̇): the kinematics' value and inner tangent into shared memory
-  if (d == N - 1) {
-    const KeepPrimal<T, TS> keep{fk, s};
-    D p[3] = {D(T(0)), D(T(0)), D(T(0))};
-    D Q[4] = {D(T(1)), D(T(0)), D(T(0)), D(T(0))};
+  if (d < NV) {
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      D anc[3], axg[3], com[3];
-      const D qi = jt[i] == FIXED ? D(T(0)) : D(xq[i], xqd[i]);
-      fk_joint(ch, i, qi, p, Q, anc, axg, com, keep);
-    }
-  }
-  __syncthreads();
-  const TakePrimal<T, TS> take{fk, s};
-  if (d < NV)
-    terms<T, NJ>(ch, jt, xq, xqd, AlongQ<T>{jd}, take, M, f);
-  else
-    terms<T, NJ>(ch, jt, xq, xqd, AlongQd<T>{jd}, take, M, f);
-  // direction 0 moves the first joint with a dof, so its run holds every
-  // body's share of the primal M and f: it factors M and solves for q̈
-  if (d == 0)
-    factor_and_solve<T, NJ, TS, kCoreOnly>(M, f, jt, dof, u, B, b, live, chol,
-                                           cd, s);
-  __syncthreads();
-
-  // ---- this direction's column of ∂q̈/∂x, and a column of M⁻¹ ------------
-  {
-    T rhs[NJ], col[NJ];
-#pragma unroll
-    for (int k = 0; k < NJ; ++k) {
-      T t = f[k].t;
-      if (d < NV) {  // M moves only along q
-#pragma unroll
-        for (int l = 0; l < NJ; ++l)
-          t -= (k <= l ? M[k][l].t : M[l][k].t) * chol[(R_QDD + l) * TS + s];
-      }
-      rhs[k] = jt[k] == FIXED ? T(0) : t;
-    }
-    chol_apply_shared<T, NJ, TS>(chol, s, rhs, col);
+    for (int k = 0; k < NJ; ++k) rhs[k] = T(dof[k] == d);
+    chol_apply_shared(chol, s, NJ, TS, rhs, dw.y, col);
 #pragma unroll
     for (int k = 0; k < NJ; ++k) {
       if (jt[k] == FIXED) continue;
       if constexpr (kCoreOnly) {
-        if (live) Ad[(dof[k] * N + d) * B + b] = col[k];
+        if (live) Bd[(dof[k] * NV + d) * B + b] = col[k];
       } else {
-        ser[(dof[k] * N + d) * TS + s] = col[k];
-      }
-    }
-    if (d < NV) {
-#pragma unroll
-      for (int k = 0; k < NJ; ++k) rhs[k] = T(dof[k] == d);
-      chol_apply_shared<T, NJ, TS>(chol, s, rhs, col);
-#pragma unroll
-      for (int k = 0; k < NJ; ++k) {
-        if (jt[k] == FIXED) continue;
-        if constexpr (kCoreOnly) {
-          if (live) Bd[(dof[k] * NV + d) * B + b] = col[k];
-        } else {
-          ser[(R_MINV + dof[k] * NV + d) * TS + s] = col[k];
-        }
+        ser[(R_MINV + dof[k] * NV + d) * TS + s] = col[k];
       }
     }
   }
-  if constexpr (kCoreOnly) return;  // K5 ends here, no barrier follows
-  __syncthreads();
+}
 
-  // ---- column d of S = Σ_{k=1..order} dt^k A^{k-1}/k! --------------------
-  // A = [[0, I], [∂q̈/∂x]]: (A v)_i = v_{i+nv} on top, A_lo v below
-  {
-    T Scol[N], term[N], tmp[N];
+// Column d of S = Σ_{k=1..order} dt^k A^{k-1}/k! into the series rows;
+// A = [[0, I], [∂q̈/∂x]]: (A v)_i = v_{i+nv} on top, A_lo v below.
+template <typename T, class W>
+__device__ inline void series_column(int d, int NV, int TS, W& dw, double dt,
+                                     int order, T* ser, int s) {
+  const int N = 2 * NV, R_S = NV * N + NV * NV;
+  auto& Scol = dw.Scol;
+  auto& term = dw.term;
+  auto& tmp = dw.tmp;
 #pragma unroll
-    for (int i = 0; i < N; ++i) Scol[i] = term[i] = (i == d) ? T(dt) : T(0);
-    for (int k = 2; k <= order; ++k) {
+  for (int i = 0; i < N; ++i) Scol[i] = term[i] = (i == d) ? T(dt) : T(0);
+  for (int k = 2; k <= order; ++k) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        if (i < NV) {
-          tmp[i] = term[i + NV];
-        } else {
-          T t = T(0);
+    for (int i = 0; i < N; ++i) {
+      if (i < NV) {
+        tmp[i] = term[i + NV];
+      } else {
+        T t = T(0);
 #pragma unroll
-          for (int j = 0; j < N; ++j)
-            t += ser[((i - NV) * N + j) * TS + s] * term[j];
-          tmp[i] = t;
-        }
-      }
-      const T ck = T(dt / k);
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        term[i] = ck * tmp[i];
-        Scol[i] += term[i];
+        for (int j = 0; j < N; ++j)
+          t += ser[((i - NV) * N + j) * TS + s] * term[j];
+        tmp[i] = t;
       }
     }
+    const T ck = T(dt / k);
 #pragma unroll
-    for (int i = 0; i < N; ++i) ser[(R_S + i * N + d) * TS + s] = Scol[i];
+    for (int i = 0; i < N; ++i) {
+      term[i] = ck * tmp[i];
+      Scol[i] += term[i];
+    }
   }
-  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) ser[(R_S + i * N + d) * TS + s] = Scol[i];
+}
 
-  // ---- row d of Ad = I + A S, Bd = S B, x_new = x + S f0, cd -------------
-  T xv[N], uv[NV], f0[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) xv[i] = x[i * B + b];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    uv[i] = u[i * B + b];
-    f0[i] = xv[NV + i];
-    f0[NV + i] = chol[(R_QDOF + i) * TS + s];
-  }
+// Row d of Ad = I + A S, Bd = S B, x_new = x + S f0, cd; xv, uv, f0: the
+// scenario's x, u and f0 = (q̇, q̈) by index.
+template <typename T, class Xv, class Uv, class F0>
+__device__ inline void step_row(int d, int NV, int TS, const Xv& xv,
+                                const Uv& uv, const F0& f0, const T* x,
+                                const T* ser, T* Ad, T* Bd, T* cd, T* xn,
+                                int B, int b, bool live, int s) {
+  const int N = 2 * NV, R_MINV = NV * N, R_S = NV * N + NV * NV;
   T xnew = x[d * B + b], adx = T(0), bdu = T(0);
 #pragma unroll
   for (int l = 0; l < N; ++l) xnew += ser[(R_S + d * N + l) * TS + s] * f0[l];
@@ -743,6 +801,89 @@ __global__ void __launch_bounds__(StepShape<T, NJ, NV, kCoreOnly>::NT,
     xn[d * B + b] = xnew;
     cd[d * B + b] = xnew - adx - bdu;
   }
+}
+
+// kCoreOnly (K5) reuses the output pointers: Ad ← ∂q̈/∂x (nv, n, B),
+// Bd ← M⁻¹ (nv, nv, B), cd ← q̈ (nv, B); xn, dt and order are not read.
+template <typename T, int NJ, int NV, bool kCoreOnly>
+__global__ void __launch_bounds__(StepShape<T, NJ, NV, kCoreOnly>::NT,
+                                  StepShape<T, NJ, NV, kCoreOnly>::MIN_BLOCKS)
+    kte_step_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                    const __grid_constant__ Chain<T, NJ> ch, double dt,
+                    int order, T* __restrict__ Ad, T* __restrict__ Bd,
+                    T* __restrict__ cd, T* __restrict__ xn, int B) {
+  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
+  constexpr int TS = Shape::TS, N = Shape::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* chol = reinterpret_cast<T*>(smem_raw);
+  T* fk = chol + Shape::CHOL_ROWS * TS;
+  T* ser = fk;  // the series' rows, once the anchors are spent
+  constexpr int R_QDOF = NJ * NJ + 2 * NJ;
+  const int s = threadIdx.x;
+  const int d = threadIdx.y;  // outer tangent direction, 0..n-1
+  const int b_raw = blockIdx.x * TS + s;
+  const bool live = b_raw < B;
+  const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
+
+  // joint types and the dof of each joint (uniform); the state by joint;
+  // jd: the joint the direction moves
+  int jt[NJ], dof[NJ], jd = 0;
+  T xq[NJ], xqd[NJ];
+  {
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      jt[i] = static_cast<int>(ch.c[i * J_STRIDE + J_TYPE]);
+      dof[i] = jt[i] == FIXED ? -1 : k;
+      xq[i] = jt[i] == FIXED ? T(0) : x[k * B + b];
+      xqd[i] = jt[i] == FIXED ? T(0) : x[(NV + k) * B + b];
+      if (dof[i] == (d < NV ? d : d - NV)) jd = i;
+      k += jt[i] == FIXED ? 0 : 1;
+    }
+  }
+
+  // ---- M, f and their tangents along this direction; q̈ once a scenario --
+  DirRegs<T, NJ, N> dw;
+  // the primal phase, by the direction with the least work of its own (the
+  // last q̇): the kinematics' value and inner tangent into shared memory
+  if (d == N - 1) {
+    const KeepPrimal<T, TS> keep{fk, s};
+    primal_phase<T>(ch, NJ, jt, xq, xqd, keep);
+  }
+  __syncthreads();
+  const TakePrimal<T, TS> take{fk, s};
+  if (d < NV)
+    terms<T>(ch, NJ, jt, xq, xqd, AlongQ<T>{jd}, take, dw);
+  else
+    terms<T>(ch, NJ, jt, xq, xqd, AlongQd<T>{jd}, take, dw);
+  // direction 0 moves the first joint with a dof, so its run holds every
+  // body's share of the primal M and f: it factors M and solves for q̈
+  if (d == 0)
+    factor_and_solve<kCoreOnly>(NJ, TS, dw, jt, dof, u, B, b, live, chol, cd,
+                                s);
+  __syncthreads();
+
+  // ---- this direction's column of ∂q̈/∂x, and a column of M⁻¹ ------------
+  dqdd_column<kCoreOnly>(d, NJ, NV, TS, dw, jt, dof, chol, ser, Ad, Bd, B, b,
+                         live, s);
+  if constexpr (kCoreOnly) return;  // K5 ends here, no barrier follows
+  __syncthreads();
+
+  // ---- column d of S ------------------------------------------------------
+  series_column(d, NV, TS, dw, dt, order, ser, s);
+  __syncthreads();
+
+  // ---- row d of Ad = I + A S, Bd = S B, x_new = x + S f0, cd -------------
+  T xv[N], uv[NV], f0[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) xv[i] = x[i * B + b];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    uv[i] = u[i * B + b];
+    f0[i] = xv[NV + i];
+    f0[NV + i] = chol[(R_QDOF + i) * TS + s];
+  }
+  step_row(d, NV, TS, xv, uv, f0, x, ser, Ad, Bd, cd, xn, B, b, live, s);
 }
 
 // the table as the kernel parameter: chain_table's values, in order
@@ -788,14 +929,325 @@ int occupancy(int* blocks) {
       blocks, kernel, Shape::NT, Shape::SMEM));
 }
 
+#ifdef REAK_RUNTIME
+// ---- the runtime-width instance ---------------------------------------------
+// Every fixed-base chain wider than the compile-time libraries, on the same
+// functions: the joints and dofs are arguments, every loop runs at run time
+// (no width is unrolled, so the stack stays bounded and the build takes as
+// long as one narrow instance), and what the compile-time instances keep in
+// registers and shared memory lies in a work area in device memory that the
+// wrapper allocates (ops/kte_step.py::launch_shape mirrors its size).  A
+// block's area holds its scenarios' rows (the shared rows of the
+// compile-time instances: the factor of M, q̈, then the anchors or the
+// series; TS values a row) and each (direction, scenario) slot's own
+// arrays (DirWork): M above its diagonal and f in Dual numbers, the joints'
+// anchors and world axes in hyper-dual numbers, the bodies' Jacobian
+// columns in Dual numbers and the right-hand side, solution and series
+// vectors; the factor and q̈ are read from the scenario rows.  Blocks walk
+// the batch a tile at a time (the grid is capped, so the work area does not
+// grow with B), and a thread takes every dy-th direction where TS × n would
+// pass the block's threads.
+
+// a chain table in device memory, read as the compile-time instances read
+// theirs by value
+template <typename T>
+struct ChainRows {
+  const T* c;
+};
+
+// each joint's type (col 0) or dof (col 1, −1 for a FIXED joint)
+struct JointCol {
+  const int* jinfo;
+  int col;
+  __device__ int operator[](int i) const { return jinfo[2 * i + col]; }
+};
+
+// each joint's q (off = 0) or q̇ (off = nv) of scenario b, 0 where FIXED
+template <typename T>
+struct JointX {
+  const T* x;
+  const int* jinfo;
+  int off, B, b;
+  __device__ T operator[](int i) const {
+    return jinfo[2 * i] == FIXED ? T(0) : x[(off + jinfo[2 * i + 1]) * B + b];
+  }
+};
+
+// row i of a (rows, B) array at scenario b
+template <typename T>
+struct ScenarioRows {
+  const T* p;
+  int B, b;
+  __device__ T operator[](int i) const { return p[i * B + b]; }
+};
+
+// f0 = (q̇, q̈) of scenario b: q̇ from x, q̈ from the scenario rows
+template <typename T>
+struct F0Rows {
+  const T* x;
+  const T* qdof;  // the q̈-by-dof rows at this thread's scenario
+  int NV, B, b, TS;
+  __device__ T operator[](int l) const {
+    return l < NV ? x[(NV + l) * B + b] : qdof[(l - NV) * TS];
+  }
+};
+
+// The runtime launch shape (ops/kte_step.py::launch_shape mirrors it).
+struct RtShape {
+  int nj, nv, n;      // joints, dofs, directions
+  int ts, dy;         // scenarios a tile; direction threads a scenario
+  int chol_rows, rows;  // a scenario's rows: the factor, then all of them
+  long long dir_values;  // a (direction, scenario) slot's values
+  long long block_values;  // a block's work area: rows·TS + slots
+};
+
+// blocks a runtime launch takes at most: two an SM of an H100; blocks past
+// the batch's tiles are not launched
+constexpr int RT_GRID = 264;
+
+inline RtShape rt_shape(int nj, int nv, int size, bool core) {
+  RtShape r;
+  r.nj = nj;
+  r.nv = nv;
+  r.n = 2 * nv;
+  r.ts = size == 4 ? 32 : 16;
+  while (r.ts > 1 && r.ts * r.n > STEP_THREADS) r.ts /= 2;
+  r.dy = r.n < STEP_THREADS / r.ts ? r.n : STEP_THREADS / r.ts;
+  r.chol_rows = nj * nj + 2 * nj + nv;
+  const int fk = 2 * SLOTS * nj;
+  const int series = core ? 0 : nv * r.n + nv * nv + r.n * r.n;
+  r.rows = r.chol_rows + (fk > series ? fk : series);
+  // M (nj (nj + 1) / 2) and f (nj) in Dual numbers, the anchors and axes
+  // (3 nj each) in HD, the Jacobian columns (3 nj each) in Dual, the rhs, y
+  // and column vectors (nj each) and the series' three (n each)
+  r.dir_values = static_cast<long long>(nj) * (nj + 1) + 2 * nj + 24 * nj +
+                 12 * nj + 3 * nj + 3 * r.n;
+  r.block_values = static_cast<long long>(r.rows) * r.ts +
+                   r.dir_values * r.n * r.ts;
+  return r;
+}
+
+// One (direction, scenario) slot's arrays in the work area, the slots of a
+// block side by side (`slots` apart), so a warp's threads touch neighbouring
+// addresses; the factor and q̈ are the scenario rows'.
+template <typename T>
+struct DirWork {
+  template <typename X>
+  using Joints3 =
+      SlotRows<X, std::conditional_t<std::is_same_v<X, Dual<T>>, Dual<T>,
+                                     HD<T>>>;
+  SlotUpper<Dual<T>> M;
+  Slot<Dual<T>> f;
+  SlotRows<T> L;
+  Slot<T> qdd, rhs, y, col, Scol, term, tmp;
+  HD<T>*anc, *axg;  // an HDq direction uses the first 3/4 of each
+  Dual<T>*jv, *jw;
+  int slots;
+  // the slot `slot` of a block's `slots` at `p`; chol: the scenario rows at
+  // this thread's scenario
+  __device__ DirWork(T* p, int slot, int slots_, int nj, int n, T* chol,
+                     int ts)
+      : L(chol, nj, ts), slots(slots_) {
+    auto dual = [&](int count) {
+      Dual<T>* a = reinterpret_cast<Dual<T>*>(p) + slot;
+      p += 2LL * count * slots;
+      return a;
+    };
+    auto hd = [&](int count) {
+      HD<T>* a = reinterpret_cast<HD<T>*>(p) + slot;
+      p += 4LL * count * slots;
+      return a;
+    };
+    auto vec = [&](int count) {
+      Slot<T> a{p + slot, slots};
+      p += static_cast<long long>(count) * slots;
+      return a;
+    };
+    M = {dual(nj * (nj + 1) / 2), slots, nj};
+    f = {dual(nj), slots};
+    anc = hd(3 * nj);
+    axg = hd(3 * nj);
+    jv = dual(3 * nj);
+    jw = dual(3 * nj);
+    rhs = vec(nj);
+    y = vec(nj);
+    col = vec(nj);
+    Scol = vec(n);
+    term = vec(n);
+    tmp = vec(n);
+    qdd = {chol + (nj * nj + nj) * ts, ts};
+  }
+  // the anchors and world axes (HD storage) or the Jacobian columns
+  template <typename S>
+  __device__ S* rows3(int which) const {
+    if constexpr (std::is_same_v<S, HD<T>>)
+      return which == 0 ? anc : axg;
+    else
+      return which == 0 ? jv : jw;
+  }
+};
+
+// kte_step_kernel at run-time widths; jinfo: each joint's type and dof
+template <typename T, bool kCoreOnly>
+__global__ void __launch_bounds__(STEP_THREADS)
+    kte_step_rt_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                       const T* __restrict__ table,
+                       const int* __restrict__ jinfo, RtShape sh, double dt,
+                       int order, T* __restrict__ Ad, T* __restrict__ Bd,
+                       T* __restrict__ cd, T* __restrict__ xn, int B,
+                       T* __restrict__ work) {
+  const int TS = sh.ts, N = sh.n, NV = sh.nv, NJ = sh.nj;
+  const ChainRows<T> ch{table};
+  const int R_QDOF = NJ * NJ + 2 * NJ;
+  const int s = threadIdx.x;
+  T* const chol = work + blockIdx.x * sh.block_values;
+  T* const fk = chol + sh.chol_rows * TS;
+  T* const ser = fk;  // the series' rows, once the anchors are spent
+  T* const dirs = chol + static_cast<long long>(sh.rows) * TS;
+  const JointCol jt{jinfo, 0}, dof{jinfo, 1};
+  auto slot_of = [&](int d) {
+    return DirWork<T>(dirs, d * TS + s, N * TS, NJ, N, chol + s, TS);
+  };
+  auto jd_of = [&](int d) {  // the joint a direction moves
+    const int want = d < NV ? d : d - NV;
+    int jd = 0;
+    for (int i = 0; i < NJ; ++i)
+      if (jt[i] != FIXED && dof[i] == want) jd = i;
+    return jd;
+  };
+  const int tiles = (B + TS - 1) / TS;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b_raw = tile * TS + s;
+    const bool live = b_raw < B;
+    const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
+    const JointX<T> xq{x, jinfo, 0, B, b}, xqd{x, jinfo, NV, B, b};
+
+    // the primal phase, by the thread of the last direction
+    if (threadIdx.y == (N - 1) % sh.dy) {
+      const KeepPrimal<T, 0> keep{fk, s, TS};
+      primal_phase<T>(ch, NJ, jt, xq, xqd, keep);
+    }
+    __syncthreads();
+    const TakePrimal<T, 0> take{fk, s, TS};
+    for (int d = threadIdx.y; d < N; d += sh.dy) {
+      DirWork<T> dw = slot_of(d);
+      if (d < NV)
+        terms<T>(ch, NJ, jt, xq, xqd, AlongQ<T>{jd_of(d)}, take, dw);
+      else
+        terms<T>(ch, NJ, jt, xq, xqd, AlongQd<T>{jd_of(d)}, take, dw);
+    }
+    if (threadIdx.y == 0) {
+      DirWork<T> dw = slot_of(0);
+      factor_and_solve<kCoreOnly>(NJ, TS, dw, jt, dof, u, B, b, live, chol,
+                                  cd, s);
+    }
+    __syncthreads();
+
+    // ---- each direction's column of ∂q̈/∂x, and a column of M⁻¹ ----------
+    for (int d = threadIdx.y; d < N; d += sh.dy) {
+      DirWork<T> dw = slot_of(d);
+      dqdd_column<kCoreOnly>(d, NJ, NV, TS, dw, jt, dof, chol, ser, Ad, Bd,
+                             B, b, live, s);
+    }
+    __syncthreads();
+    if constexpr (kCoreOnly) continue;  // K5 ends its tile here
+
+    // ---- column d of S ----------------------------------------------------
+    for (int d = threadIdx.y; d < N; d += sh.dy) {
+      DirWork<T> dw = slot_of(d);
+      series_column(d, NV, TS, dw, dt, order, ser, s);
+    }
+    __syncthreads();
+
+    // ---- row d of Ad = I + A S, Bd = S B, x_new = x + S f0, cd -----------
+    const ScenarioRows<T> xv{x, B, b}, uv{u, B, b};
+    const F0Rows<T> f0{x, chol + R_QDOF * TS + s, NV, B, b, TS};
+    for (int d = threadIdx.y; d < N; d += sh.dy)
+      step_row(d, NV, TS, xv, uv, f0, x, ser, Ad, Bd, cd, xn, B, b, live, s);
+    __syncthreads();  // the next tile's primal phase reuses the rows
+  }
+}
+
+// The runtime launch: the wrapper's shape, grid and work area must be what
+// rt_shape computes (ops/kte_step.py::launch_shape).
+template <typename T, bool kCoreOnly>
+int launch_rt(const void* x, const void* u, const void* table,
+              const void* jinfo, int nj, int nv, double dt, int order,
+              void* Ad, void* Bd, void* cd, void* xn, int B, int ts, int grid,
+              void* work, long long work_values, void* stream) {
+  if (nj < 1 || nv < 1 || nv > nj || order < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RtShape sh = rt_shape(nj, nv, int(sizeof(T)), kCoreOnly);
+  const int tiles = (B + sh.ts - 1) / sh.ts;
+  const int want_grid = tiles < RT_GRID ? tiles : RT_GRID;
+  if (ts != sh.ts || grid != want_grid ||
+      work_values != sh.block_values * grid)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 block(sh.ts, sh.dy);
+  kte_step_rt_kernel<T, kCoreOnly>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(u),
+          static_cast<const T*>(table), static_cast<const int*>(jinfo), sh,
+          dt, order, static_cast<T*>(Ad), static_cast<T*>(Bd),
+          static_cast<T*>(cd), static_cast<T*>(xn), B, static_cast<T*>(work));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kCoreOnly>
+int occupancy_rt(int threads, int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kte_step_rt_kernel<T, kCoreOnly>, threads, 0));
+}
+#endif  // REAK_RUNTIME
+
 }  // namespace
 }  // namespace reak
 
+#if defined(REAK_RUNTIME) && defined(REAK_TYPE) && defined(REAK_SUFFIX)
+
+extern "C" {
+
+// The runtime-width entry points of this library's type (the library
+// kte_step@any_<type>): reak_kte_step_any_<type> (K1),
+// reak_kte_core_any_<type> (K5) and reak_kte_occupancy_any_<type>.
+#define REAK_KTE_ANY_ENTRY(T, SUFFIX)                                        \
+  int reak_kte_step_any_##SUFFIX(                                            \
+      const void* x, const void* u, const void* table, const void* jinfo,    \
+      int nj, int nv, double dt, int order, void* Ad, void* Bd, void* cd,    \
+      void* xn, int B, int ts, int grid, void* work, long long work_values,  \
+      void* stream) {                                                        \
+    return reak::launch_rt<T, false>(x, u, table, jinfo, nj, nv, dt, order,  \
+                                     Ad, Bd, cd, xn, B, ts, grid, work,      \
+                                     work_values, stream);                   \
+  }                                                                          \
+  int reak_kte_core_any_##SUFFIX(                                            \
+      const void* x, const void* u, const void* table, const void* jinfo,    \
+      int nj, int nv, void* qdd, void* dqdd, void* minv, int B, int ts,      \
+      int grid, void* work, long long work_values, void* stream) {           \
+    return reak::launch_rt<T, true>(x, u, table, jinfo, nj, nv, 0.0, 1,      \
+                                    dqdd, minv, qdd, nullptr, B, ts, grid,   \
+                                    work, work_values, stream);              \
+  }                                                                          \
+  int reak_kte_occupancy_any_##SUFFIX(int core, int threads, int* blocks) {  \
+    return core ? reak::occupancy_rt<T, true>(threads, blocks)               \
+                : reak::occupancy_rt<T, false>(threads, blocks);             \
+  }
+#define REAK_KTE_ANY_ENTRY_OF(T, SUFFIX) REAK_KTE_ANY_ENTRY(T, SUFFIX)
+
+REAK_KTE_ANY_ENTRY_OF(REAK_TYPE, REAK_SUFFIX)
+
+const char* reak_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
+
+#else
 #if !defined(REAK_NMAX) || !defined(REAK_MMAX) || !defined(REAK_TYPE) || \
     !defined(REAK_SUFFIX)
 #error "one chain width and type a library: -DREAK_NMAX (joints) -DREAK_MMAX (dofs) -DREAK_TYPE -DREAK_SUFFIX (ops/_build.py)"
 #endif
-static_assert(REAK_NMAX >= 1 && REAK_NMAX <= reak::MAXJ && REAK_MMAX >= 1 &&
+static_assert(REAK_NMAX >= 1 && REAK_NMAX <= reak::UNROLLED_JOINTS && REAK_MMAX >= 1 &&
                   REAK_MMAX <= REAK_NMAX,
               "a fixed-base chain of 1..16 joints and 1..joints dofs");
 
@@ -834,3 +1286,5 @@ const char* reak_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // REAK_RUNTIME

@@ -38,7 +38,8 @@
 // runs its forward pass from dx0.  Instances: (12, 6) for the fixed-base
 // arms and the satellite, (24, 12) for the floating arm's tangent, (32, 16)
 // for a 16-segment beam, and padded (16, 8), (24, 12) and (32, 16) ones for
-// every other width.  Any B >= 1 is taken (the TPU's B % 512 is a tile
+// every other width within (32, 16); past it, one runtime-width instance a
+// type (REAK_RUNTIME), the same code on the tile's runtime policy.  Any B >= 1 is taken (the TPU's B % 512 is a tile
 // rule).
 #include <cuda_runtime.h>
 
@@ -86,18 +87,19 @@ __global__ void REAK_TILE_BOUNDS fused_backward_kernel(
     int n_, int m_, int B_, int vec16_) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   using TL = Tile<T, NB, MB, EXACT>;
+  const TL wd{};
   const int n = EXACT ? NB : n_, m = EXACT ? MB : m_;
   const long long B = B_;
   const bool vec16 = vec16_ != 0;
   const TileThread th = tile_thread<TL>();
-  const TileSmem<TL, T> sm(tile_smem);
-  tile_setup<TL>(sm, Q, QN, R, n, m, th);
+  const TileSmem<T> sm(wd, reinterpret_cast<T*>(tile_smem));
+  tile_setup(wd, sm, Q, QN, R, n, m, th);
   const TileLtv<T> ltv{{A_, n, n, B, B, vec16}, {Bm_, n, m, B, B, vec16}};
   FusedBackwardIo<T> io{{q_, n, 1, B, B, vec16},    {u_, m, 1, B, B, vec16},
                         {D_, m, 1, B, B, vec16},    {grad_, m, 1, B, B, vec16},
                         {K_, m, n, B, B, vec16},    {G_, m, m, B, B, vec16},
                         {k_, m, 1, B, B, vec16},    th};
-  reverse_pass<TL>(sm, io, ltv, H, th);
+  reverse_pass(wd, sm, io, ltv, H, th);
 }
 
 template <typename T, int NB, int MB, bool EXACT>
@@ -106,17 +108,18 @@ __global__ void REAK_TILE_BOUNDS vector_backward_kernel(
     int H, int n_, int m_, int B_, int vec16_) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   using TL = Tile<T, NB, MB, EXACT>;
+  const TL wd{};
   const int n = EXACT ? NB : n_, m = EXACT ? MB : m_;
   const long long B = B_;
   const bool vec16 = vec16_ != 0;
   const TileThread th = tile_thread<TL>();
-  const TileSmem<TL, T> sm(tile_smem);
-  tile_clear_stages<TL>(sm, th);
+  const TileSmem<T> sm(wd, reinterpret_cast<T*>(tile_smem));
+  tile_clear_stages(wd, sm, th);
   const TileLtv<T> ltv{{A_, n, n, B, B, vec16}, {Bm_, n, m, B, B, vec16}};
   const TileArr<const T> rhs{rhs_, m, 1, B, B, vec16},
       K{K_, m, n, B, B, vec16}, G{G_, m, m, B, B, vec16};
   const TileArr<T> k{k_, m, 1, B, B, vec16};
-  vector_pass<TL, true>(sm, ltv, K, G, rhs, k, H, th);
+  vector_pass<TL, true>(wd, sm, ltv, K, G, rhs, k, H, th);
 }
 
 template <typename T, int NB, int MB, bool EXACT>
@@ -127,17 +130,18 @@ __global__ void REAK_TILE_BOUNDS forward_kernel(const T* A_, const T* Bm_,
                                                 int vec16_) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   using TL = Tile<T, NB, MB, EXACT>;
+  const TL wd{};
   const int n = EXACT ? NB : n_, m = EXACT ? MB : m_;
   const long long B = B_;
   const bool vec16 = vec16_ != 0;
   const TileThread th = tile_thread<TL>();
-  const TileSmem<TL, T> sm(tile_smem);
-  tile_clear_stages<TL>(sm, th);
+  const TileSmem<T> sm(wd, reinterpret_cast<T*>(tile_smem));
+  tile_clear_stages(wd, sm, th);
   const TileLtv<T> ltv{{A_, n, n, B, B, vec16}, {Bm_, n, m, B, B, vec16}};
   const TileArr<const T> K{K_, m, n, B, B, vec16}, k{k_, m, 1, B, B, vec16},
       dx0{dx0_, n, 1, B, B, vec16};
   const TileArr<T> du{du_, m, 1, B, B, vec16}, dx{dx_, n, 1, B, B, vec16};
-  forward_pass<TL>(sm, ltv, K, k, du, &dx0, &dx, H, th);
+  forward_pass(wd, sm, ltv, K, k, du, &dx0, &dx, H, th);
 }
 
 // Launch one pass's kernel on the instance TL, a block a tile of scenarios;
@@ -196,6 +200,126 @@ struct Passes {
   }
 };
 
+#ifdef REAK_RUNTIME
+// The three passes at run-time widths (riccati_tile.cuh's runtime policy),
+// the grid walking the batch a tile at a time; `area` is the device-memory
+// work area.
+template <typename T>
+__global__ void __launch_bounds__(ANY_THREADS) fused_backward_any_kernel(
+    const T* A_, const T* Bm_, const T* q_, const T* u_, const T* D_,
+    const T* Q, const T* QN, const T* R, T* grad_, T* K_, T* G_, T* k_, int H,
+    int B_, AnyTile tl, T* area) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const AnyBlock<T> blk(tl, area);
+  const AnyWidths<T> wd = blk.widths(threadIdx.x % tl.ts);
+  const TileSmem<T> sm(wd, blk.rows(tile_smem));
+  const int n = tl.n, m = tl.m, tiles = (B_ + tl.ts - 1) / tl.ts;
+  const long long B = B_;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const TileThread th = any_thread(tl, tile);
+    __syncthreads();  // the tile before has left the rows
+    tile_setup(wd, sm, Q, QN, R, n, m, th);
+    const TileLtv<T> ltv{{A_, n, n, B, B, false}, {Bm_, n, m, B, B, false}};
+    FusedBackwardIo<T> io{{q_, n, 1, B, B, false},    {u_, m, 1, B, B, false},
+                          {D_, m, 1, B, B, false},    {grad_, m, 1, B, B, false},
+                          {K_, m, n, B, B, false},    {G_, m, m, B, B, false},
+                          {k_, m, 1, B, B, false},    th};
+    reverse_pass(wd, sm, io, ltv, H, th);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANY_THREADS) vector_backward_any_kernel(
+    const T* A_, const T* Bm_, const T* rhs_, const T* K_, const T* G_, T* k_,
+    int H, int B_, AnyTile tl, T* area) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const AnyBlock<T> blk(tl, area);
+  const AnyWidths<T> wd = blk.widths(threadIdx.x % tl.ts);
+  const TileSmem<T> sm(wd, blk.rows(tile_smem));
+  const int n = tl.n, m = tl.m, tiles = (B_ + tl.ts - 1) / tl.ts;
+  const long long B = B_;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const TileThread th = any_thread(tl, tile);
+    __syncthreads();  // the tile before has left the rows
+    tile_clear_stages(wd, sm, th);
+    const TileLtv<T> ltv{{A_, n, n, B, B, false}, {Bm_, n, m, B, B, false}};
+    const TileArr<const T> rhs{rhs_, m, 1, B, B, false},
+        K{K_, m, n, B, B, false}, G{G_, m, m, B, B, false};
+    const TileArr<T> k{k_, m, 1, B, B, false};
+    vector_pass<AnyWidths<T>, true>(wd, sm, ltv, K, G, rhs, k, H, th);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANY_THREADS) forward_any_kernel(
+    const T* A_, const T* Bm_, const T* K_, const T* k_, const T* dx0_,
+    T* du_, T* dx_, int H, int B_, AnyTile tl, T* area) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const AnyBlock<T> blk(tl, area);
+  const AnyWidths<T> wd = blk.widths(threadIdx.x % tl.ts);
+  const TileSmem<T> sm(wd, blk.rows(tile_smem));
+  const int n = tl.n, m = tl.m, tiles = (B_ + tl.ts - 1) / tl.ts;
+  const long long B = B_;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const TileThread th = any_thread(tl, tile);
+    __syncthreads();  // the tile before has left the rows
+    tile_clear_stages(wd, sm, th);
+    const TileLtv<T> ltv{{A_, n, n, B, B, false}, {Bm_, n, m, B, B, false}};
+    const TileArr<const T> K{K_, m, n, B, B, false}, k{k_, m, 1, B, B, false},
+        dx0{dx0_, n, 1, B, B, false};
+    const TileArr<T> du{du_, m, 1, B, B, false}, dx{dx_, n, 1, B, B, false};
+    forward_pass(wd, sm, ltv, K, k, du, &dx0, &dx, H, th);
+  }
+}
+
+// The three passes of the runtime-width instance.
+template <typename T>
+struct AnyPasses {
+  static int fused_backward(const void* A, const void* Bm, const void* q,
+                            const void* u, const void* D, const void* Q,
+                            const void* QN, const void* R, void* grad,
+                            void* K, void* G, void* k, int H, int n, int m,
+                            int B, int ts, int grid, void* work,
+                            long long work_count, int smem_bytes,
+                            void* stream) {
+    const AnyTile tl = any_tile(n, m, int(sizeof(T)));
+    return any_launch(
+        fused_backward_any_kernel<T>, tl, B, ts, grid, work_count, smem_bytes,
+        stream, static_cast<const T*>(A), static_cast<const T*>(Bm),
+        static_cast<const T*>(q), static_cast<const T*>(u),
+        static_cast<const T*>(D), static_cast<const T*>(Q),
+        static_cast<const T*>(QN), static_cast<const T*>(R),
+        static_cast<T*>(grad), static_cast<T*>(K), static_cast<T*>(G),
+        static_cast<T*>(k), H, B, tl, static_cast<T*>(work));
+  }
+  static int vector_backward(const void* A, const void* Bm, const void* rhs,
+                             const void* K, const void* G, void* k, int H,
+                             int n, int m, int B, int ts, int grid,
+                             void* work, long long work_count,
+                             int smem_bytes, void* stream) {
+    const AnyTile tl = any_tile(n, m, int(sizeof(T)));
+    return any_launch(
+        vector_backward_any_kernel<T>, tl, B, ts, grid, work_count,
+        smem_bytes, stream, static_cast<const T*>(A),
+        static_cast<const T*>(Bm), static_cast<const T*>(rhs),
+        static_cast<const T*>(K), static_cast<const T*>(G),
+        static_cast<T*>(k), H, B, tl, static_cast<T*>(work));
+  }
+  static int forward(const void* A, const void* Bm, const void* K,
+                     const void* k, const void* dx0, void* du, void* dx,
+                     int H, int n, int m, int B, int ts, int grid, void* work,
+                     long long work_count, int smem_bytes, void* stream) {
+    const AnyTile tl = any_tile(n, m, int(sizeof(T)));
+    return any_launch(
+        forward_any_kernel<T>, tl, B, ts, grid, work_count, smem_bytes,
+        stream, static_cast<const T*>(A), static_cast<const T*>(Bm),
+        static_cast<const T*>(K), static_cast<const T*>(k),
+        static_cast<const T*>(dx0), static_cast<T*>(du), static_cast<T*>(dx),
+        H, B, tl, static_cast<T*>(work));
+  }
+};
+#endif  // REAK_RUNTIME
+
 template <int NMAX, int MMAX>
 bool shape_ok(int H, int n, int m, int B) {
   return H >= 1 && n >= 1 && n <= NMAX && m >= 1 && m <= MMAX && B >= 1;
@@ -204,6 +328,56 @@ bool shape_ok(int H, int n, int m, int B) {
 }  // namespace
 }  // namespace reak
 
+#ifdef REAK_RUNTIME
+
+extern "C" {
+
+// The runtime-width entry points of this library's type (the library
+// riccati_bwd@any_<type>), reak_riccati_<pass>_any_<type>: any (n, m),
+// with the tile, grid and work area of ops/_tile.py::tile_config.
+#define REAK_ANY_PASS(PASS, ARGS)                          \
+  if (H < 1 || n < 1 || m < 1 || B < 1)                    \
+    return static_cast<int>(cudaErrorInvalidValue);        \
+  return reak::AnyPasses<REAK_TYPE>::PASS ARGS;
+
+#define REAK_RICCATI_ANY_ENTRIES(SUFFIX)                                      \
+  int reak_riccati_fused_backward_any_##SUFFIX(                               \
+      const void* A, const void* Bm, const void* q, const void* u,            \
+      const void* D, const void* Q, const void* QN, const void* R,            \
+      void* grad, void* K, void* G, void* k, int H, int n, int m, int B,      \
+      int ts, int grid, void* work, long long work_count, int smem_bytes,     \
+      void* stream) {                                                         \
+    REAK_ANY_PASS(fused_backward,                                             \
+                  (A, Bm, q, u, D, Q, QN, R, grad, K, G, k, H, n, m, B, ts,   \
+                   grid, work, work_count, smem_bytes, stream))               \
+  }                                                                           \
+  int reak_riccati_vector_backward_any_##SUFFIX(                              \
+      const void* A, const void* Bm, const void* rhs, const void* K,          \
+      const void* G, void* k, int H, int n, int m, int B, int ts, int grid,   \
+      void* work, long long work_count, int smem_bytes, void* stream) {       \
+    REAK_ANY_PASS(vector_backward,                                            \
+                  (A, Bm, rhs, K, G, k, H, n, m, B, ts, grid, work,           \
+                   work_count, smem_bytes, stream))                           \
+  }                                                                           \
+  int reak_riccati_forward_any_##SUFFIX(                                      \
+      const void* A, const void* Bm, const void* K, const void* k,            \
+      const void* dx0, void* du, void* dx, int H, int n, int m, int B,        \
+      int ts, int grid, void* work, long long work_count, int smem_bytes,     \
+      void* stream) {                                                         \
+    REAK_ANY_PASS(forward, (A, Bm, K, k, dx0, du, dx, H, n, m, B, ts, grid,   \
+                            work, work_count, smem_bytes, stream))            \
+  }
+#define REAK_RICCATI_ANY_ENTRIES_OF(SUFFIX) REAK_RICCATI_ANY_ENTRIES(SUFFIX)
+
+REAK_RICCATI_ANY_ENTRIES_OF(REAK_SUFFIX)
+
+const char* reak_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
+
+#else
 #if !defined(REAK_NMAX) || !defined(REAK_MMAX) || !defined(REAK_TYPE) || \
     !defined(REAK_SUFFIX)
 #error "one bound and type a library: -DREAK_NMAX -DREAK_MMAX -DREAK_TYPE -DREAK_SUFFIX (ops/_build.py)"
@@ -258,3 +432,5 @@ const char* reak_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // REAK_RUNTIME

@@ -1,11 +1,18 @@
-"""Batched KTE-MPC (port of the lanes branch of ``reak_tpu/ctrl/mpc.py``).
+"""Batched KTE-MPC (port of ``make_kte_mpc`` of ``reak_tpu/ctrl/mpc.py``).
 
-One SQP pass: the lanes rollout + LTV linearization of a fixed-base chain
-(kte/lanes.py), then the box-constrained Riccati interior-point QP
-(ctrl/riccati_soa.py); with several passes, a per-scenario line search on
-the true RK4 cost (kte/lanes.make_rollout_lanes).  On CUDA tensors every
-phase runs through hand-written kernels (ops/kte_step.py, ops/pdip_whole.py,
+The lanes branch, the default: one SQP pass is the lanes rollout + LTV
+linearization of a fixed-base chain (kte/lanes.py), then the
+box-constrained Riccati interior-point QP (ctrl/riccati_soa.py); with
+several passes, a per-scenario line search on the true RK4 cost
+(kte/lanes.make_rollout_lanes).  On CUDA tensors every phase runs through
+hand-written kernels (ops/kte_step.py, ops/pdip_whole.py,
 ops/chol_lanes.py); on CPU tensors through their plain torch versions.
+
+The second branch (``qp_layout="vmap"``, or ``rollout="register"``) is the
+JAX package's cross-check: the batch-first lanes rollout or the
+register-form one (kte/soa.py), then the batch-first Riccati PDIP
+(ctrl/riccati.py, its Schur solves on K3a/K3b on CUDA tensors) or the
+unfused lanes PDIP (ctrl/riccati_soa.solve_box_mpc_riccati_soa, on K3b).
 """
 from __future__ import annotations
 
@@ -14,8 +21,10 @@ from typing import NamedTuple
 
 import torch
 
-from reak_tpu_torch.ctrl.riccati_soa import solve_box_mpc_riccati_soa_fused
-from reak_tpu_torch.kte import lanes
+from reak_tpu_torch.ctrl.riccati import solve_box_mpc_riccati
+from reak_tpu_torch.ctrl.riccati_soa import (solve_box_mpc_riccati_soa,
+                                             solve_box_mpc_riccati_soa_fused)
+from reak_tpu_torch.kte import lanes, soa
 
 
 class MPCProblem(NamedTuple):
@@ -92,27 +101,46 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
       - "auto" (default): the rollout-step kernel for CUDA tensors, the plain
         lanes rollout for CPU tensors;
       - "fused": always through the kernel's wrapper (plain on CPU tensors);
-      - "lanes": always the plain lanes rollout.
-    The QP always takes ``solve_box_mpc_riccati_soa_fused`` with its "auto"
-    dispatch: the whole-solve kernel for CUDA tensors, the plain scan for CPU.
+      - "lanes": always the plain lanes rollout;
+      - "register": the register-form rollout (``kte/soa.py``), a
+        cross-check.
+    ``qp_layout``:
+      - "lanes" (default): the QP is ``solve_box_mpc_riccati_soa_fused`` with
+        its "auto" dispatch: the whole-solve kernel for CUDA tensors, the
+        plain scan for CPU;
+      - "vmap": the batch-first PDIP ``ctrl/riccati.solve_box_mpc_riccati``,
+        a cross-check.
 
-    ``sqp_linesearch`` (only with ``sqp_iters > 1``): after each QP, per
-    scenario, the steps α ∈ {1, ½, ¼} from the previous inputs towards the
-    QP's are priced by their true RK4 cost (``make_traj_cost``); the
-    cheapest is taken if it is strictly below the previous inputs' cost
-    (ties keep the earlier candidate), else the previous inputs are kept —
-    so the true cost never rises.  The returned xs is then the RK4 trajectory
-    of the accepted inputs, not the QP model's prediction.  Without it each
-    pass takes the full QP step.
+    With ``qp_layout="lanes"`` and ``rollout`` "auto", "fused" or "lanes"
+    (the lanes branch): ``sqp_linesearch`` (only with ``sqp_iters > 1``):
+    after each QP, per scenario, the steps α ∈ {1, ½, ¼} from the previous
+    inputs towards the QP's are priced by their true RK4 cost
+    (``make_traj_cost``); the cheapest is taken if it is strictly below the
+    previous inputs' cost (ties keep the earlier candidate), else the
+    previous inputs are kept — so the true cost never rises.  The returned
+    xs is then the RK4 trajectory of the accepted inputs, not the QP model's
+    prediction.  Without it each pass takes the full QP step.
 
-    Not ported yet: ``qp_layout="vmap"`` and ``rollout="register"``.
+    Any other combination takes the JAX package's second branch:
+    ``solve(x0s, us_init)`` with no references; the rollout is the
+    batch-first lanes one (``kte/lanes.make_rollout_ltv_batchfirst``) for
+    ``rollout="lanes"``, else the register form; the QP is
+    ``solve_box_mpc_riccati`` for ``qp_layout="vmap"``, else the unfused
+    ``solve_box_mpc_riccati_soa`` on the rollout moved to lanes.  Every pass
+    takes the full QP step (no line search, whatever ``sqp_linesearch``
+    says), and xs is the QP model's trajectory.
     """
     if sqp_iters < 1:
         raise ValueError(f"sqp_iters={sqp_iters}: expected at least 1")
-    if qp_layout != "lanes":
-        raise NotImplementedError(f"qp_layout={qp_layout!r} is not ported")
-    if rollout not in ("auto", "fused", "lanes"):
-        raise NotImplementedError(f"rollout={rollout!r} is not ported")
+    if qp_layout not in ("lanes", "vmap"):
+        raise ValueError(f"qp_layout={qp_layout!r}: expected 'lanes' or "
+                         "'vmap'")
+    if rollout not in ("auto", "fused", "lanes", "register"):
+        raise ValueError(f"rollout={rollout!r}: expected 'auto', 'fused', "
+                         "'lanes' or 'register'")
+    if qp_layout != "lanes" or rollout == "register":
+        return _make_cross_check_mpc(spec, problem, dt, qp_iters, sqp_iters,
+                                     qp_layout, rollout)
     H = problem.horizon
     n = 2 * spec.nv
     m = problem.R.shape[-1]
@@ -157,5 +185,36 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
                 xl = roll_nom(x0s, ul)  # the true trajectory of the choice
             us = ul.permute(2, 0, 1)
         return us, xl.permute(2, 0, 1)
+
+    return solve
+
+
+def _make_cross_check_mpc(spec, problem: MPCProblem, dt: float,
+                          qp_iters: int, sqp_iters: int, qp_layout: str,
+                          rollout: str):
+    """The second branch of the JAX package's ``make_kte_mpc``
+    (``reak_tpu/ctrl/mpc.py:373-397``): ``solve(x0s, us_init) → (us, xs)``,
+    batch first (see ``make_kte_mpc``)."""
+    H = problem.horizon
+    roll = (lanes.make_rollout_ltv_batchfirst(spec, dt, H)
+            if rollout == "lanes" else soa.make_rollout_ltv_soa(spec, dt, H))
+    lanes_of = lambda a: torch.movedim(a, 0, -1)  # (B, ...) → (..., B)
+    batch_of = lambda a: torch.movedim(a, -1, 0)
+
+    def solve(x0s, us_init):
+        us = us_init
+        for _ in range(sqp_iters):
+            A_seq, B_seq, c_seq, _ = roll(x0s, us)
+            if qp_layout == "lanes":
+                ul, xl = solve_box_mpc_riccati_soa(
+                    lanes_of(A_seq), lanes_of(B_seq), lanes_of(c_seq),
+                    problem.Q, problem.QN, problem.R, x0s.T, problem.u_min,
+                    problem.u_max, iters=qp_iters)
+                us, xs = batch_of(ul), batch_of(xl)
+            else:
+                us, xs = solve_box_mpc_riccati(
+                    A_seq, B_seq, c_seq, problem.Q, problem.QN, problem.R,
+                    x0s, problem.u_min, problem.u_max, iters=qp_iters)
+        return us, xs
 
     return solve

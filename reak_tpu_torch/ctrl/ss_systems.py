@@ -27,9 +27,11 @@ def satellite3D(mass=1.0, inertia=None) -> SatelliteParams:
     return SatelliteParams(torch.as_tensor(mass, dtype=torch.float64), inertia)
 
 
-def default_state(n_aug: int = 0, dtype=torch.float64, device=None):
+def default_state(n_aug: int = 0, dtype=torch.float64, device="cuda"):
     """[p (3), q (4), v (3), ω (3), aug (n_aug)] at rest: origin, identity
-    attitude."""
+    attitude.  On the card unless ``device`` says otherwise (the JAX
+    function lands on the default accelerator); with no card it raises,
+    and a CPU caller passes ``device="cpu"``."""
     x = torch.zeros(13 + n_aug, dtype=dtype, device=device)
     x[3] = 1.0
     return x

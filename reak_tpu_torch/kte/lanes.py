@@ -380,6 +380,27 @@ def make_rollout_ltv_lanes(spec: ChainSpec, dt: float, horizon: int,
     return lambda x0, us: _scan_rollout(step, x0, us)
 
 
+def make_rollout_ltv_batchfirst(spec: ChainSpec, dt: float, horizon: int,
+                                order: int = 4):
+    """The lanes rollout with the signature of
+    ``kte/soa.make_rollout_ltv_soa``: ``fn(x0 (B, n), us (B, H, m)) →
+    (A (B,H,n,n), B (B,H,n,m), c (B,H,n), xs (B,H,n))``, batch first — the
+    rollout of ``make_kte_mpc(qp_layout="vmap", rollout="lanes")``.  On CUDA
+    tensors each of its plain steps, launched op by op from Python when
+    eager, is replayed from a CUDA graph (``fn.step``; ``fn.step.eager``
+    runs one step eagerly)."""
+    step = make_step_ltv_lanes(spec, dt, order)
+    step_graphed = graphs.graphed(step)
+    batch_first = lambda outs: tuple(torch.movedim(a, -1, 0) for a in outs)
+
+    def fn(x0, us):
+        # (H, ..., B) → (B, H, ...)
+        return batch_first(_scan_rollout(step_graphed, x0, us))
+
+    fn.step = step_graphed
+    return fn
+
+
 def make_rollout_ltv_fullfused(spec: ChainSpec, dt: float, horizon: int,
                                order: int = 4):
     """Rollout with the ENTIRE step (core + series discretization) in one

@@ -1,0 +1,175 @@
+"""Batched dense numerics: PD solves, least squares, matrix exponential,
+norms (port of ``reak_tpu/math/linalg.py``).
+
+Every function takes ``(..., n, n)`` / ``(..., n, m)`` tensors and
+broadcasts over leading batch dimensions, as the JAX functions do; plain
+torch, no kernel.  ``small_chol_solve`` is the plain path of
+``ops/chol_lanes.chol_solve_auto`` (the unrolled Cholesky recurrence of the
+JAX package).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def symmetrize(A):
+    """½(A + Aᵀ)."""
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def solve_pd(A, b):
+    """Solve A x = b for symmetric positive-definite A via Cholesky; ``b``
+    is (..., n) or (..., n, k)."""
+    L = torch.linalg.cholesky(A)
+    vec = b.ndim == A.ndim - 1
+    if vec:
+        b = b[..., None]
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[..., 0] if vec else x
+
+
+def invert_pd(A):
+    """Inverse of an SPD matrix via Cholesky."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    return solve_pd(A, eye)
+
+
+def logdet_pd(A):
+    """log det of an SPD matrix."""
+    L = torch.linalg.cholesky(A)
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                           dim=-1)
+
+
+def solve_lstsq(A, b):
+    """Least-squares solve via QR."""
+    q, r = torch.linalg.qr(A)
+    vec = b.ndim == A.ndim - 1
+    if vec:
+        b = b[..., None]
+    x = torch.linalg.solve_triangular(r, q.transpose(-1, -2) @ b,
+                                      upper=True)
+    return x[..., 0] if vec else x
+
+
+def solve_minnorm(A, b):
+    """Minimum-norm solution of underdetermined A x = b."""
+    At = A.transpose(-1, -2)
+    y = solve_pd(A @ At, b)
+    if y.ndim == A.ndim - 1:
+        return (At @ y[..., None])[..., 0]
+    return At @ y
+
+
+def _matpow(A2, p, eye):
+    out = eye
+    for _ in range(p):
+        out = out @ A2
+    return out
+
+
+def expm_pade(A, order: int = 7, squarings: int = 8):
+    """Matrix exponential by scaling and squaring with a diagonal Padé
+    approximant, at a fixed squaring count (no norm-dependent branch)."""
+    n = A.shape[-1]
+    A = A / (2.0 ** squarings)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    c = [1.0]
+    for k in range(1, order + 1):
+        c.append(c[-1] * (order + 1 - k) / (k * (2 * order + 1 - k)))
+    A2 = A @ A
+    V = sum(c[k] * _matpow(A2, k // 2, eye) for k in range(0, order + 1, 2))
+    U = A @ sum(c[k] * _matpow(A2, (k - 1) // 2, eye)
+                for k in range(1, order + 1, 2))
+    F = torch.linalg.solve(V - U, V + U)
+    for _ in range(squarings):
+        F = F @ F
+    return F
+
+
+def frobenius_norm(A):
+    return torch.sqrt(torch.sum(A * A, dim=(-2, -1)))
+
+
+def one_norm(A):
+    """Max column abs sum."""
+    return torch.amax(torch.sum(torch.abs(A), dim=-2), dim=-1)
+
+
+def inf_norm(A):
+    """Max row abs sum."""
+    return torch.amax(torch.sum(torch.abs(A), dim=-1), dim=-1)
+
+
+def sqrtm_psd(A):
+    """Symmetric PSD matrix square root via eigh."""
+    w, V = torch.linalg.eigh(A)
+    w = torch.clamp(w, min=0.0)
+    return (V * torch.sqrt(w)[..., None, :]) @ V.transpose(-1, -2)
+
+
+def small_chol_solve(G, rhs, unroll_max: int = 16):
+    """SPD solve of tiny matrices: the unrolled Cholesky recurrence and
+    substitutions as elementwise ops (up to ``unroll_max``; above it a
+    library factor and triangular solves).  ``G``: (..., n, n), ``rhs``:
+    (..., n, k) or (..., n)."""
+    n = G.shape[-1]
+    vec = rhs.ndim == G.ndim - 1
+    if vec:
+        rhs = rhs[..., None]
+    if n > unroll_max:
+        L = torch.linalg.cholesky(G)
+        y = torch.linalg.solve_triangular(L, rhs, upper=False)
+        x = torch.linalg.solve_triangular(L.transpose(-1, -2), y,
+                                          upper=True)
+        return x[..., 0] if vec else x
+
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = G[..., j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(s)
+        for i in range(j + 1, n):
+            s = G[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s / L[j][j]
+    y = [None] * n
+    for i in range(n):
+        s = rhs[..., i, :]
+        for k in range(i):
+            s = s - L[i][k][..., None] * y[k]
+        y[i] = s / L[i][i][..., None]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i][..., None] * x[k]
+        x[i] = s / L[i][i][..., None]
+    out = torch.stack(x, dim=-2)
+    return out[..., 0] if vec else out
+
+
+def block_2x2(A, B, C, D):
+    """Assemble [[A, B], [C, D]]."""
+    top = torch.cat([A, B], dim=-1)
+    bot = torch.cat([C, D], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def star_product(M1, M2):
+    """Redheffer star product of 2x2-blocked symplectic maps; each argument
+    is ((A, B), (C, D))."""
+    (A1, B1), (C1, D1) = M1
+    (A2, B2), (C2, D2) = M2
+    n = A1.shape[-1]
+    eye = torch.eye(n, dtype=A1.dtype, device=A1.device).expand(A1.shape)
+    W = torch.linalg.solve(eye - B1 @ C2, A1)
+    A = A2 @ W
+    B = B2 + A2 @ torch.linalg.solve(eye - B1 @ C2, B1 @ D2)
+    C = C1 + D1 @ C2 @ W
+    D = D1 @ torch.linalg.solve(eye - C2 @ B1, D2)
+    return ((A, B), (C, D))

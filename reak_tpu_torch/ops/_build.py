@@ -5,7 +5,8 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded
 with ``ctypes``.  A source whose instances take long to compile is built once
 per instance, each into a library of its own, so the builds run side by
 side: the library ``<name>@<NMAX>x<MMAX>_<f32|f64>`` is ``csrc/<name>.cu``
-compiled for that one bound and type.  The library lands in
+compiled for that one bound and type, ``<name>@any_<f32|f64>`` its
+runtime-width instance for that type.  The library lands in
 ``build/reak_tpu_torch/`` beside the package (listed in ``.gitignore``),
 named by a hash of the sources and the flags, so an edited source is rebuilt
 and an unchanged one is not.  Nothing here runs at import: a machine without
@@ -52,19 +53,26 @@ def _nvcc() -> str:
 
 def instance_library(name: str, bound, suffix: str) -> str:
     """The library of ``csrc/<name>.cu`` built for one (NMAX, MMAX) bound
-    and one type (``f32`` or ``f64``)."""
+    and one type (``f32`` or ``f64``); ``bound=None`` names the
+    runtime-width instance, ``<name>@any_<type>``."""
+    if bound is None:
+        return f"{name}@any_{suffix}"
     return f"{name}@{bound[0]}x{bound[1]}_{suffix}"
 
 
 def _source_and_defines(name: str):
-    """``name`` or ``name@<NMAX>x<MMAX>_<f32|f64>`` → the source file and
-    the macros that select the instance."""
+    """``name``, ``name@<NMAX>x<MMAX>_<f32|f64>`` or ``name@any_<f32|f64>``
+    → the source file and the macros that select the instance."""
     base, _, instance = name.partition("@")
     if not instance:
         return CSRC / f"{base}.cu", []
     widths, suffix = instance.split("_")
-    nmax, mmax = widths.split("x")
     ctype = {"f32": "float", "f64": "double"}[suffix]
+    if widths == "any":
+        return CSRC / f"{base}.cu", ["-DREAK_RUNTIME=1",
+                                     f"-DREAK_TYPE={ctype}",
+                                     f"-DREAK_SUFFIX={suffix}"]
+    nmax, mmax = widths.split("x")
     return CSRC / f"{base}.cu", [f"-DREAK_NMAX={int(nmax)}",
                                  f"-DREAK_MMAX={int(mmax)}",
                                  f"-DREAK_TYPE={ctype}",

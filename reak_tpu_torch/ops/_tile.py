@@ -3,12 +3,15 @@
 ``csrc/riccati_bwd.cu``), all on ``csrc/riccati_tile.cuh``.
 
 A block takes TS neighbouring scenarios × NB matrix columns.  ``tile_config``
-mirrors ``riccati_tile.cuh::Tile``: it says which instance a problem of
+mirrors ``riccati_tile.cuh::Tile`` and, past the widest bound,
+``riccati_tile.cuh::any_tile``: it says which instance a problem of
 widths (n, m) and a type runs on, and that instance's threads a block,
-scenarios a tile and dynamic shared memory.  The wrappers hand the shared
-memory size to the C entry point, which refuses the launch if its own
-differs, so the two cannot drift apart unnoticed.  Nothing here depends on
-the horizon: the stages are streamed through two buffers.
+scenarios a tile and dynamic shared memory, and for the runtime-width
+instance where its rows lie (shared or device memory), its grid and its
+device-memory work area.  The wrappers hand these to the C entry point,
+which refuses the launch if its own differ, so the two cannot drift apart
+unnoticed.  Nothing here depends on the horizon: the stages are streamed
+through two buffers.
 """
 from __future__ import annotations
 
@@ -36,25 +39,38 @@ def type_suffix(dtype) -> str:
 
 
 def instance_for(n: int, m: int, what: str = "the whole-solve kernel"):
-    """The smallest (NMAX, MMAX) bound that holds (n, m); the per-pass
-    kernels (``ops/riccati_bwd.py``) are built for the same bounds."""
+    """The smallest (NMAX, MMAX) bound that holds (n, m), or None past the
+    widest: the runtime-width instance.  The per-pass kernels
+    (``ops/riccati_bwd.py``) are built for the same bounds."""
+    if n < 1 or m < 1:
+        raise ValueError(f"{what} takes n, m >= 1; got n={n}, m={m}")
     for bound in INSTANCES:
         if n <= bound[0] and m <= bound[1]:
             return bound
-    raise NotImplementedError(
-        f"{what} takes n <= {INSTANCES[-1][0]}, "
-        f"m <= {INSTANCES[-1][1]}; got n={n}, m={m}")
+    return None
+
+
+# riccati_tile.cuh: blocks of a runtime-width launch and threads a block,
+# at most
+ANY_GRID = 264
+ANY_THREADS = 1024
 
 
 @dataclass(frozen=True)
 class TileConfig:
     """One instance of the tile kernels for one type."""
-    bound: tuple    # the entry point's (NMAX, MMAX)
-    widths: tuple   # the instance's compile-time (NB, MB)
+    bound: tuple    # the entry point's (NMAX, MMAX); None: runtime widths
+    widths: tuple   # the instance's (NB, MB)
     exact: bool     # (n, m) == (NB, MB): no predicates on the widths
     scenarios: int  # TS, scenarios a block
-    threads: int    # TS × NB
+    threads: int    # TS × the column threads a scenario
     shared_bytes: int
+    branch: str = "shared"  # where the block's rows lie: shared or device
+    block_values: int = 0   # the device-memory work area of a block
+
+    @property
+    def runtime(self) -> bool:
+        return self.bound is None
 
     def padded_batch(self, B: int) -> int:
         """B rounded up to whole tiles: the scenario stride of the
@@ -62,7 +78,21 @@ class TileConfig:
         return -(-B // self.scenarios) * self.scenarios
 
     def blocks(self, B: int) -> int:
-        return -(-B // self.scenarios)
+        tiles = -(-B // self.scenarios)
+        return min(tiles, ANY_GRID) if self.runtime else tiles
+
+    def work_values(self, B: int) -> int:
+        """Values of the device-memory work area a launch over B scenarios
+        takes (0 on a compile-time instance)."""
+        return self.blocks(B) * self.block_values
+
+
+def _rows(nb: int, mb: int):
+    """Rows of TS values (two A+B stage buffers, the work area, the
+    vectors) and the constants (Q, QN, R) of a block."""
+    rows = (2 * (nb * nb + nb * mb) + (nb * nb + 2 * nb * mb + mb * mb)
+            + 4 * nb + 4 * mb)
+    return rows, 2 * nb * nb + mb * mb
 
 
 def tile_config(n: int, m: int, dtype,
@@ -71,14 +101,41 @@ def tile_config(n: int, m: int, dtype,
     shape (``riccati_tile.cuh::Tile``): rows of TS values for two A+B stage
     buffers, the work area (V, V·B, F, the Schur block) and the vectors,
     then Q, QN, R once.  TS gives 128 B rows up to NB = 12 and 64 B above,
-    halved while the rows do not fit a block's shared memory."""
+    halved while the rows do not fit a block's shared memory.  Past the
+    widest bound, the runtime-width instance (``any_tile``): NB = max(n, m)
+    columns, MB = m, TS halved while TS × NB passes 1,024 threads and then
+    while the rows do not fit (down to 1); where they do not fit even at 1
+    they lie in device memory at the TS the threads allow.  A thread takes
+    every ``threads / TS``-th column, and each column keeps 2 NB + 6 MB + 8
+    rows of its own in the device-memory work area, in float64 for float32
+    data (its sums' type); a block's area is rounded up to 16 B."""
     size = {"f32": 4, "f64": 8}[type_suffix(dtype)]
     bound = instance_for(n, m, what)
+    if bound is None:
+        nb, mb = max(n, m), m
+        rows, consts = _rows(nb, mb)
+        ts = (128 if nb <= 12 else 64) // size
+        while ts > 1 and ts * nb > ANY_THREADS:
+            ts //= 2
+        fit = ts
+        while fit > 1 and size * (rows * fit + consts) > MAX_SHARED_BYTES:
+            fit //= 2
+        shared = size * (rows * fit + consts) <= MAX_SHARED_BYTES
+        ts = fit if shared else ts
+        nc = min(nb, ANY_THREADS // ts)
+        # the columns' rows in the accumulator's type (float64 for float32)
+        cols = (2 * nb + 6 * mb + 8) * nb * ts * (2 if size == 4 else 1)
+        per_16 = 16 // size
+        return TileConfig(
+            bound=None, widths=(nb, mb), exact=False, scenarios=ts,
+            threads=ts * nc,
+            shared_bytes=size * (rows * ts + consts) if shared else 0,
+            branch="shared" if shared else "device",
+            block_values=-(-(cols + (0 if shared else rows * ts + consts))
+                           // per_16) * per_16)
     exact = (n, m) == EXACT[bound]
     nb, mb = (n, m) if exact else bound
-    rows = (2 * (nb * nb + nb * mb) + (nb * nb + 2 * nb * mb + mb * mb)
-            + 4 * nb + 4 * mb)
-    consts = 2 * nb * nb + mb * mb
+    rows, consts = _rows(nb, mb)
     ts = (128 if nb <= 12 else 64) // size
     while size * (rows * ts + consts) > MAX_SHARED_BYTES:
         ts //= 2

@@ -6,7 +6,15 @@ the Pallas kernels ``reak_tpu/ops/chol_lanes.py::solve_lanes`` (K3a) and
 - ``solve_lanes_multi(G (n, n, B), rhs (n, k, B)) → x (n, k, B)``, k
   right-hand sides and one factorization;
 - ``solve(G (B, n, n), rhs (B, n)) → x (B, n)``, the standard layout over
-  ``solve_lanes``.
+  ``solve_lanes``;
+- ``chol_solve_auto(G (..., n, n), rhs (..., n, k) | (..., n))``, the
+  batch-first dispatch of the Riccati PDIP (``ctrl/riccati.py``): on CUDA
+  tensors the batch flattened into B (an unbatched call is B = 1), moved to
+  the lanes layout once and solved by K3a (k = 1) or K3b; on CPU tensors
+  ``math/linalg.small_chol_solve``, as the JAX function off the TPU.  It is
+  the port of ``reak_tpu/ops/chol_lanes.py::chol_solve_auto``, whose vmap
+  rule finds the batch; here the batch axes are explicit, since
+  ``torch.func.vmap`` cannot see through a kernel launch.
 
 On CUDA tensors each wrapper launches the kernel (any n ≥ 1, any B); on CPU
 tensors it takes the plain version, ``ctrl/riccati_soa._chol_solve_lanes``
@@ -107,3 +115,32 @@ def solve(G, rhs):
     """Batched SPD solve, standard layout: G (B, n, n), rhs (B, n) → (B, n),
     through ``solve_lanes``."""
     return solve_lanes(G.permute(1, 2, 0), rhs.T).T
+
+
+def chol_solve_auto(G, rhs):
+    """SPD solve G x = rhs, batch first: G (..., n, n), rhs (..., n, k) or
+    (..., n) (a vector when it has one axis fewer than G); the leading axes
+    broadcast.  CUDA tensors: K3a for one right-hand side, K3b for several,
+    on the batch moved to the lanes layout (one copy of G and one of rhs).
+    CPU tensors: ``math/linalg.small_chol_solve``."""
+    if G.device.type == "cpu" and rhs.device.type == "cpu":
+        from reak_tpu_torch.math.linalg import small_chol_solve
+
+        return small_chol_solve(G, rhs)
+    n = G.shape[-1]
+    vec = rhs.ndim == G.ndim - 1
+    if vec:
+        rhs = rhs[..., None]
+    k = rhs.shape[-1]
+    batch = torch.broadcast_shapes(G.shape[:-2], rhs.shape[:-2])
+    B = 1
+    for d in batch:
+        B *= d
+    Gl = G.expand(*batch, n, n).reshape(B, n, n).permute(1, 2, 0)
+    rl = rhs.expand(*batch, n, k).reshape(B, n, k).permute(1, 2, 0)
+    if k == 1:
+        x = solve_lanes(Gl, rl[:, 0])[:, None]
+    else:
+        x = solve_lanes_multi(Gl, rl)
+    x = x.permute(2, 0, 1).reshape(*batch, n, k)
+    return x[..., 0] if vec else x

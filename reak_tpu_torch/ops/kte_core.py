@@ -7,7 +7,8 @@ rollout step without its exponential series.
 dqdd (nv, n, B), minv (nv, nv, B))``.  On CUDA tensors it launches the
 core-only instance of ``csrc/kte_step.cu`` (the step kernel K1 stopped
 before its series, entry ``reak_kte_core_<NJ>x<NV>_<type>`` of the same
-library); on CPU tensors it takes the plain version, ``make_core_plain``
+library, or ``reak_kte_core_any_<type>`` of the runtime-width instance past
+16 joints); on CPU tensors it takes the plain version, ``make_core_plain``
 (``kte/lanes.make_core_ltv_lanes``, the core of the plain step).
 
 What bounds it on the H100, and what the design does about it, is K1's
@@ -20,26 +21,16 @@ writes its column of ∂q̈/∂x (and of M⁻¹) straight to device memory.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from reak_tpu_torch.kte.lanes import make_core_ltv_lanes as make_core_plain
 from reak_tpu_torch.kte.spec import ChainSpec
 from reak_tpu_torch.ops import _build
-from reak_tpu_torch.ops.kte_step import (check_inputs, chain_table,
-                                         entry_point, instance_for,
-                                         launch_shape, library, signatures)
+from reak_tpu_torch.ops.kte_step import check_inputs, instance_for, launch
 
 # launches of the kernel since the count was last set to 0
 launches = 0
 _build.count_launches(__name__)
-
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
-# {kind: argtypes}.  core: x, u, table, nj, nv, qdd, dqdd, minv, B, shared
-# bytes, stream
-SIGNATURES = {"core": [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _CI, _CI,
-                       _VP]}
 
 
 def make_core_lanes(spec: ChainSpec):
@@ -52,24 +43,14 @@ def make_core_lanes(spec: ChainSpec):
         global launches
         if x.device.type == "cpu" and u.device.type == "cpu":
             return plain(x, u)
-        widths = instance_for(spec, "the core kernel")
-        nj, nv = widths
+        instance_for(spec, "the core kernel")
+        nv = spec.nv
         B = check_inputs(x, u, n, nv)
         x, u = x.contiguous(), u.contiguous()
-        if x.dtype not in tables:
-            tables[x.dtype] = chain_table(spec, "cpu", x.dtype)
         new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-        qdd, dqdd, minv = new(nv, B), new(nv, n, B), new(nv, nv, B)
-        name = library(widths, x.dtype)
-        launch = _build.function(name, entry_point("core", widths, x.dtype),
-                                 signatures(widths, x.dtype, SIGNATURES))
-        p = _build.ptr
-        rc = launch(p(x), p(u), p(tables[x.dtype]), nj, nv, p(qdd), p(dqdd),
-                    p(minv), B,
-                    launch_shape(nj, nv, x.dtype, core=True).shared_bytes,
-                    _build.stream_ptr(x.device))
-        _build.check(name, rc, "kte_core kernel")
+        outs = (new(nv, B), new(nv, n, B), new(nv, nv, B))
+        launch("core", spec, x, u, outs, tables=tables)
         launches += 1
-        return qdd, dqdd, minv
+        return outs
 
     return fn

@@ -19,18 +19,25 @@ one direction in f32); the value and inner tangent of the
 kinematics are computed once per scenario and shared through shared memory,
 as are the factor of M and q̈; the q and q̇ directions run code of their own
 (a q̇ direction moves no position and skips M); the chain's constants are a
-kernel parameter passed by value.  Any fixed-base chain of at most 16
-joints runs (REVOLUTE, PRISMATIC and FIXED joints, offsets, springs,
-dampers, full inertia tensors), at any B ≥ 1, in float32 and float64; the
-tile halves where a block would pass 384 threads (8 scenarios at 16 dofs).
-The instance is chosen, and a chain it cannot take refused, at the first
+kernel parameter passed by value.  Chains of up to 16 joints run their
+compile-time instance (REVOLUTE, PRISMATIC and FIXED joints, offsets,
+springs, dampers, full inertia tensors), at any B ≥ 1, in float32 and
+float64; the tile halves where a block would pass 384 threads (8 scenarios
+at 16 dofs).  A wider fixed-base chain runs the runtime-width instance of
+its type (``kte_step@any_<type>``): the same recurrences with the joints
+and dofs as arguments, its per-scenario and per-direction work in a
+device-memory area that the wrapper allocates (a grid of at most
+``RT_GRID`` blocks walks the batch, so the area does not grow with B), a
+thread taking several directions where TS × n would pass the block's
+threads.  The instance is chosen, and a free-base chain refused, at the first
 call on a device tensor, so a caller on CPU tensors never needs one.
 ``ops/kte_variants.py`` re-measures the tile (TS) and the blocks an SM that
 ``__launch_bounds__`` asks for.
 
-``launch_shape`` mirrors the source's ``StepShape``: the wrapper hands its
-shared-memory size to the C entry point, which refuses a launch whose own
-differs.  ``chain_table`` is the one place that packs the chain's constants.
+``launch_shape`` mirrors the source's ``StepShape`` and ``rt_shape``: the
+wrapper hands the shared-memory size (or the runtime instance's tile, grid
+and work area) to the C entry point, which refuses a launch whose own
+differ.  ``chain_table`` is the one place that packs the chain's constants.
 """
 from __future__ import annotations
 
@@ -41,12 +48,13 @@ import numpy as np
 import torch
 
 from reak_tpu_torch.kte.lanes import make_step_ltv_lanes as make_step_plain
-from reak_tpu_torch.kte.spec import ChainSpec, JointType, FREE
+from reak_tpu_torch.kte.spec import ChainSpec, JointType, FIXED, FREE
 from reak_tpu_torch.ops import _build
 
-MAX_JOINTS = 16  # csrc/kte_step.cu MAXJ
+UNROLLED_JOINTS = 16  # csrc/kte_step.cu: the widest compile-time instance
 STEP_THREADS = 384  # csrc/kte_step.cu: threads a block, at most
 SLOTS = 21  # csrc/kte_step.cu: the values a joint leaves for the directions
+RT_GRID = 264  # csrc/kte_step.cu: blocks of a runtime-width launch, at most
 
 # launches of the kernel since the count was last set to 0
 launches = 0
@@ -62,28 +70,41 @@ def type_suffix(dtype) -> str:
 
 def instance_for(spec: ChainSpec, what: str = "the step kernel"):
     """The compile-time widths (joints, dofs) of the instance that takes
-    ``spec``: every fixed-base chain of at most ``MAX_JOINTS`` joints."""
-    if spec.n_joints > MAX_JOINTS or any(
-            JointType(t) == FREE for t in spec.joint_types):
+    ``spec`` (a fixed-base chain of at most ``UNROLLED_JOINTS`` joints), or
+    None for the runtime-width instance (a wider fixed-base chain).  A free
+    base is refused: the JAX package runs it on the generic assembly, with
+    no kernel."""
+    if any(JointType(t) == FREE for t in spec.joint_types):
         raise NotImplementedError(
-            f"{what} takes fixed-base chains of at most {MAX_JOINTS} joints; "
-            f"got {spec.n_joints} joints"
-            + (" with a free base" if spec.has_free_base else ""))
+            f"{what} takes fixed-base chains; got {spec.n_joints} joints "
+            "with a free base")
     if spec.nv < 1:
         raise NotImplementedError(f"{what} takes chains with a dof")
+    if spec.n_joints > UNROLLED_JOINTS:
+        return None
     return spec.n_joints, spec.nv
 
 
 @dataclass(frozen=True)
 class StepShape:
-    """The launch shape of one instance (``csrc/kte_step.cu::StepShape``)."""
+    """The launch shape of one instance (``csrc/kte_step.cu::StepShape``,
+    or ``rt_shape`` for the runtime-width instance)."""
     widths: tuple   # (NJ, NV)
     scenarios: int  # TS, scenarios a block
-    threads: int    # TS × n, a warp of scenarios per direction
+    threads: int    # TS × directions a pass (a warp of scenarios per direction)
     shared_bytes: int
+    runtime: bool = False  # the runtime-width instance
+    directions: int = 0    # dy: direction threads a scenario (runtime)
+    block_values: int = 0  # the work area of a block (runtime)
 
     def blocks(self, B: int) -> int:
-        return -(-B // self.scenarios)
+        tiles = -(-B // self.scenarios)
+        return min(tiles, RT_GRID) if self.runtime else tiles
+
+    def work_values(self, B: int) -> int:
+        """Values of the device-memory work area a launch over B scenarios
+        takes (0 for a compile-time instance)."""
+        return self.blocks(B) * self.block_values
 
 
 def launch_shape(nj: int, nv: int, dtype, core: bool = False) -> StepShape:
@@ -92,41 +113,70 @@ def launch_shape(nj: int, nv: int, dtype, core: bool = False) -> StepShape:
     q̈ (joint and dof order), then the larger of the kinematics' anchors
     (value and inner tangent, SLOTS a joint) and K1's series (∂q̈/∂x, M⁻¹,
     S), which reuses their rows.  TS is 32 in float32 and 16 in float64 (one
-    128 B row), halved while the block would pass ``STEP_THREADS``."""
+    128 B row), halved while the block would pass ``STEP_THREADS``.  Past
+    ``UNROLLED_JOINTS`` joints the rows lie in the runtime instance's work
+    area instead, beside each (direction, scenario) slot's own work (M and
+    f in Dual numbers, the anchors and axes in HD, the Jacobian columns in
+    Dual, three joint and three state vectors); TS halves down to 1 and a
+    thread takes every ``directions``-th direction."""
     size = {"f32": 4, "f64": 8}[type_suffix(dtype)]
     n = 2 * nv
     ts = 32 if size == 4 else 16
-    while ts * n > STEP_THREADS:
-        ts //= 2
     chol = nj * nj + 2 * nj + nv
     fk = 2 * SLOTS * nj
     series = 0 if core else nv * n + nv * nv + n * n
+    rows = chol + max(fk, series)
+    if nj > UNROLLED_JOINTS:
+        while ts > 1 and ts * n > STEP_THREADS:
+            ts //= 2
+        dy = min(n, STEP_THREADS // ts)
+        slot = nj * (nj + 1) + 2 * nj + 24 * nj + 12 * nj + 3 * nj + 3 * n
+        return StepShape(widths=(nj, nv), scenarios=ts, threads=ts * dy,
+                         shared_bytes=0, runtime=True, directions=dy,
+                         block_values=rows * ts + slot * n * ts)
+    while ts * n > STEP_THREADS:
+        ts //= 2
     return StepShape(widths=(nj, nv), scenarios=ts, threads=ts * n,
-                     shared_bytes=size * ts * (chol + max(fk, series)))
+                     shared_bytes=size * ts * rows, directions=n)
 
 
 def library(widths, dtype) -> str:
     """The library of one chain width and type: ``csrc/kte_step.cu`` built
-    for (joints, dofs) (``_build.instance_library``)."""
+    for (joints, dofs), or its runtime-width instance for ``widths=None``
+    (``_build.instance_library``)."""
     return _build.instance_library("kte_step", widths, type_suffix(dtype))
 
 
 def entry_point(kind: str, widths, dtype) -> str:
     """The C function ``reak_kte_<kind>_<NJ>x<NV>_<type>`` (kind: step,
-    core or occupancy)."""
-    return f"reak_kte_{kind}_{widths[0]}x{widths[1]}_{type_suffix(dtype)}"
+    core or occupancy), ``reak_kte_<kind>_any_<type>`` for ``widths=None``."""
+    tag = "any" if widths is None else f"{widths[0]}x{widths[1]}"
+    return f"reak_kte_{kind}_{tag}_{type_suffix(dtype)}"
 
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # {kind: argtypes}.  step: x, u, table, nj, nv, dt, order, Ad, Bd, cd,
-# x_new, B, shared bytes, stream; occupancy: core, blocks (out)
+# x_new, B, shared bytes, stream; core: x, u, table, nj, nv, qdd, dqdd,
+# minv, B, shared bytes, stream; occupancy: core, blocks (out)
 SIGNATURES = {"step": [_VP, _VP, _VP, _CI, _CI, ctypes.c_double, _CI, _VP,
                        _VP, _VP, _VP, _CI, _CI, _VP],
+              "core": [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _CI, _CI,
+                       _VP],
               "occupancy": [_CI, ctypes.POINTER(ctypes.c_int)]}
+# the runtime-width instance, the same with the joints' table after the
+# chain's and TS, the grid and the work area in place of the shared bytes;
+# occupancy: core, threads, blocks (out)
+ANY_SIGNATURES = {
+    "step": [_VP] * 4 + [_CI, _CI, ctypes.c_double, _CI] + [_VP] * 4
+    + [_CI] * 3 + [_VP, _LL, _VP],
+    "core": [_VP] * 4 + [_CI, _CI] + [_VP] * 3 + [_CI] * 3 + [_VP, _LL, _VP],
+    "occupancy": [_CI, _CI, ctypes.POINTER(ctypes.c_int)]}
 
 
-def signatures(widths, dtype, kinds=SIGNATURES) -> dict:
+def signatures(widths, dtype, kinds=None) -> dict:
     """{C function: argtypes} of ``kinds`` for one width and type."""
+    if kinds is None:
+        kinds = SIGNATURES if widths is not None else ANY_SIGNATURES
     return {entry_point(k, widths, dtype): args for k, args in kinds.items()}
 
 
@@ -144,6 +194,59 @@ def chain_table(spec: ChainSpec, device, dtype) -> torch.Tensor:
             [spec.rest_q[i]], [spec.damping[i]]]))
     rows.append(np.asarray(spec.gravity, np.float64))
     return torch.as_tensor(np.concatenate(rows), dtype=dtype, device=device)
+
+
+def joint_table(spec: ChainSpec, device) -> torch.Tensor:
+    """Each joint's type and dof (-1 for a FIXED joint), int32 (nj, 2): what
+    the runtime-width instance reads beside the chain table."""
+    rows, k = [], 0
+    for jt in spec.joint_types:
+        fixed = JointType(jt) == FIXED
+        rows.append((int(jt), -1 if fixed else k))
+        k += 0 if fixed else 1
+    return torch.as_tensor(np.asarray(rows, np.int32), device=device)
+
+
+def launch(kind: str, spec: ChainSpec, x, u, outs, dt: float = 0.0,
+           order: int = 1, tables: dict = None) -> None:
+    """Launch the kernel of ``kind`` (step: K1; core: K5) that takes
+    ``spec`` on x, u and the outputs ``outs`` (step: Ad, Bd, cd, x_new;
+    core: qdd, dqdd, minv); raise on a CUDA error.  ``tables`` caches the
+    chain's tables per (type, device)."""
+    widths = instance_for(spec, f"the {kind} kernel")
+    nj, nv = spec.n_joints, spec.nv
+    core = kind == "core"
+    shape = launch_shape(nj, nv, x.dtype, core=core)
+    key = (x.dtype, x.device)
+    if key not in tables:
+        # the compile-time instances take the table by value (packed on the
+        # CPU), the runtime one reads it and the joints' types in device
+        # memory
+        where = "cpu" if widths is not None else x.device
+        tables[key] = (chain_table(spec, where, x.dtype),
+                       None if widths is not None
+                       else joint_table(spec, x.device))
+    table, joints = tables[key]
+    name = library(widths, x.dtype)
+    fn = _build.function(name, entry_point(kind, widths, x.dtype),
+                         signatures(widths, x.dtype))
+    p = _build.ptr
+    B = x.shape[-1]
+    head = [p(x), p(u), p(table)]
+    if widths is None:
+        head.append(p(joints))
+    head += [nj, nv]
+    if not core:
+        head += [float(dt), order]
+    head += [p(t) for t in outs] + [B]
+    if widths is None:
+        work = torch.empty(shape.work_values(B), dtype=x.dtype,
+                           device=x.device)
+        tail = [shape.scenarios, shape.blocks(B), p(work), work.numel()]
+    else:
+        tail = [shape.shared_bytes]
+    rc = fn(*head, *tail, _build.stream_ptr(x.device))
+    _build.check(name, rc, f"kte_{kind} kernel")
 
 
 def check_inputs(x, u, n: int, nv: int) -> int:
@@ -172,37 +275,28 @@ def make_step_lanes(spec: ChainSpec, dt: float, order: int = 4):
         global launches
         if x.device.type == "cpu" and u.device.type == "cpu":
             return plain(x, u)
-        widths = instance_for(spec)
-        nj, nv = widths
-        B = check_inputs(x, u, n, nv)
+        instance_for(spec)
+        B = check_inputs(x, u, n, spec.nv)
         if not (x.is_contiguous() and u.is_contiguous()):
             raise ValueError("x and u must be contiguous")
-        if x.dtype not in tables:
-            tables[x.dtype] = chain_table(spec, "cpu", x.dtype)
         new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-        Ad, Bd, cd, xn = new(n, n, B), new(n, nv, B), new(n, B), new(n, B)
-        name = library(widths, x.dtype)
-        launch = _build.function(name, entry_point("step", widths, x.dtype),
-                                 signatures(widths, x.dtype))
-        p = _build.ptr
-        rc = launch(p(x), p(u), p(tables[x.dtype]), nj, nv, float(dt), order,
-                    p(Ad), p(Bd), p(cd), p(xn), B,
-                    launch_shape(nj, nv, x.dtype).shared_bytes,
-                    _build.stream_ptr(x.device))
-        _build.check(name, rc, "kte_step kernel")
+        outs = (new(n, n, B), new(n, spec.nv, B), new(n, B), new(n, B))
+        launch("step", spec, x, u, outs, dt, order, tables)
         launches += 1
-        return Ad, Bd, cd, xn
+        return outs
 
     return fn
 
 
-def occupancy(widths, dtype, core: bool = False) -> int:
+def occupancy(widths, dtype, core: bool = False, threads: int = 0) -> int:
     """Blocks of the instance an SM of the current card holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); the runtime-width
+    instance (``widths=None``) at ``threads`` a block."""
     name = library(widths, dtype)
     blocks = ctypes.c_int(0)
-    rc = _build.function(name, entry_point("occupancy", widths, dtype),
-                         signatures(widths, dtype))(int(core),
-                                                    ctypes.byref(blocks))
+    fn = _build.function(name, entry_point("occupancy", widths, dtype),
+                         signatures(widths, dtype))
+    args = (int(core),) if widths is not None else (int(core), threads)
+    rc = fn(*args, ctypes.byref(blocks))
     _build.check(name, rc, "kte_step occupancy")
     return blocks.value

@@ -130,8 +130,7 @@ def main():
             raise RuntimeError(f"nvcc failed for {d.name}:\n{err}")
         lib = ctypes.CDLL(str(d / "kte_step.so"))
         fns = {}
-        for kind, args in (*kte_step.SIGNATURES.items(),
-                           *kte_core.SIGNATURES.items()):
+        for kind, args in kte_step.SIGNATURES.items():
             fns[kind] = getattr(lib, kte_step.entry_point(kind, WIDTHS, f32))
             fns[kind].argtypes = args
         # shared memory is rows of TS values

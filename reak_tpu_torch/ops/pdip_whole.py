@@ -19,7 +19,11 @@ warp per matrix column, widths at compile time, every stage copied into
 shared memory a stage ahead of its use (``csrc/riccati_tile.cuh``).  The
 launch shape and the scratch size come from ``ops/_tile.tile_config``: the
 widths (12, 6), (24, 12) and (32, 16) run instances of their own, every
-other width within (32, 16) a padded one; any B ≥ 1 is taken.
+other width within (32, 16) a padded one, and every wider (n, m) the
+runtime-width instance (the same passes on ``csrc/riccati_tile.cuh``'s
+runtime policy: the widths as arguments, the columns' values and, where a
+scenario's rows do not fit a block's shared memory, the rows too in a
+device-memory work area that the wrapper allocates); any B ≥ 1 is taken.
 """
 from __future__ import annotations
 
@@ -47,21 +51,31 @@ def scratch_values(H: int, n: int, m: int) -> int:
 # the scratch's values, H, n, m, B, iters, shared bytes, stream
 _ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 6
          + [ctypes.c_void_p])
+# the runtime-width instance: after the scratch's values, the work area and
+# its values; after iters, TS and the grid
+_ANY_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_void_p,
+                                       ctypes.c_longlong]
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def entry_point(bound, dtype) -> str:
-    """The C function of one bound and type."""
-    return f"reak_pdip_whole_{bound[0]}x{bound[1]}_{type_suffix(dtype)}"
+    """The C function of one bound and type (``bound=None``: the
+    runtime-width instance)."""
+    tag = "any" if bound is None else f"{bound[0]}x{bound[1]}"
+    return f"reak_pdip_whole_{tag}_{type_suffix(dtype)}"
 
 
 def library(bound, dtype) -> str:
     """The library that holds ``entry_point(bound, dtype)``: the source is
-    built once per bound and type (``_build.instance_library``)."""
+    built once per bound and type, and once per type at run-time widths
+    (``_build.instance_library``)."""
     return _build.instance_library("pdip_whole", bound, type_suffix(dtype))
 
 
 # {library: {function: argtypes}}, for a build of everything at once
-LIBRARIES = {library(b, d): {entry_point(b, d): _ARGS} for b in INSTANCES
+LIBRARIES = {library(b, d): {entry_point(b, d):
+                             _ARGS if b is not None else _ANY_ARGS}
+             for b in (*INSTANCES, None)
              for d in (torch.float32, torch.float64)}
 SIGNATURES = {fn: args for lib in LIBRARIES.values()
               for fn, args in lib.items()}
@@ -71,7 +85,7 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
                     with_xref: bool = False, with_uref: bool = False):
     """The complete box-constrained LTV-MPC solve in one launch (see
     module)."""
-    instance_for(n, m)  # raises beyond the widest instance
+    instance_for(n, m)  # raises on a width below 1
 
     def fn(A, Bm, c, *rest):
         global launches
@@ -121,10 +135,18 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
         launch = _build.function(name, entry_point(tile.bound, dtype),
                                  LIBRARIES[name])
         p = lambda t: None if t is None else _build.ptr(t)
-        rc = launch(p(A), p(Bm), p(c), p(refs[0]), p(refs[1]), p(x0), p(Q),
-                    p(QN), p(R), p(lb), p(ub), p(u), p(xs), p(scratch),
-                    scratch.numel(), H, n, m, B, iters, tile.shared_bytes,
-                    _build.stream_ptr(device))
+        args = [p(A), p(Bm), p(c), p(refs[0]), p(refs[1]), p(x0), p(Q),
+                p(QN), p(R), p(lb), p(ub), p(u), p(xs), p(scratch),
+                scratch.numel()]
+        if tile.runtime:
+            work = torch.empty(tile.work_values(B), dtype=dtype,
+                               device=device)
+            rc = launch(*args, p(work), work.numel(), H, n, m, B, iters,
+                        tile.scenarios, tile.blocks(B), tile.shared_bytes,
+                        _build.stream_ptr(device))
+        else:
+            rc = launch(*args, H, n, m, B, iters, tile.shared_bytes,
+                        _build.stream_ptr(device))
         _build.check(name, rc, "pdip_whole kernel")
         launches += 1
         return u, xs

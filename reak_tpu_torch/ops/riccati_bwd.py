@@ -20,7 +20,10 @@ its plain version in ``ctrl/riccati_soa`` (``fused_backward_plain``,
 ``vector_backward_plain``, ``forward_plain``), the passes of the plain scan.
 The entry points are named by the whole-solve kernel's (NMAX, MMAX) bounds,
 (16, 8), (24, 12) and (32, 16); the wrappers take the smallest that holds
-(n, m).
+(n, m), and past the widest the runtime-width instance of the type
+(``reak_riccati_<pass>_any_<type>``, ``csrc/riccati_tile.cuh``'s runtime
+policy), with
+the device-memory work area that ``tile_config`` sizes.
 Inputs are made contiguous before a launch (a layout step, not a
 fallback); any B ≥ 1 is taken.
 
@@ -50,7 +53,7 @@ from reak_tpu_torch.ops._tile import INSTANCES, tile_config, type_suffix
 launches = {"fused_backward": 0, "vector_backward": 0, "forward": 0}
 _build.count_launches(__name__)
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = {
     # A, Bm, q, u_eff, D, Q, QN, R, grad, K, G, k, H, n, m, B, shared
     # bytes, stream
@@ -60,24 +63,31 @@ _ARGS = {
     # A, Bm, K, k, dx0, du, dx, H, n, m, B, shared bytes, stream
     "forward": [_VP] * 7 + [_CI] * 5 + [_VP],
 }
+# the runtime-width instance: after B, TS, the grid, the work area and its
+# values
+_ANY_ARGS = {e: args[:-2] + [_CI, _CI, _VP, _LL] + args[-2:]
+             for e, args in _ARGS.items()}
 
 
 def entry_point(entry: str, bound, dtype) -> str:
-    """The C function of one pass, bound and type."""
-    return f"reak_riccati_{entry}_{bound[0]}x{bound[1]}_{type_suffix(dtype)}"
+    """The C function of one pass, bound and type (``bound=None``: the
+    runtime-width instance)."""
+    tag = "any" if bound is None else f"{bound[0]}x{bound[1]}"
+    return f"reak_riccati_{entry}_{tag}_{type_suffix(dtype)}"
 
 
 def library(bound, dtype) -> str:
     """The library that holds the three passes of one bound and type: the
-    source is built once per bound and type
-    (``_build.instance_library``)."""
+    source is built once per bound and type, and once per type at run-time
+    widths (``_build.instance_library``)."""
     return _build.instance_library("riccati_bwd", bound, type_suffix(dtype))
 
 
 # {library: {function: argtypes}}, for a build of everything at once
-LIBRARIES = {library(b, d): {entry_point(e, b, d): args
-                             for e, args in _ARGS.items()}
-             for b in INSTANCES for d in (torch.float32, torch.float64)}
+LIBRARIES = {library(b, d): {entry_point(e, b, d): args for e, args in
+                             (_ARGS if b is not None else _ANY_ARGS).items()}
+             for b in (*INSTANCES, None)
+             for d in (torch.float32, torch.float64)}
 SIGNATURES = {fn: args for lib in LIBRARIES.values()
               for fn, args in lib.items()}
 
@@ -105,8 +115,15 @@ def _launch(entry, named, outs, H, n, m):
     name = library(tile.bound, dtype)
     launch = _build.function(name, entry_point(entry, tile.bound, dtype),
                              LIBRARIES[name])
-    rc = launch(*(_build.ptr(t) for t in ins + list(outs)), H, n, m, B,
-                tile.shared_bytes, _build.stream_ptr(device))
+    ptrs = [_build.ptr(t) for t in ins + list(outs)]
+    if tile.runtime:
+        work = torch.empty(tile.work_values(B), dtype=dtype, device=device)
+        rc = launch(*ptrs, H, n, m, B, tile.scenarios, tile.blocks(B),
+                    _build.ptr(work), work.numel(), tile.shared_bytes,
+                    _build.stream_ptr(device))
+    else:
+        rc = launch(*ptrs, H, n, m, B, tile.shared_bytes,
+                    _build.stream_ptr(device))
     _build.check(name, rc, f"riccati_bwd {entry} kernel")
     launches[entry] += 1
 

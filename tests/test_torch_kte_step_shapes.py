@@ -143,10 +143,13 @@ def test_shipped_instances_keep_their_launch_shape(widths, dtype, shape):
 
 
 def test_source_constants_agree():
-    """The joint bound, the thread cap and the anchor slots of the source
-    are the wrapper's, and the last slot ends where SLOTS says."""
+    """The widest compile-time instance, the thread cap, the runtime
+    instance's grid cap and the anchor slots of the source are the
+    wrapper's, and the last slot ends where SLOTS says."""
     text = SOURCE.read_text()
-    assert int(_source_constant(text, "MAXJ")) == kte_step.MAX_JOINTS == 16
+    assert int(_source_constant(text, "UNROLLED_JOINTS")) == \
+        kte_step.UNROLLED_JOINTS == 16
+    assert int(_source_constant(text, "RT_GRID")) == kte_step.RT_GRID
     assert int(_source_constant(text, "STEP_THREADS")) == \
         kte_step.STEP_THREADS
     slots = dict(re.findall(r"(S_[A-Z]+) = (\d+)", text))
@@ -184,8 +187,60 @@ def test_variants_patch_every_knob(tmp_path, monkeypatch):
 
 def test_wrappers_take_the_one_launch_shape():
     for fn in (kte_step.make_step_lanes, kte_core.make_core_lanes):
-        src = inspect.getsource(fn)
-        assert "launch_shape(" in src and "chain_table(" in src
+        assert "launch(" in inspect.getsource(fn)
+    src = inspect.getsource(kte_step.launch)
+    assert "launch_shape(" in src and "chain_table(" in src
+    assert "joint_table(" in src
+
+
+# ---- the runtime-width instance ------------------------------------------
+
+def _rt_expr(text, field):
+    """``r.<field> = <expression>;`` of ``rt_shape`` as Python over nj, nv,
+    r.n, core and the constants."""
+    m = re.search(rf"r\.{field} =\s*([^;]+);", text)
+    assert m, field
+    expr = m.group(1).replace("r.", "r_")
+    expr = re.sub(r"static_cast<long long>\((\w+)\)", r"\1", expr)
+    return _c_to_python(expr)
+
+
+@pytest.mark.parametrize("core", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("joints", [17, 24, 64])
+def test_runtime_launch_shape_mirrors_the_source(joints, dtype, core):
+    """Past 16 joints ``launch_shape`` is the runtime instance's: TS from a
+    128 B row halved while TS × n passes the block's threads (down to 1), a
+    thread taking every ``directions``-th direction, no shared memory, and
+    a work area a block of the scenario rows and each (direction,
+    scenario) slot's values — the sizes ``kte_step.cu::rt_shape``
+    computes."""
+    text = SOURCE.read_text()
+    size = 4 if dtype == torch.float32 else 8
+    shape = kte_step.launch_shape(joints, joints, dtype, core=core)
+    assert shape.runtime and shape.widths == (joints, joints)
+    assert shape.shared_bytes == 0
+    assert 1 <= shape.scenarios and shape.threads <= kte_step.STEP_THREADS
+    assert shape.threads == shape.scenarios * shape.directions <= 1024
+    n = 2 * joints
+    assert shape.directions == min(n, kte_step.STEP_THREADS // shape.scenarios)
+    assert shape.scenarios == 1 or shape.scenarios * n <= kte_step.STEP_THREADS
+    assert shape.scenarios * 2 * n > kte_step.STEP_THREADS or \
+        shape.scenarios * size == 128
+    env = {"nj": joints, "nv": joints, "r_n": n, "core": core,
+           "SLOTS": kte_step.SLOTS, "size": size}
+    env["r_chol_rows"] = eval(_rt_expr(text, "chol_rows"), {}, env)
+    fk, series = 2 * kte_step.SLOTS * joints, (0 if core else
+                                               joints * n + joints ** 2
+                                               + n * n)
+    env["r_rows"] = env["r_chol_rows"] + max(fk, series)
+    env["r_dir_values"] = eval(_rt_expr(text, "dir_values"), {}, env)
+    env["r_ts"] = shape.scenarios
+    block = eval(_rt_expr(text, "block_values"), {}, env)
+    assert block == shape.block_values
+    assert shape.blocks(77) == -(-77 // shape.scenarios)
+    assert shape.blocks(10 ** 6) == kte_step.RT_GRID
+    assert shape.work_values(77) == shape.blocks(77) * block
 
 
 # ---- libraries per chain ------------------------------------------------
@@ -222,45 +277,57 @@ def _meta(*shape):
 
 
 def test_chains_the_kernel_does_not_take_raise():
-    """A chain of more than 16 joints, or one with a free base, is refused
-    at the first call on a device tensor, with the cap in the message (a
-    meta tensor stands in for a CUDA one); building the wrappers, and the
-    rollout and the MPC solver on top of them, raises nothing, and on CPU
-    tensors they take the plain versions."""
-    too_long = models.flexible_beam(17)
+    """Only a chain with a free base is refused, at the first call on a
+    device tensor (a meta tensor stands in for a CUDA one); a chain of more
+    than 16 joints takes the runtime-width instance (fault F7 repaired).
+    Building the wrappers, and the rollout and the MPC solver on top of
+    them, raises nothing, and on CPU tensors they take the plain
+    versions."""
     free = models.floating_arm()
-    for spec in (too_long, free):
-        step = kte_step.make_step_lanes(spec, 0.01)
-        core = kte_core.make_core_lanes(spec)
-        x, u = _meta(2 * spec.nv, 4), _meta(spec.nv, 4)
-        for fn in (step, core):
-            with pytest.raises(NotImplementedError, match="at most 16 joints"):
-                fn(x, u)
-    roll = lanes.make_rollout_ltv_fullfused(too_long, 1e-6, 2)
-    with pytest.raises(NotImplementedError, match="at most 16 joints"):
-        roll(_meta(4, 2 * too_long.nv), _meta(4, 2, too_long.nv))
+    step = kte_step.make_step_lanes(free, 0.01)
+    core = kte_core.make_core_lanes(free)
+    x, u = _meta(2 * free.nv, 4), _meta(free.nv, 4)
+    for fn in (step, core):
+        with pytest.raises(NotImplementedError, match="fixed-base"):
+            fn(x, u)
+    roll = lanes.make_rollout_ltv_fullfused(free, 1e-2, 2)
+    with pytest.raises(NotImplementedError, match="free base"):
+        roll(_meta(4, 2 * free.nv), _meta(4, 2, free.nv))
+    for joints in (17, 24, 64):
+        beam = models.flexible_beam(joints)
+        assert kte_step.instance_for(beam) is None
+        for dtype in DTYPES:
+            name = kte_step.library(None, dtype)
+            assert name == f"kte_step@any_{kte_step.type_suffix(dtype)}"
+            assert _build._source_and_defines(name)[1][0] == \
+                "-DREAK_RUNTIME=1"
 
 
 # ---- entry points and the table -------------------------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6)])
+@pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6), None])
 def test_signatures_name_entry_points_of_the_source(widths, dtype):
     """Every function the two wrappers declare exists in ``kte_step.cu``
-    (its entry macro expanded by hand), with as many arguments."""
+    (its entry macro expanded by hand), with as many arguments: the
+    compile-time instances' and the runtime-width instance's
+    (``widths=None``)."""
     text = SOURCE.read_text()
     suffix = "f32" if dtype == torch.float32 else "f64"
-    fill = {"NJ": str(widths[0]), "NV": str(widths[1]), "SUFFIX": suffix}
+    fill = {"SUFFIX": suffix}
+    if widths is not None:
+        fill.update({"NJ": str(widths[0]), "NV": str(widths[1])})
     c_args = {}
     for macro_name in re.findall(r"^  int (reak_\w+(?:##\w+)+)\(", text,
                                  flags=re.M):
+        if ("_any_##" in macro_name) != (widths is None):
+            continue
         params = text[text.index(macro_name):]
         params = params[params.index("(") + 1:params.index(") {")]
         name = "".join(fill.get(t, t) for t in macro_name.split("##"))
         c_args[name] = [a for a in params.replace("\\", "").split(",")
                         if a.strip()]
-    declared = {**kte_step.signatures(widths, dtype),
-                **kte_step.signatures(widths, dtype, kte_core.SIGNATURES)}
+    declared = kte_step.signatures(widths, dtype)
     assert set(declared) == set(c_args)
     for name, args in declared.items():
         assert len(args) == len(c_args[name]), name

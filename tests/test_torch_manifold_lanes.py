@@ -62,9 +62,26 @@ def test_satellite_from_carries_bench_parameters():
     p_t = convert.satellite_from(p_j)
     assert p_t.mass.dtype == torch.float64 and float(p_t.mass) == 10.0
     np.testing.assert_array_equal(p_t.inertia.numpy(), np.asarray(p_j.inertia))
-    x = ss_systems.default_state()
+    x = ss_systems.default_state(device="cpu")
     np.testing.assert_array_equal(x.numpy(), np.asarray(jss.default_state()))
-    assert ss_systems.default_state(n_aug=2).shape == (15,)
+    assert ss_systems.default_state(n_aug=2, device="cpu").shape == (15,)
+
+
+def test_default_state_lands_on_the_card():
+    """Fault F8, repaired: like the JAX function, which lands on the
+    default accelerator, ``default_state`` makes a CUDA tensor unless
+    ``device`` says otherwise, with no fall back to the CPU where there is
+    no card."""
+    import inspect
+
+    default = inspect.signature(ss_systems.default_state).parameters[
+        "device"].default
+    assert torch.device(default).type == "cuda"
+    if torch.cuda.is_available():
+        assert ss_systems.default_state().is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            ss_systems.default_state()
 
 
 def test_sat_step_and_ltv_match_jax(rng):

@@ -74,10 +74,23 @@ def test_fused_rollout_option_is_plain_on_cpu(rng):
 @pytest.mark.parametrize("kw", [dict(qp_layout="vmap"),
                                 dict(rollout="register")],
                          ids=["vmap", "register"])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(rng, kw):
+    """The two options that the port refused before they were ported now
+    build and solve on CPU tensors, with no kernel launch, on the 6-DoF
+    arm: finite controls inside the box and states of the right shape (the
+    second branch's values are held to the JAX solver in
+    tests/test_torch_mpc_layouts.py)."""
     spec, prob = _port(_jax_problem())
-    with pytest.raises(NotImplementedError):
-        mpc.make_kte_mpc(spec, prob, 0.01, **kw)
+    x0 = torch.as_tensor(np.concatenate([rng.uniform(-0.5, 0.5, (2, 6)),
+                                         rng.uniform(-0.2, 0.2, (2, 6))],
+                                        axis=1))
+    u0 = torch.zeros(2, H, 6, dtype=torch.float64)
+    launches = (kte_step.launches, pdip_whole.launches)
+    us, xs = mpc.make_kte_mpc(spec, prob, 0.01, **kw)(x0, u0)
+    assert (kte_step.launches, pdip_whole.launches) == launches
+    assert us.shape == (2, H, 6) and xs.shape == (2, H, 12)
+    assert bool(torch.isfinite(us).all()) and bool(torch.isfinite(xs).all())
+    assert float(us.abs().max()) <= 8.0 + 1e-12
 
 
 @pytest.mark.parametrize("ref", [

@@ -78,10 +78,108 @@ def test_other_widths_run_the_padded_instance_of_their_bound(nm, bound,
 
 @pytest.mark.parametrize("nm", [(33, 6), (12, 17), (30, 30)])
 def test_beyond_the_widest_instance_raises(nm):
-    with pytest.raises(NotImplementedError):
-        _tile.tile_config(*nm, torch.float32)
-    with pytest.raises(NotImplementedError, match="per-pass"):
-        _tile.tile_config(*nm, torch.float64, what="the per-pass kernels")
+    """Past (32, 16) nothing is refused any more (fault F7): the widths
+    take the runtime-width instance (no bound), NB = max(n, m) columns and
+    MB = m, its rows in shared memory at these widths, inside a block."""
+    for dtype in DTYPES:
+        tile = _tile.tile_config(*nm, dtype)
+        assert tile.bound is None and tile.runtime and not tile.exact
+        assert tile.widths == (max(nm), nm[1])
+        assert tile.branch == "shared"
+        assert 0 < tile.shared_bytes <= _tile.MAX_SHARED_BYTES
+        assert tile.scenarios >= 1 and tile.threads <= _tile.MAX_THREADS
+        assert tile.block_values > 0
+    assert _tile.instance_for(*nm) is None
+    assert pdip_whole.entry_point(None, torch.float64) in pdip_whole.SIGNATURES
+
+
+def _any_tile_field(text, field, env):
+    """``t.<field> = <expression>;`` of ``riccati_tile.cuh::any_tile``,
+    evaluated as Python over ``env``."""
+    m = re.search(rf"t\.{field} =\s*([^;]+);", text)
+    assert m, field
+    expr = re.sub(r"\s+", " ", m.group(1)).replace("t.", "t_")
+    expr = re.sub(r"static_cast<(?:long long|int)>", "", expr)
+
+    def top(e):
+        """``a ? b : c`` at parenthesis depth 0 of ``e`` as Python."""
+        depth, q = 0, None
+        for i, ch in enumerate(e):
+            depth += (ch == "(") - (ch == ")")
+            if depth == 0 and ch == "?" and q is None:
+                q = i
+            elif depth == 0 and ch == ":" and q is not None:
+                return (f"(({e[q + 1:i]}) if ({e[:q]}) else "
+                        f"({top(e[i + 1:])}))")
+        return e
+
+    while True:  # the innermost parentheses that hold a ternary first
+        inner = re.search(r"\(([^()]*\?[^()]*)\)", expr)
+        if inner is None:
+            break
+        expr = (expr[:inner.start()] + "(" + top(inner.group(1)) + ")"
+                + expr[inner.end():])
+    return eval(top(expr).replace("/", "//"), {}, env)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nm", [(33, 17), (48, 24), (80, 40), (20, 24),
+                                (62, 31)])
+def test_runtime_tile_mirrors_the_header(nm, dtype):
+    """Past the widest bound ``tile_config`` is
+    ``riccati_tile.cuh::any_tile``: NB = max(n, m) columns, MB = m, TS
+    from a 64 B row halved while TS × NB passes 1,024 threads and then
+    while the rows do not fit a block (down to 1); where they do not fit
+    even at TS = 1 the branch is device memory (no shared memory, TS as
+    the threads allow).  A thread takes every nc-th column; the work area
+    of a block holds its columns' rows and, on the device branch, its rows
+    and constants."""
+    text = (_build.CSRC / "riccati_tile.cuh").read_text()
+    for name, value in (("ANY_GRID", _tile.ANY_GRID),
+                        ("ANY_THREADS", _tile.ANY_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", text), name
+    m = re.search(r"constexpr int MAX_SHARED_BYTES = (\d+);",
+                  (_build.CSRC / "riccati_tile.cuh").read_text())
+    assert int(m.group(1)) == _tile.MAX_SHARED_BYTES
+    size = 4 if dtype == torch.float32 else 8
+    tile = _tile.tile_config(*nm, dtype)
+    nb, mb = max(nm), nm[1]
+    assert tile.bound is None and tile.widths == (nb, mb)
+    env = {"nb": nb, "mb": mb, "size": size, "t_nb": nb, "t_mb": mb}
+    for field in ("rows", "consts", "col_rows"):
+        env[f"t_{field}"] = _any_tile_field(text, field, env)
+    fits = lambda ts: size * (env["t_rows"] * ts + env["t_consts"]) <= \
+        _tile.MAX_SHARED_BYTES
+    ts0 = 64 // size
+    while ts0 > 1 and ts0 * nb > _tile.ANY_THREADS:
+        ts0 //= 2
+    assert tile.branch == ("shared" if fits(1) else "device")
+    if tile.branch == "shared":
+        assert fits(tile.scenarios) and (tile.scenarios == ts0
+                                         or not fits(2 * tile.scenarios))
+    else:
+        assert tile.scenarios == ts0
+    env.update({"t_ts": tile.scenarios, "t_shared": tile.branch == "shared"})
+    assert tile.shared_bytes == _any_tile_field(text, "smem_bytes", env)
+    assert tile.block_values == _any_tile_field(text, "block_values", env)
+    assert 1 <= tile.scenarios and tile.threads <= _tile.MAX_THREADS
+    assert tile.threads == tile.scenarios * min(nb, _tile.ANY_THREADS
+                                                // tile.scenarios)
+    assert tile.shared_bytes <= _tile.MAX_SHARED_BYTES
+    assert tile.blocks(33) == -(-33 // tile.scenarios)
+    assert tile.blocks(10 ** 6) == _tile.ANY_GRID
+    assert tile.padded_batch(33) % tile.scenarios == 0
+
+
+@pytest.mark.parametrize("dtype,first", [(torch.float64, (62, 31)),
+                                         (torch.float32, (88, 44))])
+def test_device_branch_starts_where_a_scenario_stops_fitting(dtype, first):
+    """At m = n / 2, the smallest width whose rows do not fit a block at
+    TS = 1 (the device-memory branch) is (62, 31) in f64 and (88, 44) in
+    f32; the width below stays in shared memory."""
+    assert _tile.tile_config(*first, dtype).branch == "device"
+    below = (first[0] - 2, first[1] - 1)
+    assert _tile.tile_config(*below, dtype).branch == "shared"
 
 
 def test_other_types_raise():
@@ -176,17 +274,21 @@ def test_exact_widths_mirror_the_header():
 
 def _entry_points(source, bound, suffix):
     """The ``extern "C"`` functions ``csrc/<source>.cu`` defines when it is
-    built for one bound and type: its entry macro, expanded by hand."""
+    built for one bound and type (``bound=None``: its runtime-width
+    instance): its entry macro, expanded by hand."""
     text = (_build.CSRC / f"{source}.cu").read_text()
     assert 'extern "C" {' in text
     names = re.findall(r"^  int (reak_\w+(?:##\w+)+)\(", text, flags=re.M)
-    fill = {"NM": str(bound[0]), "MM": str(bound[1]), "SUFFIX": suffix}
+    names = [nm for nm in names if ("_any_##" in nm) == (bound is None)]
+    fill = {"SUFFIX": suffix}
+    if bound is not None:
+        fill.update({"NM": str(bound[0]), "MM": str(bound[1])})
     return {"".join(fill.get(tok, tok) for tok in name.split("##"))
             for name in names}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bound", _tile.INSTANCES)
+@pytest.mark.parametrize("bound", (*_tile.INSTANCES, None))
 def test_signatures_name_entry_points_of_the_sources(bound, dtype):
     """Every function a wrapper declares exists in its ``.cu``, and its
     argument list is as long as the C one: a renamed or re-typed entry point
@@ -206,12 +308,15 @@ def test_signatures_name_entry_points_of_the_sources(bound, dtype):
         text = (_build.CSRC / f"{source}.cu").read_text()
         for macro_name in re.findall(r"^  int (reak_\w+(?:##\w+)+)\(", text,
                                      flags=re.M):
+            if ("_any_##" in macro_name) != (bound is None):
+                continue
             params = text[text.index(macro_name):]
             params = params[params.index("(") + 1:params.index(") {")]
             c_args = [a for a in params.replace("\\", "").split(",")
                       if a.strip()]
-            fill = {"NM": str(bound[0]), "MM": str(bound[1]),
-                    "SUFFIX": suffix}
+            fill = {"SUFFIX": suffix}
+            if bound is not None:
+                fill.update({"NM": str(bound[0]), "MM": str(bound[1])})
             name = "".join(fill.get(t, t) for t in macro_name.split("##"))
             assert len(table[name]) == len(c_args), name
 
@@ -231,25 +336,32 @@ def test_instance_libraries_select_one_bound_and_type():
         _build.CSRC / "kte_step.cu", [])
     paths = {_build.library_path(name) for name in
              (*pdip_whole.LIBRARIES, *riccati_bwd.LIBRARIES)}
-    assert len(paths) == 4 * len(_tile.INSTANCES) == 12
+    assert len(paths) == 4 * (len(_tile.INSTANCES) + 1) == 16
     assert pdip_whole.library((16, 8), torch.float32) == \
         _build.instance_library("pdip_whole", (16, 8), "f32")
+    assert _build._source_and_defines("riccati_bwd@any_f32") == (
+        _build.CSRC / "riccati_bwd.cu",
+        ["-DREAK_RUNTIME=1", "-DREAK_TYPE=float", "-DREAK_SUFFIX=f32"])
 
 
 def test_both_kernels_include_the_shared_stage_code():
     """The reverse, vector and forward stages live once, in
-    ``riccati_tile.cuh``, and every PDIP kernel runs on them: the
-    one-thread-per-scenario design and its header are gone."""
+    ``riccati_tile.cuh``, and every PDIP kernel runs on them, at
+    compile-time and at run-time widths (the width policy ``wd``): the
+    one-thread-per-scenario design, its header and a second copy of the
+    passes for run-time widths are gone."""
     for source in ("pdip_whole", "riccati_bwd"):
         text = (_build.CSRC / f"{source}.cu").read_text()
         assert '#include "riccati_tile.cuh"' in text
-        assert "reverse_pass<TL>" in text
+        assert "reverse_pass(wd," in text
         assert "__launch_bounds__" in text
-        assert "vector_pass<TL," in text and "forward_pass<TL>" in text
-        assert "lanes.cuh" not in text
+        assert "vector_pass<" in text and "forward_pass(wd," in text
+        assert "const AnyWidths<T> wd" in text and "const TL wd{}" in text
+        assert "lanes.cuh" not in text and "tile_any" not in text
     k4 = (_build.CSRC / "riccati_bwd.cu").read_text()
     assert "vector_pass<TL, true>" in k4 and "chol_factor(" not in k4
     assert not (_build.CSRC / "lanes.cuh").exists()
+    assert not (_build.CSRC / "riccati_tile_any.cuh").exists()
     header = (_build.CSRC / "riccati_tile.cuh").read_text()
     for fn in ("reverse_pass", "vector_pass", "forward_pass"):
         assert header.count(f"inline void {fn}(") == 1

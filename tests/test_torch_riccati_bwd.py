@@ -129,18 +129,21 @@ def test_wrapper_takes_plain_pass_on_cpu(rng, name):
 
 
 def test_every_pass_is_built_for_the_whole_solve_bounds():
-    """Three passes × the (16, 8), (24, 12) and (32, 16) instances × f32 and
-    f64; beyond (32, 16) the per-pass kernels refuse, naming the cap."""
-    assert len(riccati_bwd.SIGNATURES) == 3 * len(pdip_whole.INSTANCES) * 2
+    """Three passes × the (16, 8), (24, 12) and (32, 16) instances and the
+    runtime-width one × f32 and f64; beyond (32, 16) the per-pass kernels
+    take the runtime-width instance (fault F7 repaired)."""
+    assert len(riccati_bwd.SIGNATURES) == \
+        3 * (len(pdip_whole.INSTANCES) + 1) * 2
     assert pdip_whole.INSTANCES[-1] == (32, 16)
     for name in PLAIN:
-        for bound in pdip_whole.INSTANCES:
+        for bound in (*pdip_whole.INSTANCES, None):
             for dtype in (torch.float32, torch.float64):
                 assert riccati_bwd.entry_point(name, bound, dtype) \
                     in riccati_bwd.SIGNATURES
     assert pdip_whole.instance_for(25, 6) == (32, 16)
-    with pytest.raises(NotImplementedError, match="per-pass.*n <= 32"):
-        pdip_whole.instance_for(33, 6, what="the per-pass kernels")
+    assert pdip_whole.instance_for(33, 6, what="the per-pass kernels") is None
+    with pytest.raises(ValueError, match="per-pass"):
+        pdip_whole.instance_for(0, 6, what="the per-pass kernels")
 
 
 @pytest.mark.parametrize("name", list(PLAIN))

@@ -228,6 +228,27 @@ def test_smallest_instance_that_holds_the_problem(nm, bound):
 
 
 @pytest.mark.parametrize("nm", [(33, 6), (12, 17)])
-def test_beyond_the_widest_instance_raises(nm):
-    with pytest.raises(NotImplementedError, match="n <= 32, m <= 16"):
-        pdip_whole.make_whole_pdip(4, *nm, iters=2)
+def test_beyond_the_widest_instance_raises(rng, nm):
+    """Past (32, 16) the whole-solve wrapper builds (fault F7 repaired): the
+    runtime-width instance of each type takes the width (its entry point
+    declared), and on CPU tensors the wrapper is the plain scan."""
+    assert pdip_whole.instance_for(*nm) is None
+    for dtype in (torch.float32, torch.float64):
+        name = pdip_whole.library(None, dtype)
+        assert pdip_whole.entry_point(None, dtype) in \
+            pdip_whole.LIBRARIES[name]
+    n, m = nm
+    whole = pdip_whole.make_whole_pdip(2, n, m, iters=2)
+    A = torch.as_tensor(np.eye(n)[None, :, :, None].repeat(2, 0).repeat(
+        3, -1))
+    Bm = torch.as_tensor(0.1 * rng.standard_normal((2, n, m, 3)))
+    c = torch.zeros(2, n, 3, dtype=torch.float64)
+    x0 = torch.as_tensor(rng.standard_normal((n, 3)))
+    eye = lambda k: torch.eye(k, dtype=torch.float64)
+    lim = torch.full((m,), 1.0, dtype=torch.float64)
+    before = pdip_whole.launches
+    u, xs = whole(A, Bm, c, x0, eye(n), eye(n), eye(m), -lim, lim)
+    assert pdip_whole.launches == before
+    want = riccati_soa._fused_scan(A, Bm, c, eye(n), eye(n), eye(m), x0,
+                                   -lim, lim, iters=2)
+    assert torch.equal(u, want[0]) and torch.equal(xs, want[1])
