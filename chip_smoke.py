@@ -13,7 +13,27 @@ version on the card, and drives the port's main paths through the kernels:
   CRS-A465 arm, n=12, m=6, H=50, 8 Mehrotra iterations, f32, B=8192), one
   SQP pass and two passes with the line search;
 - the free-base satellite scenario MPC
-  ``ctrl.manifold_lanes.make_sat_scenario_mpc_lanes`` (H=20, B=8192);
+  ``ctrl.manifold_lanes.make_sat_scenario_mpc_lanes`` (H=20, B=8192), from
+  initial states that ``ctrl.mpc_manifold.sample_belief_states`` draws from
+  the belief N(rest state, 0.05 I₁₂) in its tangent space (a
+  ``torch.Generator`` seeded 0 on the card), on K2 and on the per-pass
+  kernels;
+- the same satellite on the generic route (phase ``belief_scenario``):
+  ``ctrl.mpc_manifold.make_scenario_mpc`` on ``ss_systems.satellite3D_imdt``
+  (jacfwd linearization, the batch-first Riccati PDIP on K3a/K3b) beside
+  the lanes route, both timed at B=8192 in f32; the two routes at f64 on
+  256 scenarios, the generic one against the CPU child's plain f64 solve;
+  and the config-4 composition: 12 IEKF steps (``ctrl.invariant``) on the
+  card, then ``belief_scenario_mpc`` on that posterior at B=8192;
+- the generic dense MPC and the closed loop (phase
+  ``dense_and_closed_loop``, f64): ``ctrl.mpc.solve`` with
+  ``method="riccati"`` (K3a/K3b at B=1) and ``"condensed"`` against the C++
+  oracle, ``receding_horizon`` on a double integrator, the 2-link
+  closed loop of ``make_kte_mpc`` (K1 + K2) against the
+  ``ctrl.systems.kte_discrete`` plant, and ``ctrl.mpc_manifold.
+  make_kte_scenario_mpc`` on its fixed branch (the flagship arm, K1 + K2)
+  and its free one (the floating arm, K2 + K3), each bit for bit the call
+  it routes to;
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -46,7 +66,8 @@ the batch-first PDIP's Schur solves on K3a/K3b, exact launch counts) at
 B=8192 against the K1 + K2 route, and the batch-first route against the C++
 oracle.  Phase
 ``k3_vs_plain`` holds K3a/K3b at the main paths' shapes and at n = 17, 32,
-33, 48, 64, 70, 241 and 341 in both types (bit for bit their plain version;
+33, 48, 64, 70, 241 and 341 in both types (the main paths' shapes include
+the dense MPC's n = 1 and 2 at B = 1; bit for bit their plain version;
 past n = 240 in f64 and 340 in f32 on the device-memory work area).  The RK4 step of the line search and the
 floating arm's step and LTV are replayed from CUDA graphs
 (``ops/graphs.py``); phase ``graphs_vs_eager`` holds a replayed
@@ -57,9 +78,12 @@ registers and stack frame of every kernel instance and the blocks an SM
 holds of each K1/K5 instance.
 
 It checks the port at f64 against the independent C++ oracle
-``native/mpc_oracle.cpp`` and against its own plain f64 solves, and times
+``native/mpc_oracle.cpp`` (the flagship chain and an LTV instance) and
+against its own plain f64 solves, and times
 the solves and the kernels with CUDA events.  The plain f64 CPU references
-run in a child process (``--cpu-reference``) beside the card's phases.
+run in a child process (``--cpu-reference``) beside the card's phases;
+the child also solves the satellite's generic route on states it draws
+itself, and the card solves the same states.
 Each phase prints one JSON line; the card's name and power limit follow as
 ``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
 with its launches on the main paths, its time per launch beside its plain
@@ -96,6 +120,10 @@ H_LONG = 256  # the long-horizon path: past the TPU kernel's VMEM bound
 BEAM_SEGMENTS, BEAM_B, BEAM_H, BEAM_DT = 16, 64, 8, 2e-6
 # scenarios of the second branch's f64 checks (phase batch_first)
 BF_B64 = 8192
+# phase belief_scenario: the f64 scenarios of the two routes' comparison
+# (the settings of tests/test_manifold_lanes.py:101-129), and those of the
+# CPU child's plain f64 solve of the generic route
+SAT_F64_B, GEN_REF_B = 256, 64
 # NVIDIA's published peaks of one H100 SXM at 700 W: HBM3 bytes/s, and
 # float32 and float64 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
@@ -339,16 +367,38 @@ def sat_config(mpc, ss_systems, device, dtype):
     return params, prob, x_ref
 
 
-def sat_states(rot_lanes, batch):
-    """e ~ N(0, 0.05 I₁₂) (numpy seed 0) retracted about the rest state:
-    p = δp, q = exp(δθ), v = δv, ω = δω (ctrl/invariant.
-    quat_state_retraction of the JAX package); (batch, 13) float64."""
-    e = torch.as_tensor(np.sqrt(0.05)
-                        * np.random.default_rng(0).standard_normal((12, batch)))
-    ident = torch.zeros(4, batch, dtype=torch.float64)
-    ident[0] = 1.0
-    q = rot_lanes.qmul_l(ident, rot_lanes.q_exp_l(e[3:6]))
-    return torch.cat([e[0:3], q, e[6:12]], dim=0).T.contiguous()
+def sat_states(belief, mpc_manifold, ss_systems, batch, device,
+               dtype=torch.float64):
+    """x0 as bench.py:243-246 draws it: the belief GaussianBelief(rest
+    state, 0.05 I₁₂) sampled in its tangent space and retracted
+    (ctrl/mpc_manifold.sample_belief_states, ss_systems.sat3D_retraction),
+    from a torch.Generator seeded 0 on ``device``; (batch, 13)."""
+    b = belief.GaussianBelief(
+        ss_systems.default_state(dtype=dtype, device=device),
+        0.05 * torch.eye(12, dtype=dtype, device=device))
+    gen = torch.Generator(device=device).manual_seed(0)
+    return mpc_manifold.sample_belief_states(
+        gen, b, batch, ret=ss_systems.sat3D_retraction())
+
+
+def manifold_cost(prob, ret, us, xs, x_ref):
+    """Each scenario's manifold tracking cost (tests/test_manifold_lanes.py
+    _traj_cost): ½ Σ eᵀQe (QN at the last step) + ½ Σ uᵀRu, e the tangent
+    from each state to the target; (B,)."""
+    e = ret.local(x_ref.expand(xs.shape), xs)
+    return 0.5 * (torch.einsum("bti,ij,btj->b", e[:, :-1], prob.Q, e[:, :-1])
+                  + torch.einsum("bi,ij,bj->b", e[:, -1], prob.QN, e[:, -1])
+                  + torch.einsum("bti,ij,btj->b", us, prob.R, us))
+
+
+def export_ltv(path, A, Bm, c, x0, Q, QN, R, lb, ub):
+    """The LTV input of native/mpc_oracle (tests/test_mpc_parity.py
+    _export): H, n, m, then the arrays in float64."""
+    H, n, m = Bm.shape
+    with open(path, "wb") as f:
+        f.write(struct.pack("<qqq", H, n, m))
+        for arr in (A, Bm, c, x0, Q, QN, R, lb, ub):
+            f.write(np.ascontiguousarray(arr, np.float64).tobytes())
 
 
 def floating_arm_config(mpc, spec, device, dtype):
@@ -410,10 +460,12 @@ def beam_states(spec):
 def cpu_reference(path):
     """The plain f64 solves on CPU tensors that the card's solves are held
     to: for the first N_REF scenarios the flagship with two SQP passes and
-    the line search and the floating arm, and the 16-segment beam's solve.
-    Saved to ``path``."""
+    the line search and the floating arm, the 16-segment beam's solve, and
+    the satellite's generic scenario MPC (ctrl/mpc_manifold) on GEN_REF_B
+    states this process draws itself.  Saved to ``path``."""
     sys.path.insert(0, ROOT)
-    from reak_tpu_torch.ctrl import manifold_lanes, mpc
+    from reak_tpu_torch.ctrl import (belief, manifold_lanes, mpc, mpc_manifold,
+                                     ss_systems)
     from reak_tpu_torch.kte import lanes, models
 
     torch.set_num_threads(4)
@@ -434,10 +486,18 @@ def cpu_reference(path):
         beam, beam_config(mpc, beam, "cpu", f64), BEAM_DT, qp_iters=ITERS)(
         torch.as_tensor(beam_states(beam)),
         torch.zeros(BEAM_B, BEAM_H, beam.nv, dtype=f64))
+    params, prob_sat, xr_sat = sat_config(mpc, ss_systems, "cpu", f64)
+    x0_gen = sat_states(belief, mpc_manifold, ss_systems, GEN_REF_B, "cpu")
+    us_gen, _ = mpc_manifold.make_scenario_mpc(
+        ss_systems.satellite3D_imdt(params, SAT_DT),
+        ss_systems.sat3D_retraction(), prob_sat, qp_iters=ITERS,
+        sqp_iters=2)(x0_gen, xr_sat,
+                     torch.zeros(GEN_REF_B, SAT_H, 6, dtype=f64))
     tmp = f"{path}.tmp.npz"
     np.savez(tmp, flagship_sqp_us=us_flag.numpy(), floating_arm_us=us_fa.numpy(),
              floating_arm_xs=xs_fa.numpy(), beam_us=us_bm.numpy(),
-             beam_xs=xs_bm.numpy(), seconds=time.perf_counter() - t0)
+             beam_xs=xs_bm.numpy(), generic_x0=x0_gen.numpy(),
+             generic_us=us_gen.numpy(), seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
 
@@ -508,10 +568,10 @@ def main():
 
 
 def smoke(reak_tpu_torch, child, ref_path, build_seconds):
-    from reak_tpu_torch.ctrl import (manifold_lanes, mpc, riccati_soa,
-                                     ss_systems)
-    from reak_tpu_torch.kte import lanes, models
-    from reak_tpu_torch.math import rot_lanes
+    from reak_tpu_torch.ctrl import (belief, invariant, manifold_lanes, mpc,
+                                     mpc_manifold, riccati_soa, ss_systems,
+                                     systems)
+    from reak_tpu_torch.kte import lanes, models, soa
     from reak_tpu_torch.ops import (_build, _tile, chol_lanes, kte_core,
                                     kte_step, pdip_whole, riccati_bwd)
 
@@ -569,10 +629,11 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                 for e in riccati_bwd.launches:
                     wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib,
                                                        f"{e}_kernel{w}")
-    # K3a/K3b: the unrolled instances of the hot widths, and the instance
-    # of any other width (0)
+    # K3a/K3b: the unrolled instances of the hot widths (n = 1 and 2: the
+    # dense MPC's Schur solves), and the instance of any other width (0)
     wanted.update({f"chol_lanes<{w}>": ("chol_lanes", f"chol_lanes_kernel{w}")
-                   for w in ("IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E",
+                   for w in ("IfLi1E", "IdLi1E", "IfLi2E", "IdLi2E",
+                             "IfLi6E", "IdLi6E", "IfLi12E", "IdLi12E",
                              "IfLi0E", "IdLi0E")})
     # the runtime-width tile of each type
     for t, suffix in (("f", "f32"), ("d", "f64")):
@@ -874,6 +935,13 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                                # lqr_backward's G⁻¹F on the batch-first
                                # routes (phase batch_first)
                                ("solve_lanes_multi", 6, 12, B),
+                               # the dense MPC's Schur solves (phase
+                               # dense_and_closed_loop: m = 2, n = 4, and
+                               # the double integrator's m = 1, n = 2)
+                               ("solve_lanes", 2, 1, 1),
+                               ("solve_lanes_multi", 2, 4, 1),
+                               ("solve_lanes", 1, 1, 1),
+                               ("solve_lanes_multi", 1, 2, 1),
                                ("solve", 12, 1, FA_B)] + k3_wide \
             + k3_workspace:
         G_np, r_np = spd(n, batch), rng.standard_normal((n, k, batch))
@@ -1416,7 +1484,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     # ---- the satellite scenario MPC (bench.py:223-263) -------------------
     params, prob_sat32, xr_sat32 = sat_config(mpc, ss_systems, dev, f32)
     _, prob_sat64, xr_sat64 = sat_config(mpc, ss_systems, dev, f64)
-    x0_sat = sat_states(rot_lanes, SAT_B).to(dev)
+    x0_sat = sat_states(belief, mpc_manifold, ss_systems, SAT_B, dev)
     u0_sat = torch.zeros(SAT_B, SAT_H, 6, dtype=f64, device=dev)
     sat32 = manifold_lanes.make_sat_scenario_mpc_lanes(
         params, prob_sat32, SAT_DT, qp_iters=ITERS, sqp_iters=2)
@@ -1503,6 +1571,157 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                                                     u0_fa32))
     fa_warm_launches = counts()
 
+    # ---- the generic dense MPC and the closed loop, f64 -------------------
+    # ctrl/mpc.solve on the LTV data of tests/test_mpc_parity.py:75-140
+    # (planar_2link, dt 0.02, x0 (0.4, -0.2, 0.1, 0.05), Q = I, QN = 5 I,
+    # R = 0.1 I, ±3, 30 iterations; the LTV from kte/soa's rollout, passed
+    # in through linearizer=): method "riccati" (H = 12; K3a 2·30·H and K3b
+    # 30·H at B = 1) and "condensed" (H = 8; the dense Cholesky in torch),
+    # each against native/mpc_oracle (≤1e-4, with active bounds);
+    # receding_horizon on the double integrator of tests/test_qp_mpc.py:
+    # 143-156 (‖x₈₀‖ < 1e-2); the closed loop of tests/test_tracking_mpc.py:
+    # 123-156 (planar_2link, make_kte_mpc re-solved each step against the
+    # kte_discrete plant, 60 steps: position error < 0.05, rates < 0.1; on
+    # the card its rollout is K1, the CPU test takes the plain lanes one); make_kte_scenario_mpc on both branches, each equal bit
+    # for bit to the call it routes to: the flagship arm (B, one pass, K1 +
+    # K2) and the floating arm (N_REF scenarios, its lanes SQP on K2 and
+    # K3).  It needs none of the CPU child's references, so it runs while
+    # the child may still be running, before the wait for it.
+    p2 = models.planar_2link()
+    dc = {"phase": "dense_and_closed_loop", "dtype": "float64", "dense": {}}
+    x0_d = np.array([0.4, -0.2, 0.1, 0.05])
+    Q_d, QN_d, R_d = np.eye(4), 5.0 * np.eye(4), 0.1 * np.eye(2)
+    lb_d, ub_d = np.full(2, -3.0), np.full(2, 3.0)
+    plant = systems.kte_discrete(p2, 0.02)
+    for method, H_d in (("riccati", 12), ("condensed", 8)):
+        A_d, B_d, c_d, _ = (a[0] for a in soa.make_rollout_ltv_soa(
+            p2, 0.02, H_d)(on(x0_d[None], f64),
+                           torch.zeros(1, H_d, 2, dtype=f64, device=dev)))
+        fin_d = _build.BUILD_DIR / f"oracle_ltv_{method}.bin"
+        fout_d = _build.BUILD_DIR / f"u_ltv_{method}.bin"
+        export_ltv(fin_d, *(a.cpu().numpy() for a in (A_d, B_d, c_d)), x0_d,
+                   Q_d, QN_d, R_d, lb_d, ub_d)
+        subprocess.run([str(oracle), str(fin_d), str(fout_d)], check=True,
+                       timeout=120)
+        u_ltv = np.fromfile(fout_d, np.float64).reshape(H_d, 2)
+        prob_d = mpc.MPCProblem(Q=on(Q_d, f64), R=on(R_d, f64),
+                                QN=on(QN_d, f64), u_min=on(lb_d, f64),
+                                u_max=on(ub_d, f64), horizon=H_d)
+        reset_counts()
+        sol_d, ms_d = timed(lambda: mpc.solve(
+            plant, prob_d, on(x0_d, f64), qp_iters=30, method=method,
+            linearizer=lambda xs_, us_: (A_d, B_d, c_d)))
+        runs = counts()
+        if method == "riccati":
+            main_runs["dense_solve"] = runs
+        want = ({"chol_lanes.solve_lanes": 2 * 30 * H_d,
+                 "chol_lanes.solve_lanes_multi": 30 * H_d}
+                if method == "riccati" else {})
+        want = {k: want.get(k, 0) for k in runs}
+        err_d = float(np.abs(sol_d.u.cpu().numpy() - u_ltv).max())
+        active_d = int(np.sum((np.abs(u_ltv - lb_d) < 1e-6)
+                              | (np.abs(u_ltv - ub_d) < 1e-6)))
+        dc["dense"][method] = {"H": H_d, "iters": 30, "ms": ms_d,
+                               "launches": runs, "max_abs_u_vs_oracle": err_d,
+                               "active_bounds": active_d}
+        check(runs == want, f"mpc.solve({method}) launched {runs}, expected "
+              f"{want}")
+        check(err_d <= 1e-4, f"mpc.solve({method}) vs the C++ oracle "
+              f"{err_d:.2e} > 1e-4")
+        check(active_d > 0, f"no active bound on the {method} instance")
+    # receding horizon on the double integrator
+    A_di = on([[1.0, 0.1], [0.0, 1.0]], f64)
+    B_di = on([[0.005], [0.1]], f64)
+    prob_di = mpc.MPCProblem(Q=torch.eye(2, dtype=f64, device=dev),
+                             R=0.1 * torch.eye(1, dtype=f64, device=dev),
+                             QN=10.0 * torch.eye(2, dtype=f64, device=dev),
+                             u_min=on([-2.0], f64), u_max=on([2.0], f64),
+                             horizon=15)
+    (xs_rh, us_rh), ms_rh = timed(lambda: mpc.receding_horizon(
+        systems.lti_discrete(A_di, B_di), prob_di, on([1.5, 0.0], f64), 80,
+        qp_iters=12))
+    dc["receding_horizon"] = {"steps": 80, "H": 15, "ms": ms_rh,
+                              "final_norm": float(torch.linalg.vector_norm(
+                                  xs_rh[-1]))}
+    check(dc["receding_horizon"]["final_norm"] < 1e-2,
+          "receding_horizon did not stabilize the double integrator")
+    # the closed loop of tests/test_tracking_mpc.py:123-156
+    H_cl, m_cl, dt_cl = 20, 2, 0.05
+    prob_cl = mpc.MPCProblem(
+        Q=torch.diag(on([10.0, 10.0, 1.0, 1.0], f64)),
+        R=1e-3 * torch.eye(m_cl, dtype=f64, device=dev),
+        QN=torch.diag(on([50.0, 50.0, 5.0, 5.0], f64)),
+        u_min=on(np.full(m_cl, -30.0), f64),
+        u_max=on(np.full(m_cl, 30.0), f64), horizon=H_cl)
+    x_ref_cl = on([0.4, -0.3, 0.0, 0.0], f64)
+    solver_cl = mpc.make_kte_mpc(p2, prob_cl, dt_cl, qp_iters=8, sqp_iters=1)
+    plant_cl = systems.kte_discrete(p2, dt_cl)
+    u0_cl = torch.zeros(1, H_cl, m_cl, dtype=f64, device=dev)
+
+    def closed_loop():
+        x = torch.zeros(4, dtype=f64, device=dev)
+        for _ in range(60):
+            us_cl, _ = solver_cl(x[None], u0_cl, x_ref=x_ref_cl)
+            x = plant_cl(x, us_cl[0, 0])
+        return x
+
+    reset_counts()
+    x_cl, ms_cl = timed(closed_loop)
+    main_runs["closed_loop"] = counts()
+    dc["closed_loop"] = {
+        "steps": 60, "ms": ms_cl, "launches": main_runs["closed_loop"],
+        "max_pos_err": float((x_cl[0:2] - x_ref_cl[0:2]).abs().max()),
+        "max_rate": float(x_cl[2:4].abs().max())}
+    check(main_runs["closed_loop"]["kte_step"] == 60 * H_cl
+          and main_runs["closed_loop"]["pdip_whole"] == 60,
+          f"the closed loop did not solve each step on K1 and K2: "
+          f"{main_runs['closed_loop']}")
+    check(dc["closed_loop"]["max_pos_err"] < 0.05
+          and dc["closed_loop"]["max_rate"] < 0.1,
+          f"the closed loop missed its target: {dc['closed_loop']}")
+    # make_kte_scenario_mpc, both branches, bit for bit the direct calls
+    prob_fx = flagship_problem(mpc, dev, f64)
+    x0_fx = on(x0_np, f64)
+    xr_fx = torch.zeros(N, dtype=f64, device=dev)
+    xr_fx[0:3] = on([0.3, -0.2, 0.1], f64)
+    u0_fx = torch.zeros(B, H, M, dtype=f64, device=dev)
+    reset_counts()
+    got_fx = mpc_manifold.make_kte_scenario_mpc(
+        spec, prob_fx, DT, qp_iters=ITERS, sqp_iters=1)(x0_fx, xr_fx, u0_fx)
+    main_runs["kte_scenario.fixed"] = counts()
+    want_fx = mpc.make_kte_mpc(spec, prob_fx, DT, qp_iters=ITERS,
+                               sqp_iters=1)(x0_fx, u0_fx, x_ref=xr_fx)
+    x0_fr = on(x0_fa_np[:N_REF], f64)
+    u0_fr = torch.zeros(N_REF, FA_H, nv_fa, dtype=f64, device=dev)
+    reset_counts()
+    got_fr = mpc_manifold.make_kte_scenario_mpc(
+        fa, prob_fa64, FA_DT, qp_iters=ITERS)(x0_fr, xr_fa64, u0_fr)
+    main_runs["kte_scenario.free"] = counts()
+    want_fr = manifold_lanes.make_scenario_mpc_lanes(
+        *lanes.make_kte_manifold_lanes(fa, FA_DT), prob_fa64,
+        tangent_dim=2 * nv_fa, quat_index=3, qp_iters=ITERS, sqp_iters=2)(
+        x0_fr, xr_fa64, u0_fr)
+    dc["kte_scenario"] = {
+        "fixed": {"chain": spec.name, "B": B, "H": H, "sqp_iters": 1,
+                  "launches": main_runs["kte_scenario.fixed"],
+                  "bitwise": all(torch.equal(a, b)
+                                 for a, b in zip(got_fx, want_fx))},
+        "free": {"chain": fa.name, "B": N_REF, "H": FA_H, "sqp_iters": 2,
+                 "launches": main_runs["kte_scenario.free"],
+                 "bitwise": all(torch.equal(a, b)
+                                for a, b in zip(got_fr, want_fr))}}
+    emit(dc)
+    fixed_runs = main_runs["kte_scenario.fixed"]
+    check(fixed_runs["kte_step"] == H and fixed_runs["pdip_whole"] == 1,
+          f"the fixed branch did not run on K1 and K2: {fixed_runs}")
+    check(main_runs["kte_scenario.free"]["pdip_whole"] == 2,
+          "the free branch did not run a K2 launch a pass")
+    for branch in ("fixed", "free"):
+        check(dc["kte_scenario"][branch]["bitwise"],
+              f"make_kte_scenario_mpc's {branch} branch differs from the "
+              "call it routes to")
+    del got_fx, want_fx, got_fr, want_fr, x0_fx, u0_fx
+
     refs, ref_wait = cpu_references()
     err2 = np.abs(us2[:N_REF].double().cpu().numpy()
                   - refs["flagship_sqp_us"]).max(axis=(1, 2))
@@ -1572,6 +1791,155 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
           "floating-arm outputs are not finite or of the wrong shape")
     check(err_fa <= 1e-3,
           "floating-arm f32 controls more than 1e-3 from the CPU f64 solve")
+
+    # ---- the belief-sampled scenario MPC (bench.py:223-247, config 4) ----
+    # The satellite of phase free_base_sat (mass 10, inertia diag(4, 5, 6),
+    # tangent n = 12, m = 6, H = SAT_H, dt = SAT_DT, ±20, ITERS iterations,
+    # 2 SQP passes) from the x0 that sample_belief_states drew, on two
+    # routes in f32 at B = SAT_B, each timed by CUDA events on a second
+    # call:
+    #   lanes    ctrl/manifold_lanes.make_sat_scenario_mpc_lanes: the
+    #            analytic lanes step and LTV, the QP on K2 in its x_ref
+    #            mode, one launch a pass;
+    #   generic  ctrl/mpc_manifold.make_scenario_mpc on ss_systems.
+    #            satellite3D_imdt: the jacfwd linearization under vmap, then
+    #            the batch-first Riccati PDIP (ctrl/riccati.py), each stage
+    #            one K3b (G⁻¹F) and two K3a (the vector passes) over the
+    #            whole batch: K3a = 2·ITERS·H and K3b = ITERS·H a pass.
+    # Then at f64: the two routes on SAT_F64_B scenarios with the settings
+    # of tests/test_manifold_lanes.py:101-129 (10 iterations, 4 passes;
+    # cost within 2e-3 relative, controls within 0.02 of their scale); the
+    # generic route against the CPU child's plain f64 solve of its
+    # GEN_REF_B scenarios (≤1e-8 relative); and the config-4 composition:
+    # 12 IEKF steps on the card (the arc of tests/test_qp_mpc.py:239-266),
+    # then belief_scenario_mpc on that posterior at B = SAT_B in f32, every
+    # scenario within 0.2 of the target position.
+    F_sat = ss_systems.satellite3D_imdt(params, SAT_DT)
+    ret_sat = ss_systems.sat3D_retraction()
+    x0_s32 = sat_states(belief, mpc_manifold, ss_systems, SAT_B, dev, f32)
+    unit_err = lambda xs_: float((torch.linalg.vector_norm(
+        xs_[:, 3:7].double(), dim=1) - 1.0).abs().max())
+    bs = {"phase": "belief_scenario", "B": SAT_B, "H": SAT_H, "dt": SAT_DT,
+          "iters": ITERS, "sqp_iters": 2, "dtype": "float32",
+          "sampled_quat_unit_err": {"f64": unit_err(x0_sat),
+                                    "f32": unit_err(x0_s32)},
+          "routes": {}}
+    check(bs["sampled_quat_unit_err"]["f64"] <= 1e-12
+          and bs["sampled_quat_unit_err"]["f32"] <= 1e-6,
+          f"a sampled quaternion is not unit: {bs['sampled_quat_unit_err']}")
+    sat_routes = {
+        "lanes": lambda prob, it, sqp: manifold_lanes.make_sat_scenario_mpc_lanes(
+            params, prob, SAT_DT, qp_iters=it, sqp_iters=sqp),
+        "generic": lambda prob, it, sqp: mpc_manifold.make_scenario_mpc(
+            F_sat, ret_sat, prob, qp_iters=it, sqp_iters=sqp)}
+    want_launches = {
+        "lanes": {"pdip_whole": 2},
+        "generic": {"chol_lanes.solve_lanes": 2 * 2 * ITERS * SAT_H,
+                    "chol_lanes.solve_lanes_multi": 2 * ITERS * SAT_H}}
+    x0_sat32, u0_sat32 = x0_sat.to(f32), u0_sat.to(f32)
+    us_route = {}
+    for name, make in sat_routes.items():
+        solver = make(prob_sat32, ITERS, 2)
+        _, first_ms = timed(lambda: solver(x0_sat32, xr_sat32, u0_sat32))
+        reset_counts()
+        (us_r, xs_r), ms = timed(lambda: solver(x0_sat32, xr_sat32, u0_sat32))
+        runs = main_runs[f"belief_scenario.{name}"] = counts()
+        bs["routes"][name] = {"first_ms": first_ms, "ms": ms,
+                              "solves_per_s": SAT_B / ms * 1e3,
+                              "launches_per_solve": runs}
+        want = {k: want_launches[name].get(k, 0) for k in runs}
+        check(runs == want, f"the {name} satellite route launched {runs}, "
+              f"expected {want}")
+        check(tuple(us_r.shape) == (SAT_B, SAT_H, 6)
+              and tuple(xs_r.shape) == (SAT_B, SAT_H, 13)
+              and bool(torch.isfinite(us_r).all())
+              and bool(torch.isfinite(xs_r).all()),
+              f"the {name} satellite route's outputs are not finite or of "
+              "the wrong shape")
+        us_route[name] = us_r
+        del xs_r
+    # the generic route's f32 controls against its own f64 solve
+    us_g64, _ = sat_routes["generic"](prob_sat64, ITERS, 2)(
+        x0_sat[:SAT_F64_B], xr_sat64, u0_sat[:SAT_F64_B])
+    bs["routes"]["generic"]["max_abs_u_vs_f64"] = abs_err(
+        us_route["generic"][:SAT_F64_B], us_g64)
+    check(bs["routes"]["generic"]["max_abs_u_vs_f64"] <= 1e-3,
+          "generic satellite f32 controls more than 1e-3 from its f64 solve")
+    # the two routes at f64, the settings of tests/test_manifold_lanes.py
+    us_c, xs_c = {}, {}
+    for name, make in sat_routes.items():
+        us_c[name], xs_c[name] = make(prob_sat64, 10, 4)(
+            x0_sat[:SAT_F64_B], xr_sat64, u0_sat[:SAT_F64_B])
+    c_l, c_g = (manifold_cost(prob_sat64, ret_sat, us_c[k], xs_c[k], xr_sat64)
+                for k in ("lanes", "generic"))
+    scale = float(us_c["generic"].abs().max())
+    bs["f64_lanes_vs_generic"] = {
+        "B": SAT_F64_B, "iters": 10, "sqp_iters": 4,
+        "max_cost_rel": float(((c_l - c_g).abs()
+                               / torch.clamp(c_g.abs(), min=1.0)).max()),
+        "max_abs_u": abs_err(us_c["lanes"], us_c["generic"]),
+        "u_scale": scale}
+    check(bs["f64_lanes_vs_generic"]["max_cost_rel"] < 2e-3,
+          "the lanes and generic satellite routes' costs differ by 2e-3")
+    check(bs["f64_lanes_vs_generic"]["max_abs_u"] < 0.02 * max(scale, 1.0),
+          "the lanes and generic satellite routes' controls differ")
+    # the generic route against the CPU child's plain f64 solve
+    x0_gen = on(refs["generic_x0"], f64)
+    us_gc, _ = sat_routes["generic"](prob_sat64, ITERS, 2)(
+        x0_gen, xr_sat64, torch.zeros(GEN_REF_B, SAT_H, 6, dtype=f64,
+                                      device=dev))
+    bs["generic_f64_rel_vs_cpu"] = rel_err(
+        us_gc.cpu(), torch.as_tensor(refs["generic_us"]))
+    check(bs["generic_f64_rel_vs_cpu"] <= 1e-8,
+          "the generic satellite route at f64 against the CPU child's solve")
+    del us_c, xs_c, us_g64, us_gc
+    # the config-4 composition: the IEKF arc, then the sampled scenarios
+    Q_n = 1e-6 * torch.eye(12, dtype=f64, device=dev)
+    R_n = torch.diag(on(np.r_[np.full(3, 1e-4), np.full(3, 1e-5)], f64))
+    x_true = ss_systems.default_state(device=dev)
+    x_true[10:13] = on([0.02, -0.01, 0.03], f64)
+    b_post = belief.GaussianBelief(ss_systems.default_state(device=dev),
+                                   0.1 * torch.eye(12, dtype=f64, device=dev))
+    u_zero = torch.zeros(6, dtype=f64, device=dev)
+    rng7 = np.random.default_rng(7)
+    t_iekf = time.perf_counter()
+    for _ in range(12):
+        x_true = F_sat(x_true, u_zero)
+        z = ss_systems.h_pose(x_true) + torch.cat([
+            on(rng7.normal(0, 1e-2, 3), f64), torch.zeros(4, dtype=f64,
+                                                           device=dev)])
+        b_post = invariant.iekf_step(F_sat, ss_systems.h_pose, ret_sat,
+                                     b_post, u_zero, z, Q_n, R_n,
+                                     diff=ss_systems.pose_innovation)
+    torch.cuda.synchronize()
+    t_iekf = time.perf_counter() - t_iekf
+    e_post = ret_sat.local(x_true, b_post.mean)
+    x_tgt = ss_systems.default_state(dtype=f32, device=dev)
+    x_tgt[0:3] = on([0.5, -0.2, 0.3], f32)
+    reset_counts()
+    (x0_4, us_4, xs_4), t_c4 = timed(lambda: mpc_manifold.belief_scenario_mpc(
+        torch.Generator(device=dev).manual_seed(3), F_sat, ret_sat,
+        prob_sat32, belief.GaussianBelief(b_post.mean.float(),
+                                          b_post.cov.float()),
+        SAT_B, x_tgt, qp_iters=ITERS, sqp_iters=2))
+    main_runs["belief_scenario.config4"] = counts()
+    perr = torch.linalg.vector_norm(xs_4[:, -1, 0:3] - x_tgt[0:3], dim=-1)
+    bs["config4"] = {
+        "iekf_steps": 12, "iekf_s": t_iekf,
+        "posterior_tangent_err": float(torch.linalg.vector_norm(e_post[0:6])),
+        "B": SAT_B, "ms": t_c4, "solves_per_s": SAT_B / t_c4 * 1e3,
+        "launches": main_runs["belief_scenario.config4"],
+        "sampled_quat_unit_err": unit_err(x0_4),
+        "max_target_pos_err": float(perr.max())}
+    emit(bs)
+    check(bs["config4"]["posterior_tangent_err"] < 0.05,
+          "the IEKF posterior is not within 0.05 of the true state")
+    check(bs["config4"]["sampled_quat_unit_err"] <= 1e-6,
+          "a quaternion the posterior sampled is not unit")
+    check(bool(torch.isfinite(us_4).all()) and bs["config4"][
+        "max_target_pos_err"] < 0.2,
+          "a belief-sampled scenario ends more than 0.2 from the target")
+    del x0_4, us_4, xs_4, x0_s32, us_route, x0_sat32, u0_sat32
 
     # ---- the widest instances, f64 ----------------------------------------
     # K1/K5 on the 16-segment beam (16 joints, n = 32) at B = 77 and 1001;

@@ -17,9 +17,13 @@ several SQP passes, and the JAX package's cross-check routes
 (``reak_tpu_torch.ctrl.manifold_lanes``), and the long-horizon chain on the
 rollout core and the per-pass PDIP (``kte.lanes.make_rollout_ltv_fused``,
 ``ctrl.riccati_soa.solve_box_mpc_riccati_soa_fused(use_kernels="passes")``);
-every Pallas kernel of the JAX package has its CUDA counterpart, and on
-CUDA tensors they take every width the JAX package takes (past their
-compile-time instances on runtime-width ones).
+the belief-sampled scenario MPC and the generic MPC entry points
+(``ctrl.mpc_manifold``, batch first; ``ctrl.mpc.solve`` and
+``receding_horizon``; ``ctrl.belief``, ``ctrl.invariant``, ``ctrl.qp``,
+``ctrl.systems``, ``ctrl.ss_systems``, ``kte.dynamics``, ``math.rotations``,
+``math.frames``, ``errors``); every Pallas kernel of the JAX package has its
+CUDA counterpart, and on CUDA tensors they take every width the JAX
+package takes (past their compile-time instances on runtime-width ones).
 
 Importing the package changes no global torch state and needs neither CUDA
 nor a compiler; the kernels are built at their first launch.

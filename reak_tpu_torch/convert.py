@@ -1,17 +1,20 @@
 """Carry parameters across from the JAX package to the port.
 
 Each function duck-types its argument: anything with the fields of
-``ChainSpec``, ``MPCProblem`` or ``SatelliteParams`` as numbers, tuples,
-numpy arrays or arrays that ``numpy.asarray`` reads.  Nothing here imports
-JAX.
+``ChainSpec``, ``MPCProblem``, ``GaussianBelief``, ``SatelliteParams``,
+``AirshipParams`` or ``QuadrotorParams`` as numbers, tuples, numpy arrays
+or arrays that ``numpy.asarray`` reads.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from reak_tpu_torch.ctrl.belief import GaussianBelief
 from reak_tpu_torch.ctrl.mpc import MPCProblem
-from reak_tpu_torch.ctrl.ss_systems import SatelliteParams, satellite3D
+from reak_tpu_torch.ctrl.ss_systems import (AirshipParams, QuadrotorParams,
+                                            SatelliteParams, airship3D,
+                                            quadrotor, satellite3D)
 from reak_tpu_torch.kte.spec import ChainSpec
 
 
@@ -52,3 +55,28 @@ def satellite_from(obj) -> SatelliteParams:
     and inertia of ``obj``."""
     return satellite3D(mass=float(np.asarray(obj.mass)),
                        inertia=np.array(obj.inertia, np.float64))
+
+
+def belief_from(obj, device, dtype) -> GaussianBelief:
+    """The port's ``GaussianBelief`` with the mean and covariance of
+    ``obj``, as tensors of ``dtype`` on ``device``."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return GaussianBelief(mean=t(obj.mean), cov=t(obj.cov))
+
+
+def airship_from(obj) -> AirshipParams:
+    """The port's ``AirshipParams`` (float64 CPU tensors) with the fields of
+    ``obj``."""
+    f = lambda a: np.array(a, np.float64)
+    return airship3D(mass=f(obj.mass), inertia=f(obj.inertia),
+                     buoyancy=f(obj.buoyancy), r_cm=f(obj.r_cm),
+                     drag_lin=f(obj.drag_lin), drag_rot=f(obj.drag_rot),
+                     gravity=f(obj.gravity))
+
+
+def quadrotor_from(obj) -> QuadrotorParams:
+    """The port's ``QuadrotorParams`` (float64 CPU tensors) with the fields
+    of ``obj``."""
+    f = lambda a: np.array(a, np.float64)
+    return quadrotor(mass=f(obj.mass), inertia=f(obj.inertia), arm=f(obj.arm),
+                     k_torque=f(obj.k_torque), gravity=f(obj.gravity))

@@ -1,2 +1,3 @@
-"""Control (port of ``reak_tpu.ctrl``): the lanes Riccati PDIP and the
-batched KTE-MPC solver."""
+"""Control (port of ``reak_tpu.ctrl``): the batched KTE-MPC solvers, the
+Riccati PDIPs, the scenario MPC on manifolds, the generic MPC, the dense
+QPs, the vehicle models, beliefs and the invariant EKF."""

@@ -1,4 +1,5 @@
-"""Batched KTE-MPC (port of ``make_kte_mpc`` of ``reak_tpu/ctrl/mpc.py``).
+"""MPC (port of ``reak_tpu/ctrl/mpc.py``): the batched KTE-MPC
+``make_kte_mpc`` and the generic MPC of one scenario, ``solve``.
 
 The lanes branch, the default: one SQP pass is the lanes rollout + LTV
 linearization of a fixed-base chain (kte/lanes.py), then the
@@ -13,18 +14,31 @@ JAX package's cross-check: the batch-first lanes rollout or the
 register-form one (kte/soa.py), then the batch-first Riccati PDIP
 (ctrl/riccati.py, its Schur solves on K3a/K3b on CUDA tensors) or the
 unfused lanes PDIP (ctrl/riccati_soa.solve_box_mpc_riccati_soa, on K3b).
+
+The generic MPC of one scenario (``solve``, ``receding_horizon``): a
+nominal rollout of any discrete dynamics F, its LTV linearization
+(``torch.func.jacfwd`` under ``torch.func.vmap``, the exponential series of
+a continuous f, or a caller's ``linearizer``), then either the batch-first
+Riccati PDIP (``method="riccati"``: each stage's Schur solve one K3a or
+K3b launch on CUDA tensors) or the condensed QP (``condense``,
+``build_qp``, ``ctrl/qp.solve_box_qp``: a dense (H·m)² Cholesky through
+``torch.linalg.cholesky``, as the JAX package has it outside any kernel).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.func import jacfwd
 
+from reak_tpu_torch.ctrl.qp import QPResult, solve_box_qp
 from reak_tpu_torch.ctrl.riccati import solve_box_mpc_riccati
 from reak_tpu_torch.ctrl.riccati_soa import (solve_box_mpc_riccati_soa,
                                              solve_box_mpc_riccati_soa_fused)
+from reak_tpu_torch.ctrl.systems import _per_point, linearize_discrete_series
 from reak_tpu_torch.kte import lanes, soa
+from reak_tpu_torch.math.linalg import solve_pd
 
 
 class MPCProblem(NamedTuple):
@@ -36,6 +50,185 @@ class MPCProblem(NamedTuple):
     u_min: torch.Tensor  # (m,)
     u_max: torch.Tensor  # (m,)
     horizon: int
+
+
+class MPCSolution(NamedTuple):
+    u: torch.Tensor  # (H, m) optimal input sequence
+    x: torch.Tensor  # (H, n) predicted states under u (linear model)
+    qp: QPResult
+
+
+def solution_status(sol: MPCSolution, gap_tol: float = 1e-6):
+    """Status flags of an MPC solution (an ``errors`` bitmask): NONFINITE
+    when the plan blew up, NOT_CONVERGED when the PDIP complementarity gap
+    is above tolerance."""
+    from reak_tpu_torch import errors
+
+    return errors.finite_flag(sol.u, sol.x) | errors.convergence_flag(
+        sol.qp.gap, gap_tol)
+
+
+def rollout_nominal(F: Callable, x0, u_seq):
+    """Roll the discrete dynamics under a nominal input sequence (..., H, m)
+    → (..., H, n); F takes the leading axes of x0 and u_seq."""
+    x, xs = x0, []
+    for t in range(u_seq.shape[-2]):
+        x = F(x, u_seq[..., t, :])
+        xs.append(x)
+    return torch.stack(xs, dim=-2)
+
+
+def linearize_ltv(F: Callable, xs, us):
+    """Per-step Jacobians along a trajectory (..., H, ·): A_t, B_t, c_t with
+    x_{t+1} = A_t x_t + B_t u_t + c_t (jacfwd under vmap)."""
+
+    def lin(x, u):
+        A = jacfwd(lambda xx: F(xx, u))(x)
+        B = jacfwd(lambda uu: F(x, uu))(u)
+        c = F(x, u) - A @ x - B @ u
+        return A, B, c
+
+    return _per_point(lin, xs, us)
+
+
+def linearize_ltv_series(f_cont: Callable, dt: float, xs, us,
+                         order: int = 4):
+    """Per-step discrete linearization from the CONTINUOUS dynamics by the
+    truncated exponential series (one jacfwd a step instead of AD through
+    the RK stages; ``systems.linearize_discrete_series``)."""
+    def lin(x, u):
+        md = linearize_discrete_series(f_cont, x, u, dt, order)
+        return md.A, md.B, md.c
+
+    return _per_point(lin, xs, us)
+
+
+def condense(A_seq, B_seq, c_seq, x0):
+    """Prediction matrices of one scenario:  X = Sx·x0 + Su·U + d, with X
+    the stacked x_1..x_H (H·n) and U the stacked u_0..u_{H-1} (H·m)."""
+    H, n, m = B_seq.shape[0], A_seq.shape[-1], B_seq.shape[-1]
+    dtype, device = A_seq.dtype, A_seq.device
+    phi = torch.zeros((n, H * m), dtype=dtype, device=device)
+    d = torch.zeros(n, dtype=dtype, device=device)
+    P = torch.eye(n, dtype=dtype, device=device)
+    phis, ds, Ps = [], [], []
+    for t in range(H):
+        # x_{t+1} = A x_t + B u_t + c, with x_t = phi·U + (Sx row)·x0 + d
+        phi = A_seq[t] @ phi
+        phi = torch.cat([phi[:, :t * m], B_seq[t], phi[:, (t + 1) * m:]],
+                        dim=1)
+        d = A_seq[t] @ d + c_seq[t]
+        P = A_seq[t] @ P  # Phi_t = A_t···A_0
+        phis.append(phi)
+        ds.append(d)
+        Ps.append(P)
+    Su = torch.stack(phis).reshape(H * n, H * m)
+    Sx = torch.stack(Ps).reshape(H * n, n)
+    return Sx, Su, torch.stack(ds).reshape(H * n)
+
+
+def build_qp(problem: MPCProblem, Sx, Su, d, x0, x_ref=None, u_ref=None):
+    """Condensed QP data:  min ½UᵀH_qp U + gᵀU  with box bounds, where
+    H_qp = SuᵀQ̄Su + R̄,  g = SuᵀQ̄(Sx x0 + d − Xref) − R̄·Uref and
+    Q̄ = blockdiag(Q, …, Q, QN)."""
+    H, n, m = problem.horizon, problem.Q.shape[-1], problem.R.shape[-1]
+    free = Sx @ x0 + d  # (H·n,) free response
+    if x_ref is not None:
+        free = free - x_ref.reshape(H * n)
+
+    def apply_Qbar(X):  # (H·n, k) → (H·n, k)
+        Xs = X.reshape(H, n, -1)
+        QX = torch.cat([problem.Q @ Xs[:-1], problem.QN @ Xs[-1:]])
+        return QX.reshape(H * n, -1)
+
+    Rbar = torch.kron(torch.eye(H, dtype=Su.dtype, device=Su.device),
+                      problem.R)
+    H_qp = Su.T @ apply_Qbar(Su) + Rbar
+    g = Su.T @ apply_Qbar(free[:, None])[:, 0]
+    if u_ref is not None:
+        g = g - Rbar @ u_ref.reshape(H * m)
+    return H_qp, g
+
+
+def solve(F: Callable, problem: MPCProblem, x0, u_init=None, x_ref=None,
+          u_ref=None, qp_iters: int = 15, sqp_iters: int = 1,
+          constrained: bool = True, f_cont: Optional[Callable] = None,
+          dt: Optional[float] = None, linearizer: Optional[Callable] = None,
+          method: str = "riccati") -> MPCSolution:
+    """One MPC solve of one scenario x0 (n,): linearize about a nominal,
+    then the QP.
+
+    ``sqp_iters > 1`` re-linearizes about the previous solution.  The LTV
+    model comes from ``linearizer(xs_prev, u) → (A, B, c)`` when given,
+    else from the continuous ``f_cont`` by the exponential series with step
+    ``dt`` when given, else from jacfwd of F.
+
+    ``method``:
+      - "riccati" (default, with ``constrained``): the batch-first Riccati
+        interior point (``ctrl/riccati.solve_box_mpc_riccati``),
+        O(H·(n+m)³); on CUDA tensors each stage's Schur solve is one K3a or
+        K3b launch.
+      - "condensed" (or ``constrained=False``): the dense condensed QP,
+        prediction matrices and the PDIP with an (H·m)² Cholesky, or the
+        unconstrained solve −H_qp⁻¹g."""
+    Hh, m = problem.horizon, problem.R.shape[-1]
+    n = problem.Q.shape[-1]
+    dtype, device = x0.dtype, x0.device
+    u = (torch.zeros((Hh, m), dtype=dtype, device=device) if u_init is None
+         else u_init)
+    lb = problem.u_min.repeat(Hh)
+    ub = problem.u_max.repeat(Hh)
+
+    qp_res = None
+    for _ in range(sqp_iters):
+        xs = rollout_nominal(F, x0, u)
+        xs_prev = torch.cat([x0[None], xs[:-1]], dim=0)
+        if linearizer is not None:
+            A_seq, B_seq, c_seq = linearizer(xs_prev, u)
+        elif f_cont is not None:
+            A_seq, B_seq, c_seq = linearize_ltv_series(f_cont, dt, xs_prev, u)
+        else:
+            A_seq, B_seq, c_seq = linearize_ltv(F, xs_prev, u)
+
+        if method == "riccati" and constrained:
+            u, xs_pred = solve_box_mpc_riccati(
+                A_seq, B_seq, c_seq, problem.Q, problem.QN, problem.R, x0,
+                problem.u_min, problem.u_max, x_ref=x_ref, u_ref=u_ref,
+                iters=qp_iters)
+            qp_res = QPResult(x=u.reshape(-1), iters=torch.tensor(qp_iters),
+                              gap=torch.zeros((), dtype=dtype, device=device))
+        else:
+            Sx, Su, d = condense(A_seq, B_seq, c_seq, x0)
+            H_qp, g = build_qp(problem, Sx, Su, d, x0, x_ref, u_ref)
+            if constrained:
+                qp_res = solve_box_qp(H_qp, g, lb, ub, iters=qp_iters)
+            else:
+                qp_res = QPResult(x=-solve_pd(H_qp, g), iters=torch.tensor(0),
+                                  gap=torch.zeros((), dtype=dtype,
+                                                  device=device))
+            u = qp_res.x.reshape(Hh, m)
+            xs_pred = (Sx @ x0 + Su @ qp_res.x + d).reshape(Hh, n)
+
+    return MPCSolution(u=u, x=xs_pred, qp=qp_res)
+
+
+def receding_horizon(F, problem, x0, n_steps, **kw):
+    """Closed-loop MPC: apply the first input, advance the plant F, shift
+    the warm start, repeat (a Python loop where the JAX package scans).
+    Returns (states (n_steps, n), inputs (n_steps, m))."""
+    m = problem.R.shape[-1]
+    x = x0
+    u_warm = torch.zeros((problem.horizon, m), dtype=x0.dtype,
+                         device=x0.device)
+    xs, us = [], []
+    for _ in range(n_steps):
+        sol = solve(F, problem, x, u_init=u_warm, **kw)
+        u0 = sol.u[0]
+        x = F(x, u0)
+        u_warm = torch.cat([sol.u[1:], sol.u[-1:]], dim=0)
+        xs.append(x)
+        us.append(u0)
+    return torch.stack(xs), torch.stack(us)
 
 
 def to_lanes(ref, width: int, horizon: int, dtype, device):

@@ -27,7 +27,7 @@ import torch
 from torch.func import jvp, vmap
 
 from reak_tpu_torch.ctrl.riccati_soa import _chol_solve_lanes, _mm, _mv
-from reak_tpu_torch.kte.soa import _fk_soa
+from reak_tpu_torch.kte.soa import _MUL_S, _fk_soa
 from reak_tpu_torch.kte.spec import (ChainSpec, JointType, REVOLUTE,
                                      PRISMATIC, FIXED, FREE)
 from reak_tpu_torch.math import rot_lanes as rl
@@ -76,6 +76,15 @@ def _bcast_stack(items, batch_shape, dtype, device):
         ]
         rows.append(torch.stack(comps, dim=0))
     return torch.stack(rows, dim=0)
+
+
+def _times01(w, x):
+    """x · w for a constant weight of zeros and ones given as the bool
+    tensor ``w``: x where w, else x · 0.0 (the same values).  Under
+    ``torch.func.jvp`` a product with a constant tensor gives that tensor a
+    zero tangent, which runs through ``torch._refs`` in Python; this form
+    takes a tangent rule of its own (``kte/soa._mul``)."""
+    return torch.where(w, x, _MUL_S(x, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +139,10 @@ def make_terms_lanes(spec: ChainSpec):
     jidx = [i for i, t in enumerate(spec.joint_types) if JointType(t) != FIXED]
     assert len(jidx) == nv
     mask_np = np.array(
-        [[1.0 if jidx[k] <= b else 0.0 for k in range(nv)] for b in range(nb)]
+        [[jidx[k] <= b for k in range(nv)] for b in range(nb)]
     )
     is_pri_np = np.array(
-        [1.0 if JointType(spec.joint_types[i]) == PRISMATIC else 0.0 for i in jidx]
+        [JointType(spec.joint_types[i]) == PRISMATIC for i in jidx]
     )
     stiff_np = np.array([spec.stiffness[i] for i in jidx])
     rest_np = np.array([spec.rest_q[i] for i in jidx])
@@ -152,14 +161,15 @@ def make_terms_lanes(spec: ChainSpec):
         axes_g = stack([fkr.axes_g[i] for i in jidx])
 
         c = consts(q)
-        mask = c["mask"][:, :, None, None]
+        mask = c["mask"][:, :, None, None]  # bool
         is_pri = c["is_pri"][None, :, None, None]
 
         r = coms[:, None] - anchors[None]  # (nb, nv, 3, B)
         Jv_rev = rl.cross_l(axes_g[None], r)
-        Jv = (is_pri * axes_g[None] + (1.0 - is_pri) * Jv_rev) * mask
-        ax_rev = axes_g * (1.0 - c["is_pri"][:, None, None])
-        Jw = rl.qrot_inv_l(quats[:, None], ax_rev[None]) * mask
+        Jv = _times01(mask, _times01(is_pri, axes_g[None])
+                      + _times01(~is_pri, Jv_rev))
+        ax_rev = _times01(~c["is_pri"][:, None, None], axes_g)
+        Jw = _times01(mask, rl.qrot_inv_l(quats[:, None], ax_rev[None]))
         return Jv, Jw
 
     def terms(q, qd):

@@ -38,21 +38,55 @@ from reak_tpu_torch.kte.spec import (ChainSpec, JointType, REVOLUTE,
                                      PRISMATIC, FIXED, FREE)
 
 
+# Products and sums where one side may be a Python float.  A float goes in
+# as the scalar argument of ``aten.mul/add/sub/rsub.Scalar``: under
+# ``torch.func.jvp`` those have tangent formulas of their own, while a
+# float taken as a wrapped number, like a tensor without a tangent, gets a
+# zero tangent that runs through ``torch._refs`` in Python (about ten times
+# the time of the op on the CPU).  The values are the same: the Scalar ops
+# wrap the float and call the Tensor ops.
+_MUL_S = torch.ops.aten.mul.Scalar
+_ADD_S = torch.ops.aten.add.Scalar
+_SUB_S = torch.ops.aten.sub.Scalar
+_RSUB_S = torch.ops.aten.rsub.Scalar
+
+
+def _mul(a, b):
+    if isinstance(a, float):
+        return a * b if isinstance(b, float) else _MUL_S(b, a)
+    return _MUL_S(a, b) if isinstance(b, float) else a * b
+
+
+def _plus(a, b):
+    if isinstance(a, float):
+        return a + b if isinstance(b, float) else _ADD_S(b, a)
+    return _ADD_S(a, b) if isinstance(b, float) else a + b
+
+
+def _minus(a, b):
+    if isinstance(a, float):
+        return a - b if isinstance(b, float) else _RSUB_S(b, a)
+    return _SUB_S(a, b) if isinstance(b, float) else a - b
+
+
 def _qmul(a, b):
     w1, x1, y1, z1 = a
     w2, x2, y2, z2 = b
+    m = _mul
     return (
-        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        _minus(_minus(_minus(m(w1, w2), m(x1, x2)), m(y1, y2)), m(z1, z2)),
+        _minus(_plus(_plus(m(w1, x2), m(x1, w2)), m(y1, z2)), m(z1, y2)),
+        _plus(_plus(_minus(m(w1, y2), m(x1, z2)), m(y1, w2)), m(z1, x2)),
+        _plus(_minus(_plus(m(w1, z2), m(x1, y2)), m(y1, x2)), m(z1, w2)),
     )
 
 
 def _cross(a, b):
     ax, ay, az = a
     bx, by, bz = b
-    return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
+    m = _mul
+    return (_minus(m(ay, bz), m(az, by)), _minus(m(az, bx), m(ax, bz)),
+            _minus(m(ax, by), m(ay, bx)))
 
 
 def _qrot(q, v):
@@ -60,9 +94,9 @@ def _qrot(q, v):
     w = q[0]
     qv = (q[1], q[2], q[3])
     t = _cross(qv, v)
-    t = (2.0 * t[0], 2.0 * t[1], 2.0 * t[2])
+    t = (_mul(2.0, t[0]), _mul(2.0, t[1]), _mul(2.0, t[2]))
     u = _cross(qv, t)
-    return (v[0] + w * t[0] + u[0], v[1] + w * t[1] + u[1], v[2] + w * t[2] + u[2])
+    return tuple(_plus(_plus(v[k], _mul(w, t[k])), u[k]) for k in range(3))
 
 
 def _qrot_inv(q, v):
@@ -70,15 +104,15 @@ def _qrot_inv(q, v):
 
 
 def _add(a, b):
-    return tuple(x + y for x, y in zip(a, b))
+    return tuple(_plus(x, y) for x, y in zip(a, b))
 
 
 def _scale(s, a):
-    return tuple(s * x for x in a)
+    return tuple(_mul(s, x) for x in a)
 
 
 def _dot(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+    return _plus(_plus(_mul(a[0], b[0]), _mul(a[1], b[1])), _mul(a[2], b[2]))
 
 
 def _const_vec(v):
@@ -119,9 +153,9 @@ def _fk_soa(spec: ChainSpec, q):
             anchors.append(p)
             axes_g.append(a_g)
             types.append(REVOLUTE)
-            half = 0.5 * qi
+            half = _mul(0.5, qi)
             c, s = torch.cos(half), torch.sin(half)
-            qj = (c, ax[0] * s, ax[1] * s, ax[2] * s)
+            qj = (c, _mul(ax[0], s), _mul(ax[1], s), _mul(ax[2], s))
             Q = _qmul(Q, qj)
         elif jt == PRISMATIC:
             qi = q[ci]
@@ -187,7 +221,7 @@ def _jacobians_soa(spec: ChainSpec, fkr: _SoaFk):
                         continue
                     Jv[b][col + j] = lin_axes[j]
                     Jw[b][col + j] = zero3
-                    r = tuple(fkr.com[b][k] - fkr.anchors[i][k]
+                    r = tuple(_minus(fkr.com[b][k], fkr.anchors[i][k])
                               for k in range(3))
                     Jv[b][col + 3 + j] = _cross(ang_axes[j], r)
                     Jw[b][col + 3 + j] = _qrot_inv(fkr.quat[b], ang_axes[j])
@@ -199,7 +233,8 @@ def _jacobians_soa(spec: ChainSpec, fkr: _SoaFk):
                 Jw[b][col] = zero3
                 continue
             if jt == REVOLUTE:
-                r = tuple(fkr.com[b][k] - fkr.anchors[i][k] for k in range(3))
+                r = tuple(_minus(fkr.com[b][k], fkr.anchors[i][k])
+                          for k in range(3))
                 Jv[b][col] = _cross(fkr.axes_g[i], r)
                 Jw[b][col] = _qrot_inv(fkr.quat[b], fkr.axes_g[i])
             else:  # prismatic

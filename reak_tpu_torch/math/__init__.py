@@ -1,1 +1,2 @@
-"""Math helpers (port of ``reak_tpu.math``): the lanes-layout rotations."""
+"""Math helpers (port of ``reak_tpu.math``): batched linear algebra,
+rotations (per point and in the lanes layout) and kinematic frames."""

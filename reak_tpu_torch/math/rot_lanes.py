@@ -12,6 +12,11 @@ from __future__ import annotations
 
 import torch
 
+# a float factor as the scalar argument of aten.mul.Scalar: under
+# torch.func.jvp that keeps clear of the zero-tangent detour through
+# torch._refs that a float taken as a wrapped number takes (kte/soa._mul)
+_MUL_S = torch.ops.aten.mul.Scalar
+
 
 def cross_l(a, b):
     """Cross product over axis -2 (size 3)."""
@@ -50,7 +55,7 @@ def qrot_l(q, v):
     """Rotate v by q (frame → parent): t = 2 q_v × v; v + w t + q_v × t."""
     w = q[..., 0:1, :]
     qv = q[..., 1:4, :]
-    t = 2.0 * cross_l(qv, v)
+    t = _MUL_S(cross_l(qv, v), 2.0)
     return v + w * t + cross_l(qv, t)
 
 
@@ -58,7 +63,7 @@ def qrot_inv_l(q, v):
     """Rotate v by q⁻¹ (parent → frame)."""
     w = q[..., 0:1, :]
     qv = q[..., 1:4, :]
-    t = 2.0 * cross_l(qv, v)
+    t = _MUL_S(cross_l(qv, v), 2.0)
     return v - w * t + cross_l(qv, t)
 
 
