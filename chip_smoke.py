@@ -34,6 +34,16 @@ version on the card, and drives the port's main paths through the kernels:
   make_kte_scenario_mpc`` on its fixed branch (the flagship arm, K1 + K2)
   and its free one (the floating arm, K2 + K3), each bit for bit the call
   it routes to;
+- estimation and LQG (phase ``estimation``): the Monte-Carlo filters of
+  ``examples/estimate_satellite3d.py`` (``--mc-runs``, one ``torch.func.
+  vmap`` of ``run_filter``) for iekf, ekf and ukf at f64 on 256 runs and
+  iekf at f32 on 8192, the first runs held to the CPU child's; the
+  prediction example at 8192 scenarios; the satellite MPC example (15
+  IEKF steps, ``sample_belief_states``, the lanes route on K2) at 8192
+  scenarios; ``math.are.dlqr`` on the (A_d, B_d) that K1 returns at phase
+  ``k1_vs_plain``'s inputs, and every solver of ``math.are`` and
+  ``ctrl.lqg`` on 8192 seeded systems of 12 states and 6 inputs, each
+  within its test's residual bar;
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -83,7 +93,8 @@ against its own plain f64 solves, and times
 the solves and the kernels with CUDA events.  The plain f64 CPU references
 run in a child process (``--cpu-reference``) beside the card's phases;
 the child also solves the satellite's generic route on states it draws
-itself, and the card solves the same states.
+itself, and the card solves the same states, and runs the Monte-Carlo
+filters' first runs and ``dlqr`` on the plain step's linearization.
 Each phase prints one JSON line; the card's name and power limit follow as
 ``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
 with its launches on the main paths, its time per launch beside its plain
@@ -124,6 +135,31 @@ BF_B64 = 8192
 # (the settings of tests/test_manifold_lanes.py:101-129), and those of the
 # CPU child's plain f64 solve of the generic route
 SAT_F64_B, GEN_REF_B = 256, 64
+# phase estimation: the Monte-Carlo filters of README.md:104 at the
+# example's defaults (150 steps), EST_RUNS runs at f64 and EST_RUNS_F32 at
+# f32, the first EST_REF_RUNS runs held over their first EST_REF_STEPS steps
+# to the CPU child's; prediction and planning from the estimate at 8192
+# scenarios; the batched ARE and LQG solvers on ARE_B systems of
+# ARE_N states and ARE_M inputs, and dlqr on K1's linearization, DLQR_REF
+# gains held to the CPU child's
+EST_RUNS, EST_RUNS_F32, EST_REF_RUNS, EST_REF_STEPS = 256, 8192, 16, 30
+EST_SCENARIOS, ARE_B, ARE_N, ARE_M, DLQR_REF = 8192, 8192, 12, 6, 64
+# The continuous Riccati equations of the regulator (Q = 2I, R = 0.5I on
+# unstable A) have solutions up to |X| ≈ 290 at (12, 6), and the round-off
+# of their quadratic term grows as |X|²: their absolute residuals reach
+# 5.3e-8 on an H100, above the tests' 1e-8 set at (4, 2), while the
+# residual over the size of its terms stays at 2.8e-11 (f64, seed 13).
+# These rows are held to ARE_REL_BAR on the relative residual, every
+# other row to its test's absolute bar (their worst readings: 4.1e-13 of
+# 1e-8, 3.1e-12 of 1e-10).
+ARE_REL_ROWS = ("solve_care", "clqr", "clqg", "solve_ihct_lqg")
+# the filters' final position, attitude (rad) and rate errors, each run's
+# (tests/test_ss_systems.py:95-96); the f32 IEKF's final state against its
+# f64 run's, a hundredth of the f64 runs' errors against the truth (≤1.6e-3
+# on every block over 256 runs on an H100, where the f32 runs' final states
+# are off by ≤1.6e-7)
+EST_BAR, EST_F32_BAR = 0.05, 1e-5
+ARE_REL_BAR = 1e-10
 # NVIDIA's published peaks of one H100 SXM at 700 W: HBM3 bytes/s, and
 # float32 and float64 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
@@ -239,6 +275,24 @@ class _OpCount(TorchDispatchMode):
         return out
 
 
+class _CholeskyCalls:
+    """Within it, the input shape of every ``torch.linalg.cholesky_ex``
+    call (the port's factorizations all go through it)."""
+
+    def __enter__(self):
+        self.shapes, self._real = [], torch.linalg.cholesky_ex
+
+        def counting(A, *args, **kwargs):
+            self.shapes.append(tuple(A.shape))
+            return self._real(A, *args, **kwargs)
+
+        torch.linalg.cholesky_ex = counting
+        return self
+
+    def __exit__(self, *exc):
+        torch.linalg.cholesky_ex = self._real
+
+
 def ops_per_scenario(fn, make_args):
     """Arithmetic operations per scenario of ``fn`` (a plain version), from
     its aten calls on CPU tensors at 2 and 4 scenarios:
@@ -318,6 +372,129 @@ def k2_design_bytes(horizon, n, m, batch, iters, itemsize):
     outputs only; this is the floor of the design."""
     values = (4 * (n * n + n * m) + 4 * m * n + m * (m + 1) + 6 * n + 48 * m)
     return iters * horizon * batch * values * itemsize
+
+
+def estimation_draws(runs, steps=150):
+    """The standard-normal draws (runs, steps, 9) of the Monte-Carlo
+    filters' measurement noise (numpy, seed 11); the first runs are the
+    same whatever ``runs`` is."""
+    return np.random.default_rng(11).standard_normal((runs, steps, 9))
+
+
+def k1_inputs():
+    """The states (2nv, B) and inputs (nv, B) of phase k1_vs_plain."""
+    rng = np.random.default_rng(0)
+    x_np = bench_states(rng, B).T.copy()
+    return x_np, rng.uniform(-5.0, 5.0, (6, B))
+
+
+def spectral_positive(F, G, H, E, margin, points, discrete):
+    """Whether each system's spectral density Φ = E + T + Tᴴ,
+    T = H(zI − F)⁻¹G, exceeds ``margin``·I (a Cholesky factor of
+    Φ − margin·I exists) at every point of a frequency grid on the unit
+    circle (discrete) or the imaginary axis; a positive-real system, whose
+    spectral factorization exists, has Φ ≻ 0.  Batched in chunks on the
+    systems' device, complex128."""
+    n = F.shape[-1]
+    if discrete:
+        w = torch.linspace(0.0, np.pi, points, dtype=torch.float64)
+        z = torch.polar(torch.ones_like(w), w)
+    else:
+        w = torch.cat([torch.zeros(1, dtype=torch.float64),
+                       torch.logspace(-3, 4, points - 1, dtype=torch.float64)])
+        z = torch.complex(torch.zeros_like(w), w)
+    z = z.to(F.device)[:, None, None]
+    eye = torch.eye(n, dtype=torch.complex128, device=F.device)
+    shift = (E - margin[:, None, None] * torch.eye(
+        E.shape[-1], dtype=E.dtype, device=E.device))
+    out = []
+    for i in range(0, F.shape[0], 512):
+        Fc, Gc, Hc = (a[i:i + 512, None].to(torch.complex128)
+                      for a in (F, G, H))
+        T = Hc @ torch.linalg.solve(z * eye - Fc, Gc)
+        _, info = torch.linalg.cholesky_ex(shift[i:i + 512, None] + T + T.mH)
+        out.append((info == 0).all(dim=1))
+    return torch.cat(out)
+
+
+def spectral_systems(rng, batch, n, m, device):
+    """The systems of tests/test_are_spectral.py:10-19 (continuous, KYP
+    construction) and :49-58 (discrete) at width (n, m), as f64 tensors
+    on ``device``.  At n = 12 the constructions do not ensure a positive-
+    real system (none of 512 discrete draws is), so each system's D (J)
+    is doubled until its spectral density's least eigenvalue on the grid
+    exceeds a tenth of E's.  Returns the continuous (A, B, C, D), the
+    discrete (F, G, H, J) and the doublings' counts of each."""
+    sw = lambda a: np.swapaxes(a, -1, -2)
+    Mc = rng.standard_normal((batch, n, n))
+    A = -(Mc @ sw(Mc)) - 0.7 * np.eye(n) + 0.3 * rng.standard_normal(
+        (batch, n, n))
+    Bc = rng.standard_normal((batch, n, m))
+    C = sw(Bc) @ (np.eye(n) * 2.0)
+    D = np.eye(m) * 1.5 + 0.2 * rng.standard_normal((batch, m, m))
+    F = 0.5 * rng.standard_normal((batch, n, n))
+    F = F / np.maximum(1.0, 1.3 * np.abs(np.linalg.eigvals(F)).max(-1))[
+        :, None, None]
+    G = 0.5 * rng.standard_normal((batch, n, m))
+    H = sw(G) @ (np.eye(n) * 0.6)
+    J = np.broadcast_to(np.eye(m) * 2.0, (batch, m, m)).copy()
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    A, Bc, C, D, F, G, H, J = map(t, (A, Bc, C, D, F, G, H, J))
+    doubled = {}
+    for name, (S1, S2, S3, S4, disc) in {
+            "ctsf": (A, Bc, C, D, False), "dtsf": (F, G, H, J, True)}.items():
+        count = torch.zeros(batch, dtype=torch.int64, device=device)
+        while True:
+            E = S4 + S4.mT
+            bad = ~spectral_positive(S1, S2, S3, E,
+                                     0.1 * torch.linalg.eigvalsh(E)[:, 0],
+                                     181, disc)
+            if not bool(bad.any()):
+                break
+            S4[bad] *= 2.0
+            count += bad
+        doubled[name] = torch.bincount(count).tolist()
+    return (A, Bc, C, D), (F, G, H, J), doubled
+
+
+def lqg_systems(rng, batch, n, m, device):
+    """The systems and weights of tests/test_are_spectral.py:69-77
+    (continuous) and :86-97 (discrete) at width (n, m), p = m outputs, as
+    f64 tensors on ``device``: (A, B, C, V, W, Q, R) and (F, G, H, V, W,
+    Q, R)."""
+    p = m
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    eye = lambda k, c: t(np.broadcast_to(np.eye(k) * c, (batch, k, k))
+                         .copy())
+    cont = (t(rng.standard_normal((batch, n, n))),
+            t(rng.standard_normal((batch, n, m))),
+            t(rng.standard_normal((batch, p, n))),
+            eye(n, 0.3), eye(p, 0.2), eye(n, 2.0), eye(m, 0.5))
+    disc = (t(0.9 * rng.standard_normal((batch, n, n)) / np.sqrt(n)),
+            t(rng.standard_normal((batch, n, m))),
+            t(rng.standard_normal((batch, p, n))),
+            eye(n, 0.3), eye(p, 0.2), eye(n, 1.0), eye(m, 0.4))
+    return cont, disc
+
+
+def care_terms(A, B, Q, R, X):
+    """The terms of AᵀX + XA − XBR⁻¹BᵀX + Q, each system's."""
+    return [A.mT @ X, X @ A, -(X @ B @ torch.linalg.solve(R, B.mT) @ X), Q]
+
+
+def dare_terms(A, B, Q, R, X):
+    """The terms of AᵀXA − X − AᵀXB(R + BᵀXB)⁻¹BᵀXA + Q, each system's."""
+    return [A.mT @ X @ A, -X, -(A.mT @ X @ B @ torch.linalg.solve(
+        R + B.mT @ X @ B, B.mT @ X @ A)), Q]
+
+
+def residual(terms):
+    """Each system's residual of an equation Σ terms = 0: the entrywise max
+    |Σ terms| (as tests/test_are_spectral.py measures it), and the same
+    over Σ max |term|, the size of the round-off that a solution at
+    working precision leaves."""
+    res = sum(terms[1:], terms[0]).abs().amax(dim=(-2, -1))
+    return res, res / sum(t.abs().amax(dim=(-2, -1)) for t in terms)
 
 
 def bench_states(rng, batch):
@@ -460,9 +637,11 @@ def beam_states(spec):
 def cpu_reference(path):
     """The plain f64 solves on CPU tensors that the card's solves are held
     to: for the first N_REF scenarios the flagship with two SQP passes and
-    the line search and the floating arm, the 16-segment beam's solve, and
-    the satellite's generic scenario MPC (ctrl/mpc_manifold) on GEN_REF_B
-    states this process draws itself.  Saved to ``path``."""
+    the line search and the floating arm, the 16-segment beam's solve, the
+    satellite's generic scenario MPC (ctrl/mpc_manifold) on GEN_REF_B
+    states this process draws itself, the three Monte-Carlo filters' first
+    EST_REF_RUNS runs over EST_REF_STEPS steps, and DLQR_REF gains of dlqr
+    on the plain step's linearization.  Saved to ``path``."""
     sys.path.insert(0, ROOT)
     from reak_tpu_torch.ctrl import (belief, manifold_lanes, mpc, mpc_manifold,
                                      ss_systems)
@@ -497,9 +676,293 @@ def cpu_reference(path):
     np.savez(tmp, flagship_sqp_us=us_flag.numpy(), floating_arm_us=us_fa.numpy(),
              floating_arm_xs=xs_fa.numpy(), beam_us=us_bm.numpy(),
              beam_xs=xs_bm.numpy(), generic_x0=x0_gen.numpy(),
-             generic_us=us_gen.numpy(), seconds=time.perf_counter() - t0)
+             generic_us=us_gen.numpy(), **estimation_references(),
+             seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
+
+
+def estimation_references():
+    """Phase estimation's plain f64 references on CPU tensors: the three
+    Monte-Carlo filters on the first EST_REF_RUNS runs' draws over their
+    first EST_REF_STEPS steps (``est_<filter>``), and DLQR_REF gains of dlqr
+    on the plain step's linearization at the first states and inputs of
+    phase k1_vs_plain (``dlqr_K``)."""
+    from reak_tpu_torch.examples import estimate_satellite3d as est
+    from reak_tpu_torch.kte import models
+    from reak_tpu_torch.math import are
+    from reak_tpu_torch.ops import kte_step
+
+    cfg = dict(est.DEFAULTS, device="cpu")
+    _, F_est = est.make_system(cfg)
+    zs = est._measurements_from_draws(
+        est.truth_rollout(F_est, EST_REF_STEPS, "cpu"), cfg["meas_noise"],
+        torch.as_tensor(estimation_draws(EST_REF_RUNS)[:, :EST_REF_STEPS]))
+    out = {f"est_{kind}": est.monte_carlo(dict(cfg, filter=kind), F_est,
+                                          zs).numpy()
+           for kind in ("iekf", "ekf", "ukf")}
+    x_k1, u_k1 = k1_inputs()
+    A_k1, B_k1, _, _ = kte_step.make_step_plain(models.manip_3r3r(), DT)(
+        torch.as_tensor(x_k1[:, :DLQR_REF].copy()),
+        torch.as_tensor(u_k1[:, :DLQR_REF].copy()))
+    K_k1, _ = are.dlqr(A_k1.permute(2, 0, 1), B_k1.permute(2, 0, 1),
+                       torch.eye(N, dtype=torch.float64),
+                       torch.eye(M, dtype=torch.float64))
+    out["dlqr_K"] = K_k1.numpy()
+    return out
+
+
+def are_solvers(rng, batch, n, m, device):
+    """Every solver of math/are and ctrl/lqg on ``batch`` seeded f64
+    systems at (n, m) on ``device`` (spectral_systems, lqg_systems), each
+    timed, with the worst entry's residual of its defining equation,
+    absolute and relative (``residual``), and the bar it is held to:
+    its test's absolute bar, or ARE_REL_BAR on the relative residual for
+    the continuous Riccati equations of the regulator (ARE_REL_ROWS), whose
+    solutions reach |X| ≈ 300 at this width.  Returns the rows and the
+    spectral systems' D (J) doublings."""
+    from reak_tpu_torch.ctrl import lqg
+    from reak_tpu_torch.math import are
+
+    (Ac, Bc, Cc, Dc), (Fd, Gd, Hd, Jd), doubled = spectral_systems(
+        rng, batch, n, m, device)
+    (A_c, B_c, C_c, V_c, W_c, Q_c, R_c), (A_d, B_d, C_d, V_d, W_d, Q_d,
+                                          R_d) = lqg_systems(
+        rng, batch, n, m, device)
+    care = lambda X: care_terms(A_c, B_c, Q_c, R_c, X)
+    dare = lambda X: dare_terms(A_d, B_d, Q_d, R_d, X)
+    care_f = lambda S: care_terms(A_c.mT, C_c.mT, V_c, W_c, S)
+    dare_f = lambda S: dare_terms(A_d.mT, C_d.mT, V_d, W_d, S)
+
+    def ctsf(X):
+        E = Dc + Dc.mT
+        Abar = Ac - Bc @ torch.linalg.solve(E, Cc)
+        return [Bc @ torch.linalg.solve(E, Bc.mT), X @ Abar.mT, Abar @ X,
+                X @ Cc.mT @ torch.linalg.solve(E, Cc) @ X]
+
+    def dtsf(X):
+        E = Jd + Jd.mT
+        return [-X, Fd @ X @ Fd.mT, (Gd - Fd @ X @ Hd.mT) @ torch.linalg.solve(
+            E - Hd @ X @ Hd.mT, Gd.mT - Hd @ X @ Fd.mT)]
+
+    # name: (call, [(terms, its solution) of each equation], test's bar)
+    cases = {
+        "solve_care": (lambda: are.solve_care(A_c, B_c, Q_c, R_c),
+                       lambda X: [(care, X)], 1e-8),
+        "clqr": (lambda: are.clqr(A_c, B_c, Q_c, R_c),
+                 lambda KX: [(care, KX[1])], 1e-8),
+        "solve_dare": (lambda: are.solve_dare(A_d, B_d, Q_d, R_d),
+                       lambda X: [(dare, X)], 1e-8),
+        "dlqr": (lambda: are.dlqr(A_d, B_d, Q_d, R_d),
+                 lambda KX: [(dare, KX[1])], 1e-8),
+        # the LQG gains: process noise V, measurement noise W
+        "dlqg": (lambda: lqg.dlqg(A_d, B_d, C_d, Q_d, R_d, V_d, W_d),
+                 lambda g: [(dare, g.P), (dare_f, g.S)], 1e-8),
+        "clqg": (lambda: lqg.clqg(A_c, B_c, C_c, Q_c, R_c, V_c, W_c),
+                 lambda g: [(care, g.P), (care_f, g.S)], 1e-8),
+        "solve_ihct_lqg": (lambda: are.solve_ihct_lqg(
+            A_c, B_c, C_c, V_c, W_c, Q_c, R_c),
+            lambda r: [(care, r[1]), (care_f, r[3])], 1e-8),
+        "solve_ihdt_lqg": (lambda: are.solve_ihdt_lqg(
+            A_d, B_d, C_d, V_d, W_d, Q_d, R_d),
+            lambda r: [(dare, r[1]), (dare_f, r[3])], 1e-8),
+        "solve_ctsf": (lambda: are.solve_ctsf(Ac, Bc, Cc, Dc),
+                       lambda X: [(ctsf, X)], 1e-10),
+        "solve_dtsf": (lambda: are.solve_dtsf(Fd, Gd, Hd, Jd),
+                       lambda X: [(dtsf, X)], 1e-10),
+    }
+    rows = {}
+    for name, (call, equations, bar) in cases.items():
+        out, ms = timed(call)
+        res = [residual(f(X)) for f, X in equations(out)]
+        rel = name in ARE_REL_ROWS
+        rows[name] = {
+            "ms": ms, "bar_on": "relative" if rel else "absolute",
+            "bar": ARE_REL_BAR if rel else bar,
+            "max_abs_residual": max(float(r.max()) for r, _ in res),
+            "max_rel_residual": max(float(r.max()) for _, r in res),
+            "max_abs_X": max(float(X.abs().max()) for _, X in
+                             equations(out))}
+    return {"spectral_D_doublings": doubled, **rows}
+
+
+def estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
+               counts, main_runs):
+    """Phase estimation, on the card: the Monte-Carlo filters, prediction
+    and planning from the estimate, and the batched ARE and LQG solvers.
+    ``cpu_refs()`` returns the CPU child's results, ``estimation_
+    references()`` among them, waiting for the child: it is called after
+    the card's work, which runs while the child may still be running.
+    ``step_k``, ``k64``, ``x_np`` and ``u_np`` are phase k1_vs_plain's K1,
+    its f64 outputs and its inputs; the K1 and K2 launches go into
+    ``main_runs``."""
+    f64 = torch.float64
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    # (README.md:104, examples/*.py, tests/test_are_spectral.py)
+    # (a) the Monte-Carlo filters of examples/estimate_satellite3d.py at its
+    # defaults (150 steps, dt 0.05, pose and gyro, noise 1e-3), each one
+    # vmap of run_filter: iekf, ekf and ukf at f64 on EST_RUNS runs (every
+    # run's final position and rate errors < EST_BAR, as
+    # tests/test_ss_systems.py:95-96 holds them, and its attitude error
+    # < EST_BAR rad; the first EST_REF_RUNS runs over EST_REF_STEPS steps
+    # ≤1e-9 relative to the CPU child's), then iekf at f32 on EST_RUNS_F32
+    # runs of the same truth (each within the same bars, each of the first
+    # EST_RUNS within EST_F32_BAR of its f64 final state);
+    # (b) predict_satellite3d at its defaults (150 IEKF steps, H = 50) with
+    # EST_SCENARIOS scenarios: unit quaternions, a growing covariance
+    # trace, the H+1 covariances factored in one call; (c) satellite_mpc at
+    # its defaults (15 IEKF steps, sample_belief_states, the lanes route on
+    # K2, H = 20, dt 0.1, ±20, 8 iterations, 2 passes, f64) on
+    # EST_SCENARIOS scenarios, every one within 0.1 of the target; (d) dlqr
+    # (Q = I, R = I) on the (A_d, B_d) of K1 at phase k1_vs_plain's inputs,
+    # DARE residual ≤1e-8 of ‖P‖, DLQR_REF gains ≤1e-9 relative to the CPU
+    # child's; and every solver of math/are and ctrl/lqg on ARE_B seeded
+    # systems at (ARE_N, ARE_M), each within its bar (are_solvers).
+    from reak_tpu_torch.examples import estimate_satellite3d as est, \
+        predict_satellite3d as pred_ex, satellite_mpc as smpc
+    from reak_tpu_torch.io.config import config_from_args
+    from reak_tpu_torch.math import are
+
+    t_est = time.perf_counter()
+    es = {"phase": "estimation", "card": card, "filters": {}}
+    cfg = dict(est.DEFAULTS)
+    _, F_est = est.make_system(cfg)
+    xs_est = est.truth_rollout(F_est, cfg["steps"], dev)
+    eps_est = on(estimation_draws(EST_RUNS_F32, cfg["steps"]), f64)
+    m64, ref_runs = {}, {}
+
+    def monte_carlo(kind, xs_, eps_):
+        zs_ = est._measurements_from_draws(xs_, cfg["meas_noise"], eps_)
+        return timed(lambda: est.monte_carlo(dict(cfg, filter=kind), F_est,
+                                             zs_))
+
+    def errors(means):
+        """Each final error's mean and max over the runs."""
+        return {f"final_{k}_err_{f.__name__}": float(f(e)) for k, e in zip(
+            ("pos", "att", "rate"), est.final_errors(means.double(),
+                                                     xs_est[-1]))
+                for f in (torch.mean, torch.amax)}
+
+    for kind in ("iekf", "ekf", "ukf"):
+        m64[kind], ms = monte_carlo(kind, xs_est, eps_est[:EST_RUNS])
+        es["filters"][kind] = {
+            "runs": EST_RUNS, "dtype": "float64", "steps": cfg["steps"],
+            "ms": ms, "finite": bool(torch.isfinite(m64[kind]).all()),
+            **errors(m64[kind])}
+        ref_runs[kind] = m64[kind][:EST_REF_RUNS, :EST_REF_STEPS].cpu()
+    m32, ms = monte_carlo("iekf", xs_est.float(), eps_est.float())
+    d32 = (m32[:EST_RUNS, -1].double() - m64["iekf"][:, -1]).abs()
+    es["filters"]["iekf_f32"] = {
+        "runs": EST_RUNS_F32, "dtype": "float32", "steps": cfg["steps"],
+        "ms": ms, "finite": bool(torch.isfinite(m32).all()), **errors(m32),
+        "max_abs_final_vs_f64": {k: float(d32[:, sl].max()) for k, sl in (
+            ("pos", slice(0, 3)), ("quat", slice(3, 7)),
+            ("vel", slice(7, 10)), ("rate", slice(10, 13)))}}
+    del eps_est, m32, m64, d32
+    # (b) prediction
+    with _CholeskyCalls() as chol:
+        pr, ms = timed(lambda: pred_ex.predict(config_from_args(
+            [f"--n-scenarios={EST_SCENARIOS}", f"--device={dev}"],
+            pred_ex.DEFAULTS)))
+    batched = [sh for sh in chol.shapes if len(sh) > 2]
+    es["predict"] = {
+        "scenarios": list(pr.scenarios.shape), "ms": ms,
+        "final_err": pr.final_err, "trace_growth": pr.trace_growth,
+        "quat_unit_err": float((torch.linalg.vector_norm(
+            pr.scenarios[..., 3:7], dim=-1) - 1.0).abs().max()),
+        "finite": bool(torch.isfinite(pr.scenarios).all()),
+        "cholesky_calls": len(chol.shapes), "batched_cholesky": batched,
+        "matrices_factored": sum(int(np.prod(sh[:-2])) for sh in
+                                 chol.shapes)}
+    del pr
+    # (c) planning from the estimate, on K2
+    reset_counts()
+    plan, ms = timed(lambda: smpc.plan(config_from_args(
+        [f"--scenarios={EST_SCENARIOS}", f"--device={dev}"],
+        smpc.DEFAULTS)))
+    main_runs["estimation.satellite_mpc"] = counts()
+    u0_plan = torch.zeros_like(plan.us)
+    solve_ms = cuda_ms(lambda: plan.solver(plan.x0s, plan.x_ref, u0_plan),
+                       reps=2)
+    es["satellite_mpc"] = {
+        "scenarios": EST_SCENARIOS, "dtype": "float64", "plan_ms": ms,
+        "solve_ms": solve_ms, "solves_per_s": EST_SCENARIOS / solve_ms * 1e3,
+        "launches": main_runs["estimation.satellite_mpc"],
+        "posterior_err": plan.posterior_err,
+        "terminal_pos_err_max": float(plan.terminal_pos_err.max()),
+        "terminal_rot_err_max": float(plan.terminal_rot_err.max()),
+        "finite": bool(torch.isfinite(plan.us).all())}
+    del plan, u0_plan
+    # (d) dlqr on K1's linearization, then the batched ARE and LQG solvers
+    check(all(np.array_equal(a, b) for a, b in zip(k1_inputs(),
+                                                   (x_np, u_np))),
+          "k1_inputs() differs from phase k1_vs_plain's inputs")
+    reset_counts()
+    Ad_e, Bd_e, _, _ = step_k(on(x_np, f64), on(u_np, f64))
+    main_runs["estimation.dlqr"] = counts()
+    A_e, B_e = Ad_e.permute(2, 0, 1), Bd_e.permute(2, 0, 1)
+    eye_n = torch.eye(N, dtype=f64, device=dev)
+    eye_m = torch.eye(M, dtype=f64, device=dev)
+    (K_e, P_e), ms = timed(lambda: are.dlqr(A_e, B_e, eye_n, eye_m))
+    es["dlqr"] = {
+        "B": B, "ms": ms, "launches": main_runs["estimation.dlqr"],
+        "k1_bitwise_phase_3": bool(torch.equal(Ad_e, k64[0])
+                                   and torch.equal(Bd_e, k64[1])),
+        "max_residual_rel_P": float((residual(dare_terms(
+            A_e, B_e, eye_n, eye_m, P_e))[0] / P_e.abs().amax(
+                dim=(-2, -1))).max())}
+    ref_runs["dlqr_K"] = K_e[:DLQR_REF].cpu()
+    del Ad_e, Bd_e, A_e, B_e, K_e, P_e
+    es["are"] = {"B": ARE_B, "n": ARE_N, "m": ARE_M, "dtype": "float64",
+                 **are_solvers(np.random.default_rng(13), ARE_B, ARE_N,
+                               ARE_M, dev)}
+    es["seconds"] = time.perf_counter() - t_est
+    refs = cpu_refs()
+    for kind in ("iekf", "ekf", "ukf"):
+        es["filters"][kind]["rel_vs_cpu"] = rel_err(
+            ref_runs[kind], torch.as_tensor(refs[f"est_{kind}"]))
+    es["dlqr"]["gain_rel_vs_cpu"] = rel_err(
+        ref_runs["dlqr_K"], torch.as_tensor(refs["dlqr_K"]))
+    emit(es)
+    for kind in ("iekf", "ekf", "ukf", "iekf_f32"):
+        r = es["filters"][kind]
+        check(r["finite"], f"a {kind} Monte-Carlo run is not finite")
+        for q in ("pos", "att", "rate"):
+            check(r[f"final_{q}_err_amax"] < EST_BAR,
+                  f"{kind}: a run's final {q} error "
+                  f"{r[f'final_{q}_err_amax']} ≥ {EST_BAR}")
+        if kind != "iekf_f32":
+            check(r["rel_vs_cpu"] <= 1e-9,
+                  f"{kind}: the card's runs {r['rel_vs_cpu']:.2e} from the "
+                  "CPU child's")
+    for q, d in es["filters"]["iekf_f32"]["max_abs_final_vs_f64"].items():
+        check(d <= EST_F32_BAR, f"the f32 IEKF runs' final {q} {d:.2e} from "
+              f"their f64 runs, above {EST_F32_BAR:.0e}")
+    p_ = es["predict"]
+    check(p_["scenarios"] == [EST_SCENARIOS, 51, 13] and p_["finite"],
+          f"predicted scenarios of shape {p_['scenarios']} or not finite")
+    check(p_["quat_unit_err"] <= 1e-12, "a predicted quaternion is not unit")
+    check(p_["trace_growth"] > 1.0, "the covariance trace does not grow")
+    check(p_["batched_cholesky"] == [(51, 12, 12)],
+          f"the scenarios' covariances factored as {p_['batched_cholesky']}")
+    check(p_["matrices_factored"] == 150 + 51,
+          f"{p_['matrices_factored']} matrices factored, expected 201")
+    sm = es["satellite_mpc"]
+    want = {k: (2 if k == "pdip_whole" else 0) for k in sm["launches"]}
+    check(sm["launches"] == want, f"satellite_mpc launched {sm['launches']}")
+    check(sm["finite"] and sm["terminal_pos_err_max"] < 0.1,
+          "a satellite_mpc scenario ends 0.1 or more from the target")
+    dl = es["dlqr"]
+    check(dl["launches"]["kte_step"] == 1 and dl["k1_bitwise_phase_3"],
+          "K1 did not give phase k1_vs_plain's (A_d, B_d) again")
+    check(dl["max_residual_rel_P"] <= 1e-8, "a DARE residual > 1e-8 ‖P‖")
+    check(dl["gain_rel_vs_cpu"] <= 1e-9, "dlqr gains against the CPU child")
+    for k, r in es["are"].items():
+        if isinstance(r, dict) and "bar_on" in r:
+            worst = r["max_rel_residual" if r["bar_on"] == "relative"
+                      else "max_abs_residual"]
+            check(worst <= r["bar"], f"{k}: {r['bar_on']} residual "
+                  f"{worst:.2e} above {r['bar']:.0e}")
 
 
 def kte_instances():
@@ -1722,7 +2185,18 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
               "call it routes to")
     del got_fx, want_fx, got_fr, want_fr, x0_fx, u0_fx
 
-    refs, ref_wait = cpu_references()
+    # ---- estimation and LQG (the port's examples, math/are, ctrl/lqg) ----
+    # its card work runs before the wait for the CPU child
+    waited = {}
+
+    def cpu_refs():
+        if not waited:
+            waited["refs"], waited["s"] = cpu_references()
+        return waited["refs"]
+
+    estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
+               counts, main_runs)
+    refs, ref_wait = cpu_refs(), waited["s"]
     err2 = np.abs(us2[:N_REF].double().cpu().numpy()
                   - refs["flagship_sqp_us"]).max(axis=(1, 2))
     sqp = {"phase": "flagship_sqp", "B": B, "H": H, "iters": ITERS,
@@ -1940,6 +2414,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         "max_target_pos_err"] < 0.2,
           "a belief-sampled scenario ends more than 0.2 from the target")
     del x0_4, us_4, xs_4, x0_s32, us_route, x0_sat32, u0_sat32
+
 
     # ---- the widest instances, f64 ----------------------------------------
     # K1/K5 on the 16-segment beam (16 joints, n = 32) at B = 77 and 1001;

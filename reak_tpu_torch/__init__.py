@@ -21,9 +21,14 @@ the belief-sampled scenario MPC and the generic MPC entry points
 (``ctrl.mpc_manifold``, batch first; ``ctrl.mpc.solve`` and
 ``receding_horizon``; ``ctrl.belief``, ``ctrl.invariant``, ``ctrl.qp``,
 ``ctrl.systems``, ``ctrl.ss_systems``, ``kte.dynamics``, ``math.rotations``,
-``math.frames``, ``errors``); every Pallas kernel of the JAX package has its
-CUDA counterpart, and on CUDA tensors they take every width the JAX
-package takes (past their compile-time instances on runtime-width ones).
+``math.frames``, ``errors``); estimation and LQG (``ctrl.kalman``,
+``ukf``, ``aug_kalman``, ``predictor``, ``lqg``, ``options``,
+``aqr_space``, ``math.are``, the ``io`` config and recorders, and the
+examples ``reak_tpu_torch.examples.estimate_satellite3d``,
+``predict_satellite3d`` and ``satellite_mpc``); every Pallas kernel of
+the JAX package has its CUDA counterpart, and on CUDA tensors they take
+every width the JAX package takes (past their compile-time instances on
+runtime-width ones).
 
 Importing the package changes no global torch state and needs neither CUDA
 nor a compiler; the kernels are built at their first launch.

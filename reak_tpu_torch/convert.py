@@ -2,7 +2,8 @@
 
 Each function duck-types its argument: anything with the fields of
 ``ChainSpec``, ``MPCProblem``, ``GaussianBelief``, ``SatelliteParams``,
-``AirshipParams`` or ``QuadrotorParams`` as numbers, tuples, numpy arrays
+``AirshipParams``, ``QuadrotorParams``, ``TSOSBelief`` or
+``PredictedBeliefTrajectory`` as numbers, tuples, numpy arrays
 or arrays that ``numpy.asarray`` reads.  Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -10,8 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from reak_tpu_torch.ctrl.aug_kalman import TSOSBelief
 from reak_tpu_torch.ctrl.belief import GaussianBelief
 from reak_tpu_torch.ctrl.mpc import MPCProblem
+from reak_tpu_torch.ctrl.predictor import PredictedBeliefTrajectory
 from reak_tpu_torch.ctrl.ss_systems import (AirshipParams, QuadrotorParams,
                                             SatelliteParams, airship3D,
                                             quadrotor, satellite3D)
@@ -62,6 +65,20 @@ def belief_from(obj, device, dtype) -> GaussianBelief:
     ``obj``, as tensors of ``dtype`` on ``device``."""
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
     return GaussianBelief(mean=t(obj.mean), cov=t(obj.cov))
+
+
+def tsos_from(obj, device, dtype) -> TSOSBelief:
+    """The port's ``TSOSBelief`` with the five factors of ``obj``, as
+    tensors of ``dtype`` on ``device``."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return TSOSBelief(*(t(getattr(obj, f)) for f in TSOSBelief._fields))
+
+
+def trajectory_from(obj, device, dtype) -> PredictedBeliefTrajectory:
+    """The port's ``PredictedBeliefTrajectory`` with the times, means and
+    covariances of ``obj``, as tensors of ``dtype`` on ``device``."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return PredictedBeliefTrajectory(t(obj.times), t(obj.means), t(obj.covs))
 
 
 def airship_from(obj) -> AirshipParams:

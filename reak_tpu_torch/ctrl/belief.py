@@ -14,8 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from reak_tpu_torch.math.linalg import invert_pd, logdet_pd, solve_pd, \
-    sqrtm_psd
+from reak_tpu_torch.math.linalg import _cholesky, invert_pd, logdet_pd, \
+    solve_pd, sqrtm_psd
 
 
 class GaussianBelief(NamedTuple):
@@ -42,7 +42,7 @@ class GaussianBelief(NamedTuple):
     def sample(self, generator: torch.Generator, shape=()):
         """Draw samples with ``generator`` (on the belief's device; JAX takes
         a key) (ref: gaussian_belief_state.hpp:491 sample_gaussian_point)."""
-        L = torch.linalg.cholesky(self.cov)
+        L = _cholesky(self.cov)
         z = torch.randn(tuple(shape) + tuple(self.mean.shape),
                         generator=generator, dtype=self.mean.dtype,
                         device=self.mean.device)

@@ -22,7 +22,8 @@ a continuous f, or a caller's ``linearizer``), then either the batch-first
 Riccati PDIP (``method="riccati"``: each stage's Schur solve one K3a or
 K3b launch on CUDA tensors) or the condensed QP (``condense``,
 ``build_qp``, ``ctrl/qp.solve_box_qp``: a dense (H·m)² Cholesky through
-``torch.linalg.cholesky``, as the JAX package has it outside any kernel).
+``torch.linalg.cholesky_ex``, as the JAX package has it outside any
+kernel).
 """
 from __future__ import annotations
 

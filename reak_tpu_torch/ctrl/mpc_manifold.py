@@ -38,6 +38,7 @@ from reak_tpu_torch.ctrl.invariant import Retraction
 from reak_tpu_torch.ctrl.mpc import MPCProblem, rollout_nominal
 from reak_tpu_torch.ctrl.riccati import solve_box_mpc_riccati
 from reak_tpu_torch.ctrl.systems import _per_point
+from reak_tpu_torch.math.linalg import _cholesky
 
 
 class ManifoldMPCSolution(NamedTuple):
@@ -174,7 +175,7 @@ def _retract_draws(belief: GaussianBelief, z, ret: Optional[Retraction]):
     with L the Cholesky factor of the covariance (+1e-12 I), then
     ``ret.retract(mean, e)`` (``mean + e`` without a retraction)."""
     dim = z.shape[-1]
-    L = torch.linalg.cholesky(
+    L = _cholesky(
         belief.cov + 1e-12 * torch.eye(dim, dtype=belief.cov.dtype,
                                        device=belief.cov.device))
     e = z @ L.T

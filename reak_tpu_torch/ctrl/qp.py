@@ -5,7 +5,7 @@ predictor-corrector).
 
 The workhorse is a Mehrotra primal-dual interior point for box-constrained
 QPs, the condensed-MPC core.  Each Newton system is one dense SPD solve
-through ``math/linalg.solve_pd`` (``torch.linalg.cholesky``); the JAX
+through ``math/linalg.solve_pd`` (``torch.linalg.cholesky_ex``); the JAX
 package computes it outside any Pallas kernel as well.  The QP's data may
 carry leading batch axes; its reductions are taken per problem.
 """

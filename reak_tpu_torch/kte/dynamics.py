@@ -32,7 +32,7 @@ from reak_tpu_torch.kte.spec import (ChainSpec, JointType, REVOLUTE,
                                      PRISMATIC, FIXED, FREE)
 from reak_tpu_torch.math import rotations as rot
 from reak_tpu_torch.math.frames import Frame3
-from reak_tpu_torch.math.linalg import solve_pd
+from reak_tpu_torch.math.linalg import _cholesky, solve_pd
 
 
 class FkResult(NamedTuple):
@@ -369,9 +369,7 @@ def forward_dynamics_checked(spec: ChainSpec, q, qd, tau=None):
     if tau is not None:
         f = f + tau
     # a factor that fails gives NaN, as the JAX package's does, not a raise
-    L, info = torch.linalg.cholesky_ex(M)
-    qdd = torch.cholesky_solve(f[:, None], L)[:, 0]
-    qdd = torch.where(info == 0, qdd, torch.full_like(qdd, float("nan")))
+    qdd = torch.cholesky_solve(f[:, None], _cholesky(M))[:, 0]
     status = (errors.chol_singular_flag(M) | errors.finite_flag(q, qd, f)
               | errors.finite_flag(qdd))
     return qdd, status
@@ -424,7 +422,7 @@ def linearize_fd(spec: ChainSpec, q, qd, tau=None):
         M, f = terms(x)
         dM, df = jacfwd(terms)(x)  # dM: (nv, nv, 2nv), df: (nv, 2nv)
     rhs = f if tau is None else f + tau
-    L = torch.linalg.cholesky(M)
+    L = _cholesky(M)
 
     def msolve(b):
         vec = b.ndim == 1

@@ -1,2 +1,3 @@
-"""Math helpers (port of ``reak_tpu.math``): batched linear algebra,
-rotations (per point and in the lanes layout) and kinematic frames."""
+"""Math helpers (port of ``reak_tpu.math``): batched linear algebra, the
+Riccati equation solvers, rotations (per point and in the lanes layout)
+and kinematic frames."""

@@ -12,6 +12,18 @@ from __future__ import annotations
 import torch
 
 
+def _cholesky(A):
+    """Lower Cholesky factor of each matrix of A, NaN where a matrix is not
+    positive definite: the JAX package's ``jnp.linalg.cholesky`` on a
+    batch.  ``torch.linalg.cholesky`` would raise for the whole batch and,
+    on a card, read the status back to the host at every call;
+    ``cholesky_ex`` leaves the status on the device and the factor of a
+    positive-definite matrix bit for bit the same."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
+
+
 def symmetrize(A):
     """½(A + Aᵀ)."""
     return 0.5 * (A + A.transpose(-1, -2))
@@ -20,7 +32,7 @@ def symmetrize(A):
 def solve_pd(A, b):
     """Solve A x = b for symmetric positive-definite A via Cholesky; ``b``
     is (..., n) or (..., n, k)."""
-    L = torch.linalg.cholesky(A)
+    L = _cholesky(A)
     vec = b.ndim == A.ndim - 1
     if vec:
         b = b[..., None]
@@ -38,7 +50,7 @@ def invert_pd(A):
 
 def logdet_pd(A):
     """log det of an SPD matrix."""
-    L = torch.linalg.cholesky(A)
+    L = _cholesky(A)
     return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
                            dim=-1)
 
@@ -120,7 +132,7 @@ def small_chol_solve(G, rhs, unroll_max: int = 16):
     if vec:
         rhs = rhs[..., None]
     if n > unroll_max:
-        L = torch.linalg.cholesky(G)
+        L = _cholesky(G)
         y = torch.linalg.solve_triangular(L, rhs, upper=False)
         x = torch.linalg.solve_triangular(L.transpose(-1, -2), y,
                                           upper=True)
