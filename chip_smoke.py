@@ -44,6 +44,13 @@ version on the card, and drives the port's main paths through the kernels:
   ``k1_vs_plain``'s inputs, and every solver of ``math.are`` and
   ``ctrl.lqg`` on 8192 seeded systems of 12 states and 6 inputs, each
   within its test's residual bar;
+- the arms, IK and integrators (phase ``arms_ik_integrators``): the 7-DoF
+  SSRMS arm through ``make_kte_mpc`` (n=14, m=7, H=50, f32, B=8192; K1 at
+  (7, 7) and K2), the new chain builders on K1/K5 against their plain
+  versions, the closed-form IK and CLIK at 8192 poses, the arm as an RK4
+  plant, the stiff test suite through the adaptive, multistep and
+  Rosenbrock integrators at their tests' bars, the bitonic sorts, HOSVD and
+  CP-ALS, and the task-space forces, each against its CPU result;
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -640,8 +647,9 @@ def cpu_reference(path):
     the line search and the floating arm, the 16-segment beam's solve, the
     satellite's generic scenario MPC (ctrl/mpc_manifold) on GEN_REF_B
     states this process draws itself, the three Monte-Carlo filters' first
-    EST_REF_RUNS runs over EST_REF_STEPS steps, and DLQR_REF gains of dlqr
-    on the plain step's linearization.  Saved to ``path``."""
+    EST_REF_RUNS runs over EST_REF_STEPS steps, DLQR_REF gains of dlqr
+    on the plain step's linearization, and phase arms_ik_integrators'
+    7-DoF arm solve and CLIK (``arm_references``).  Saved to ``path``."""
     sys.path.insert(0, ROOT)
     from reak_tpu_torch.ctrl import (belief, manifold_lanes, mpc, mpc_manifold,
                                      ss_systems)
@@ -677,7 +685,7 @@ def cpu_reference(path):
              floating_arm_xs=xs_fa.numpy(), beam_us=us_bm.numpy(),
              beam_xs=xs_bm.numpy(), generic_x0=x0_gen.numpy(),
              generic_us=us_gen.numpy(), **estimation_references(),
-             seconds=time.perf_counter() - t0)
+             **arm_references(), seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
 
@@ -965,10 +973,551 @@ def estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
                   f"{worst:.2e} above {r['bar']:.0e}")
 
 
+# ---- phase arms_ik_integrators: the arm builders, IK, forces, sorting,
+# tensors and the integrators ----------------------------------------------
+# the full-width 7-DoF arm (kte/models.manip_ssrms, n = 14, m = 7) through
+# make_kte_mpc at the flagship's settings (bench.py:104-132) with its weight
+# pattern widened to seven joints; IK, plant and force checks on ARM_B
+# scenarios, ARM_REF of them held to the CPU
+ARM_B, ARM_REF = 8192, 64
+ARM_W = np.concatenate([np.full(7, 10.0), np.full(7, 1.0)])
+# the new builders on K1/K5 (the batches of phase kte_chains)
+ARM_CHAINS = ("pendulum", "double_pendulum", "manip_3r_planar", "manip_p3r3r",
+              "manip_scara", "manip_era", "manip_ssrms")
+ARM_BATCHES = (1, 77, 1001)
+# the stiff suite's runs at tests/test_stiff_ivp.py's settings and bars:
+# (problem, dt0, rtol, atol, max_steps, endpoint bar), MEDAKZO's bars in
+# the phase; the adaptive loops read their condition every IVP_CHECK
+# attempts and replay each group of attempts, and the multistep loops each
+# IVP_GRAPH steps, from a CUDA graph.  The multistep methods take
+# HIRES_STEPS fixed steps where the JAX test takes 400,000: both are
+# unstable at 40,000 and within 3e-12 of the published endpoint from
+# 100,000 (JAX on the CPU; 2.6e-12 and 6.2e-13 on an H100), and 400,000
+# steps took 47.8 and 93.5 s on the card (a graph replays ~2 µs a launch)
+ROSENBROCK_RUNS = (("HIRES", 1e-6, 1e-7, 1e-12, 100_000, 1e-5),
+                   ("ROBER", 1e-6, 1e-7, 1e-14, 200_000, 2e-3),
+                   ("OREGO", 1e-6, 1e-7, 1e-12, 200_000, 5e-4),
+                   ("VDP", 1e-8, 1e-7, 1e-12, 200_000, 5e-5))
+HIRES_STEPS, IVP_CHECK, IVP_GRAPH = 100_000, 64, 1000
+SORT_B, SORT_N = 8192, 1000
+
+
+def arm_states(batch):
+    """x0 (batch, 14) of the 7-DoF arm as bench.py draws the flagship's
+    (seed 0): q ~ U(±0.5), q̇ ~ U(±0.2)."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([rng.uniform(-0.5, 0.5, (batch, 7)),
+                           rng.uniform(-0.2, 0.2, (batch, 7))], axis=1)
+
+
+def arm_problem(mpc, device, dtype):
+    """The flagship's weights widened to seven joints (bench.py:112-119):
+    Q = diag(10 ×7, 1 ×7), R = 0.05 I₇, QN = 5 Q, ±40, H = 50."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return mpc.MPCProblem(Q=t(np.diag(ARM_W)), R=t(np.eye(7) * 0.05),
+                          QN=t(np.diag(5.0 * ARM_W)),
+                          u_min=t(np.full(7, -40.0)),
+                          u_max=t(np.full(7, 40.0)), horizon=H)
+
+
+def ik_draws(batch):
+    """Configurations of the 7-DoF arms ~ U(±1.2) and the N(0, 1) draws
+    that perturb CLIK's starts, numpy seed 21."""
+    rng = np.random.default_rng(21)
+    return rng.uniform(-1.2, 1.2, (batch, 7)), rng.standard_normal((batch, 7))
+
+
+def phi_of(spec, q):
+    """The redundancy angle of a 7-DoF configuration: its middle pitch axis
+    on the closed form's self-motion circle (tests/test_ik.py:138-156)."""
+    from reak_tpu_torch.kte import dynamics, ik
+    from reak_tpu_torch.math import rotations as rot
+
+    w = dynamics.fk(spec, q).joint_axis[3]
+    p, quat = ik.ee_pose(spec, q)
+    offs = np.asarray(spec.offsets_pos)
+    vec = lambda *a: torch.tensor(a, dtype=q.dtype, device=q.device)
+    v = p - float(offs[6][2]) * rot.q_to_matrix(quat)[:, 2] \
+        - vec(0.0, 0.0, float(offs[1][2]))
+    vu = v / torch.linalg.vector_norm(v)
+    ref = torch.where(torch.abs(vu[2]) < 0.9, vec(0.0, 0.0, 1.0),
+                      vec(1.0, 0.0, 0.0))
+    e1 = rot.cross(vu, ref)
+    e1 = e1 / torch.linalg.vector_norm(e1)
+    return torch.atan2(torch.dot(w, rot.cross(vu, e1)), torch.dot(w, e1))
+
+
+def ssrms_clik_inputs(q_np, noise_np, device):
+    """Targets (FK of q), and CLIK's starts: the closed form's answers at
+    each configuration's own phi and elbow, plus 0.1 × the draws."""
+    from torch.func import vmap
+
+    from reak_tpu_torch.kte import ik, models
+
+    spec = models.manip_ssrms()
+    q = torch.as_tensor(q_np, device=device)
+    p, quat = vmap(lambda x: ik.ee_pose(spec, x))(q)
+    phi = vmap(lambda x: phi_of(spec, x))(q)
+    elbow = torch.where(q[:, 3] >= 0, 1.0, -1.0).to(q.dtype)
+    q_ik = vmap(lambda a, b, c, d: ik.ik_ssrms(spec, a, b, phi=c, elbow=d))(
+        p, quat, phi, elbow)
+    return p, quat, q_ik, q_ik + 0.1 * torch.as_tensor(noise_np,
+                                                       device=device)
+
+
+def arm_plant(x0, tau, graph_steps=0):
+    """The 7-DoF arm as a plant: integrators.rollout (RK4, H steps of DT)
+    of kte.state_rate under the held inputs ``tau`` (B, 7), one
+    ``torch.func.vmap`` over the scenarios; (H, B, 14)."""
+    from torch.func import vmap
+
+    from reak_tpu_torch import integrators, kte
+    from reak_tpu_torch.kte import models
+
+    spec = models.manip_ssrms()
+    rate = lambda t, X: vmap(lambda x, u: kte.state_rate(spec, x, u))(X, tau)
+    return integrators.rollout(rate, x0, 0.0, DT, H, method="rk4",
+                               graph_steps=graph_steps)
+
+
+def arm_references():
+    """Phase arms_ik_integrators' plain f64 references on CPU tensors: the
+    7-DoF arm's plain solve of the first N_REF states (``arm_us``), the
+    plant from the first ARM_REF of them under that solve's first controls
+    (``arm_plant``), and CLIK on the first ARM_REF of the arm's IK draws
+    (``arm_clik_q``, ``arm_clik_err``)."""
+    from reak_tpu_torch.ctrl import mpc
+    from reak_tpu_torch.kte import ik, models
+
+    f64 = torch.float64
+    spec = models.manip_ssrms()
+    us, _ = mpc.make_kte_mpc(spec, arm_problem(mpc, "cpu", f64), DT,
+                             qp_iters=ITERS)(
+        torch.as_tensor(arm_states(B)[:N_REF]),
+        torch.zeros(N_REF, H, 7, dtype=f64))
+    q_np, noise_np = ik_draws(ARM_B)
+    p, quat, _, q0 = ssrms_clik_inputs(q_np[:ARM_REF], noise_np[:ARM_REF],
+                                       "cpu")
+    res = ik.clik_batched(spec, p, quat, q0)
+    xs = arm_plant(torch.as_tensor(arm_states(B)[:ARM_REF]),
+                   us[:ARM_REF, 0])
+    return {"arm_us": us.numpy(), "arm_plant": xs.numpy(),
+            "arm_clik_q": res.q.numpy(), "arm_clik_err": res.err.numpy()}
+
+
+def endpoint_rel_err(y, ref):
+    """tests/test_stiff_ivp.py's endpoint error: max relative over the
+    published components (NaN entries unchecked)."""
+    y, m = y.double().cpu().numpy(), ~np.isnan(ref)
+    return float(np.max(np.abs(y[m] - ref[m]) / (np.abs(ref[m]) + 1e-30)))
+
+
+def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
+    """Phase arms_ik_integrators, on the card, f64 unless said:
+    (a) the seven new fixed-base builders on K1/K5 at B = 1, 77, 1001
+    against their plain versions (≤1e-9 relative), and uav_kinematics'
+    step and LTV on the generic free-base assembly (no K1/K5 launch;
+    ≤1e-12 of the CPU on 16 states); (b) make_kte_mpc on the 7-DoF SSRMS
+    (f32, B = 8192, H = 50, 8 iterations, 1 pass, ±40): exactly 50 K1
+    launches at (7, 7) and 1 K2, controls within 1e-3 of the CPU child's
+    plain f64 solve of N_REF states, timed with its rollout/PDIP split;
+    (c) IK at B = 8192: the closed forms under vmap round-trip FK(IK(pose))
+    ≤1e-9 in position and angle (3R3R and P3R3R on their best of eight
+    branches, SCARA in position); CLIK on the 3R3R (60 iterations from q +
+    0.1 N(0, 1)) and on the SSRMS from its closed form's answers + 0.1 N(0,
+    1): ≥ 99 % below 1e-6 (and the 3R3R's first 16, the JAX test's batch,
+    all), the SSRMS's first ARM_REF ≤1e-8 from the CPU child's; (d) the
+    plant (``arm_plant``: integrators.rollout, RK4, of the arm's
+    kte.state_rate, 50 steps of DT, each replayed from a CUDA graph) under
+    the solve's first controls, and from the child's first ARM_REF states
+    under its f64 solve's first controls ≤1e-9 relative of the child's;
+    integrate_adaptive (dopri45), adams_bm5 and
+    hamming_iter_mod on HIRES and integrate_rosenbrock on HIRES, ROBER,
+    OREGO, VDP and MEDAKZO at tests/test_stiff_ivp.py's settings and bars
+    (the multistep methods at HIRES_STEPS);
+    (e) the bitonic networks on (SORT_B, SORT_N) f32 bit for bit
+    torch.sort(stable=True), lexsort_2key, median_partition and top_k
+    equal to the CPU's, hosvd and cp_als reconstructions of a seeded
+    (32, 24, 16) tensor ≤1e-10 and ≤1e-8 relative of the CPU's, and
+    world_force_to_tau on the arm at B = 8192 ≤1e-12 of the CPU's.  The
+    K1 and K2 launches of (b) go into ``main_runs``; ``cpu_refs()`` gives
+    the child's ``arm_references()``, called after the card's work."""
+    from torch.func import vmap
+
+    from reak_tpu_torch.ctrl import mpc, riccati_soa
+    from reak_tpu_torch.integrators import (adaptive, implicit, ivp_suite,
+                                            multistep)
+    from reak_tpu_torch.kte import forces, ik, lanes, models
+    from reak_tpu_torch.math import rotations as rot, sorting, tensors
+    from reak_tpu_torch.ops import kte_core, kte_step
+
+    f32, f64 = torch.float32, torch.float64
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    t_phase = time.perf_counter()
+    ph = {"phase": "arms_ik_integrators", "card": card}
+
+    # (a) the new builders on K1/K5, and the free-base UAV on no kernel
+    crng = np.random.default_rng(11)
+    chains = {}
+    for name in ARM_CHAINS:
+        chain = getattr(models, name)()
+        for batch in ARM_BATCHES:
+            nv = chain.nv
+            xc = on(np.concatenate([crng.uniform(-0.5, 0.5, (nv, batch)),
+                                    crng.uniform(-0.3, 0.3, (nv, batch))]),
+                    f64)
+            uc = on(crng.uniform(-5.0, 5.0, (nv, batch)), f64)
+            before = (kte_step.launches, kte_core.launches)
+            got1 = kte_step.make_step_lanes(chain, DT)(xc, uc)
+            got5 = kte_core.make_core_lanes(chain)(xc, uc)
+            launched = (kte_step.launches - before[0],
+                        kte_core.launches - before[1])
+            want1 = kte_step.make_step_plain(chain, DT)(xc, uc)
+            want5 = kte_core.make_core_plain(chain)(xc, uc)
+            chains[f"{name},B={batch}"] = {
+                "widths": list(kte_step.instance_for(chain)),
+                "launches": list(launched),
+                "finite": all(bool(torch.isfinite(a).all())
+                              for a in (*got1, *got5)),
+                "k1_f64_rel": max(rel_err(a, r) for a, r in zip(got1,
+                                                                  want1)),
+                "k5_f64_rel": max(rel_err(a, r) for a, r in zip(got5,
+                                                                  want5))}
+    uav = models.uav_kinematics()
+    step_u, ltv_u = lanes.make_kte_manifold_lanes(uav, DT)
+    q_u = np.tile(uav.neutral_q()[:, None], (1, 1001))
+    q_u[0:3] += crng.uniform(-1.0, 1.0, (3, 1001))
+    quat_u = crng.standard_normal((4, 1001))
+    q_u[3:7] = quat_u / np.linalg.norm(quat_u, axis=0)
+    x_u = np.concatenate([q_u, crng.uniform(-0.5, 0.5, (uav.nv, 1001))])
+    u_u = crng.uniform(-2.0, 2.0, (uav.nv, 1001))
+    reset_counts()
+    xn_u = step_u.eager(on(x_u, f64), on(u_u, f64))
+    Ad_u, Bd_u, cd_u = ltv_u.eager(on(x_u, f64), on(u_u, f64))
+    uav_counts = counts()
+    cpu_x = lambda a: torch.as_tensor(a[:, :16].copy())
+    xn_c = step_u.eager(cpu_x(x_u), cpu_x(u_u))
+    Ad_c, Bd_c, cd_c = ltv_u.eager(cpu_x(x_u), cpu_x(u_u))
+    ph["uav_kinematics"] = {
+        "B": 1001, "launches": uav_counts,
+        "finite": all(bool(torch.isfinite(a).all()) for a in
+                      (xn_u, Ad_u, Bd_u, cd_u)),
+        "rel_vs_cpu": max(rel_err(a[..., :16].cpu(), b) for a, b in zip(
+            (xn_u, Ad_u, Bd_u, cd_u), (xn_c, Ad_c, Bd_c, cd_c)))}
+    ph["kte_chains"] = chains
+    del xn_u, Ad_u, Bd_u, cd_u
+
+    # (b) the 7-DoF arm's solve through K1 (7, 7) f32 and K2
+    ssrms = models.manip_ssrms()
+    x0_np = arm_states(ARM_B)
+    prob32 = arm_problem(mpc, dev, f32)
+    solve = mpc.make_kte_mpc(ssrms, prob32, DT, qp_iters=ITERS, sqp_iters=1)
+    x0_32 = on(x0_np, f32)
+    u0_32 = torch.zeros(ARM_B, H, 7, dtype=f32, device=dev)
+    reset_counts()
+    (us, xs), t_first = timed(lambda: solve(x0_32, u0_32))
+    main_runs["arm_ssrms"] = counts()
+    t_solve = cuda_ms(lambda: solve(x0_32, u0_32), reps=3)
+    roll_k = lanes.make_rollout_ltv_fullfused(ssrms, DT, H)
+    t_roll = cuda_ms(lambda: roll_k(x0_32, u0_32), reps=3)
+    A32, B32, c32, _ = roll_k(x0_32, u0_32)
+    x0T = x0_32.T.contiguous()
+    t_pdip = cuda_ms(lambda: riccati_soa.solve_box_mpc_riccati_soa_fused(
+        A32, B32, c32, prob32.Q, prob32.QN, prob32.R, x0T, prob32.u_min,
+        prob32.u_max, iters=ITERS, use_kernels="whole"), reps=3)
+    del A32, B32, c32, x0T
+    # one K1 launch at (7, 7) in f32, beside the least time the card could
+    # take for it (bytes or operations, as the kernels line counts them)
+    step7 = kte_step.make_step_lanes(ssrms, DT)
+    xk7 = x0_32.T.contiguous()
+    uk7 = torch.zeros(7, ARM_B, dtype=f32, device=dev)
+    t_k1 = cuda_ms(lambda: step7(xk7, uk7), reps=20)
+    k1_bound = bound(nbytes(xk7, uk7, *step7(xk7, uk7)),
+                     ARM_B * ops_per_scenario(
+                         kte_step.make_step_plain(ssrms, DT),
+                         lambda nb: cpu_args((xk7, uk7), ARM_B, nb)))
+    ph["ssrms_solve"] = {
+        "chain": ssrms.name, "B": ARM_B, "H": H, "n": 14, "m": 7,
+        "iters": ITERS, "dtype": "float32",
+        "launches": main_runs["arm_ssrms"], "first_ms": t_first,
+        "solve_ms": t_solve, "solves_per_s": ARM_B / t_solve * 1e3,
+        "rollout_ms": t_roll, "pdip_ms": t_pdip,
+        "k1_7x7_f32_launch_ms": t_k1, "k1_7x7_f32_bound_ms": k1_bound[0],
+        "k1_7x7_f32_bound_by": k1_bound[1],
+        "finite": bool(torch.isfinite(us).all()
+                       and torch.isfinite(xs).all()),
+        "max_abs_u": float(us.abs().max()),
+        "active_bounds": int((us.abs() > 40.0 - 1e-4).sum())}
+
+    # (c) IK at ARM_B targets
+    irng = np.random.default_rng(31)
+    t_ik = {}
+
+    def fk_err(spec_, q_ik, p, quat):
+        p2, quat2 = vmap(lambda x: ik.ee_pose(spec_, x))(q_ik)
+        ang = torch.linalg.vector_norm(rot.q_log(rot.qmul(rot.qconj(quat),
+                                                          quat2)), dim=-1)
+        return torch.linalg.vector_norm(p2 - p, dim=-1), ang
+
+    branches = on([[s, e, w] for s in (1.0, -1.0) for e in (1.0, -1.0)
+                   for w in (1.0, -1.0)], f64)
+    rt = {}
+    for name, width in (("manip_3r3r", 6), ("manip_p3r3r", 7)):
+        chain = getattr(models, name)()
+        q = on(irng.uniform(-1.2, 1.2, (ARM_B, width)), f64)
+        p, quat = vmap(lambda x: ik.ee_pose(chain, x))(q)
+        if name == "manip_3r3r":
+            solve_ik = lambda a, b, tp, c: ik.ik_3r3r(chain, a, b, c[0],
+                                                      c[1], c[2])
+        else:
+            solve_ik = lambda a, b, tp, c: ik.ik_p3r3r(
+                chain, a, b, tp, shoulder=c[0], elbow=c[1], wrist=c[2])
+        q_ik, t_ik[name] = timed(lambda: vmap(
+            lambda a, b, tp: vmap(lambda c: solve_ik(a, b, tp, c))(
+                branches))(p, quat, q[:, 0]))
+        pe, ae = fk_err(chain, q_ik.reshape(-1, width),
+                        p.repeat_interleave(8, 0),
+                        quat.repeat_interleave(8, 0))
+        best = (pe + ae).reshape(ARM_B, 8).argmin(1, keepdim=True)
+        rt[name] = {"pos": float(pe.reshape(ARM_B, 8).gather(1, best).max()),
+                    "angle": float(ae.reshape(ARM_B, 8).gather(1,
+                                                               best).max())}
+    q7, noise7 = ik_draws(ARM_B)
+    for name, solver in (("manip_ssrms", ik.ik_ssrms),
+                         ("manip_era", ik.ik_era)):
+        chain = getattr(models, name)()
+        q = on(q7, f64)
+        p, quat = vmap(lambda x: ik.ee_pose(chain, x))(q)
+        phi = vmap(lambda x: phi_of(chain, x))(q)
+        elbow = torch.where(q[:, 3] >= 0, 1.0, -1.0).to(f64)
+        q_ik, t_ik[name] = timed(lambda: vmap(
+            lambda a, b, c, d: solver(chain, a, b, phi=c, elbow=d))(
+                p, quat, phi, elbow))
+        pe, ae = fk_err(chain, q_ik, p, quat)
+        rt[name] = {"pos": float(pe.max()), "angle": float(ae.max())}
+    scara = models.manip_scara()
+    q = on(np.stack([irng.uniform(-np.pi, np.pi, ARM_B),
+                     irng.uniform(-2.5, 2.5, ARM_B),
+                     irng.uniform(-0.2, 0.2, ARM_B)], 1), f64)
+    p, _ = vmap(lambda x: ik.ee_pose(scara, x))(q)
+    q_ik, t_ik["manip_scara"] = timed(lambda: vmap(
+        lambda a, e: ik.ik_scara(scara, a, elbow=e))(
+            p, torch.where(q[:, 1] >= 0, 1.0, -1.0).to(f64)))
+    rt["manip_scara"] = {"pos": float(fk_err(scara, q_ik, p, torch.zeros(
+        ARM_B, 4, dtype=f64, device=dev) + on([1, 0, 0, 0], f64))[0].max())}
+    arm6 = models.manip_3r3r()
+    q = on(irng.uniform(-0.8, 0.8, (ARM_B, 6)), f64)
+    p, quat = vmap(lambda x: ik.ee_pose(arm6, x))(q)
+    q0 = q + 0.1 * on(irng.standard_normal((ARM_B, 6)), f64)
+    res6, t_clik6 = timed(lambda: ik.clik_batched(arm6, p, quat, q0,
+                                                  iters=60))
+    p, quat, _, q0 = ssrms_clik_inputs(q7, noise7, dev)
+    res7, t_clik7 = timed(lambda: ik.clik_batched(ssrms, p, quat, q0))
+    ph["ik"] = {
+        "B": ARM_B, "round_trip_max": rt, "ms": t_ik,
+        "clik_3r3r": {"iters": 60, "ms": t_clik6,
+                      "max_err": float(res6.err.max()),
+                      "max_err_first_16": float(res6.err[:16].max()),
+                      "share_below_1e-6": float((res6.err < 1e-6).double()
+                                                .mean())},
+        "clik_ssrms": {"iters": 50, "ms": t_clik7,
+                       "max_err": float(res7.err.max()),
+                       "share_below_1e-6": float((res7.err < 1e-6).double()
+                                                 .mean())}}
+    clik7_ref = (res7.q[:ARM_REF].cpu(), res7.err[:ARM_REF].cpu())
+    del res6, res7
+
+    # (d) the plant under the solve's first controls, and the stiff suite
+    xs_plant, t_plant = timed(lambda: arm_plant(
+        on(x0_np, f64), us[:, 0].to(f64), graph_steps=1))
+    ivp = {"plant_rk4": {"B": ARM_B, "steps": H, "ms": t_plant,
+                         "graph_steps": 1,
+                         "finite": bool(torch.isfinite(xs_plant).all())}}
+    del xs_plant
+    hires = ivp_suite.HIRES
+    y_h = on(hires.y0, f64)
+
+    def adaptive_run(key, run, ref, bar):
+        reads = adaptive.host_reads
+        res, ms = timed(run)
+        ivp[key] = {"attempts": int(res.n_steps), "ok": bool(res.ok),
+                    "host_reads": adaptive.host_reads - reads, "ms": ms,
+                    "endpoint_rel_err": endpoint_rel_err(res.y, ref),
+                    "bar": bar}
+        return res
+
+    adaptive_run("dopri45_HIRES", lambda: adaptive.integrate_adaptive(
+        hires.f, y_h, hires.t0, hires.tf, dt0=1e-4, tol=1e-10, dt_min=1e-12,
+        max_steps=2_000_000, method="dopri45", check_every=IVP_CHECK,
+        graphed=True), hires.y_ref, 1e-4)
+    dt_h = (hires.tf - hires.t0) / HIRES_STEPS
+    for key, fn in (("adams_bm5_HIRES", multistep.adams_bm5),
+                    ("hamming_iter_mod_HIRES", multistep.hamming_iter_mod)):
+        y, ms = timed(lambda: fn(hires.f, y_h, hires.t0, dt_h, HIRES_STEPS,
+                                 graph_steps=IVP_GRAPH))
+        ivp[key] = {"steps": HIRES_STEPS, "ms": ms,
+                    "endpoint_rel_err": endpoint_rel_err(y, hires.y_ref),
+                    "bar": 1e-5}
+    for name, dt0, rtol, atol, max_steps, bar in ROSENBROCK_RUNS:
+        prob = getattr(ivp_suite, name)
+        res = adaptive_run(f"rosenbrock_{name}",
+                           lambda: implicit.integrate_rosenbrock(
+                               prob.f, on(prob.y0, f64), prob.t0, prob.tf,
+                               dt0=dt0, rtol=rtol, atol=atol,
+                               max_steps=max_steps, check_every=IVP_CHECK,
+                               graphed=True), prob.y_ref, bar)
+        if name == "ROBER":
+            ivp["rosenbrock_ROBER"]["mass_err"] = abs(float(res.y.sum())
+                                                      - 1.0)
+    med = ivp_suite.MEDAKZO
+    res = adaptive_run("rosenbrock_MEDAKZO",
+                       lambda: implicit.integrate_rosenbrock(
+                           med.f, on(med.y0, f64), med.t0, med.tf, dt0=1e-8,
+                           rtol=1e-6, atol=1e-12, max_steps=200_000,
+                           check_every=IVP_CHECK, graphed=True),
+                       med.y_ref, 2e-3)
+    y_m = res.y.cpu().numpy()
+    ivp["rosenbrock_MEDAKZO"].update(
+        states=int(y_m.shape[0]),
+        lead_rel_err=float(np.max(np.abs(y_m[0:30:2] - med.y_ref[0:30:2])
+                                  / np.abs(med.y_ref[0:30:2]))),
+        far_v_err=float(np.max(np.abs(y_m[391:400:2] - 1.0))),
+        far_u_max=float(np.max(np.abs(y_m[390:400:2]))))
+    ph["integrators"] = ivp
+
+    # (e) sorting, tensors and forces
+    srng = np.random.default_rng(41)
+    xs_np = srng.standard_normal((SORT_B, SORT_N)).astype(np.float32)
+    xs_np[:, ::7] = xs_np[:, ::7].round(1)  # ties
+    x_s = on(xs_np, f32)
+    ref_sort = torch.sort(x_s, dim=-1, stable=True)
+    sort_ms = {}
+    got_s, sort_ms["bitonic_sort"] = timed(lambda: sorting.bitonic_sort(x_s))
+    got_a, sort_ms["bitonic_argsort"] = timed(
+        lambda: sorting.bitonic_argsort(x_s))
+    (got_k, got_v), sort_ms["bitonic_sort_kv"] = timed(
+        lambda: sorting.bitonic_sort_kv(x_s, 3.0 * x_s))
+    sort_ms["torch_sort_stable"] = cuda_ms(
+        lambda: torch.sort(x_s, dim=-1, stable=True), reps=5)
+    prim = on(srng.integers(0, 5, (SORT_B, SORT_N)), f32)
+    x_c, prim_c = x_s.cpu(), prim.cpu()
+    surface = {
+        "lexsort_2key": (sorting.lexsort_2key(prim, x_s),
+                         sorting.lexsort_2key(prim_c, x_c)),
+        "median_partition": (sorting.median_partition(x_s),
+                             sorting.median_partition(x_c)),
+        "median_partition_even": (sorting.median_partition(x_s[:, :-1]),
+                                  sorting.median_partition(x_c[:, :-1])),
+        "top_k": (sorting.top_k(x_s, 16), sorting.top_k(x_c, 16)),
+        "smallest_k": (sorting.smallest_k(x_s, 16),
+                       sorting.smallest_k(x_c, 16))}
+    equal = lambda a, b: all(torch.equal(u.cpu(), v) for u, v in zip(
+        a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple)
+        else (b,)))
+    T_np = np.random.default_rng(43).standard_normal((32, 24, 16))
+    T_d, T_c = on(T_np, f64), torch.as_tensor(T_np)
+    (core, Us), t_hosvd = timed(lambda: tensors.hosvd(T_d))
+    rec_d = tensors.tucker_reconstruct(core, Us)
+    rec_c = tensors.tucker_reconstruct(*tensors.hosvd(T_c))
+    (w_cp, F_cp), t_cp = timed(lambda: tensors.cp_als(T_d, rank=8,
+                                                     n_iters=50))
+    cp_d = tensors.cp_reconstruct(w_cp, F_cp)
+    cp_c = tensors.cp_reconstruct(*tensors.cp_als(T_c, rank=8, n_iters=50))
+    q_f = on(np.random.default_rng(47).uniform(-1.2, 1.2, (ARM_B, 7)), f64)
+    f_f = on(np.random.default_rng(48).standard_normal((ARM_B, 3)), f64)
+    pt = [0.0, 0.0, 0.15]
+    tau_f, t_tau = timed(lambda: vmap(lambda q_, f_: forces.world_force_to_tau(
+        ssrms, q_, 6, pt, f_))(q_f, f_f))
+    tau_fc = vmap(lambda q_, f_: forces.world_force_to_tau(
+        ssrms, q_, 6, pt, f_))(q_f.cpu(), f_f.cpu())
+    ph["sorting_tensors_forces"] = {
+        "sort_shape": [SORT_B, SORT_N], "sort_dtype": "float32",
+        "ms": {**sort_ms, "hosvd": t_hosvd, "cp_als": t_cp,
+               "world_force_to_tau": t_tau},
+        "bitonic_sort_bitwise": torch.equal(got_s, ref_sort.values),
+        "bitonic_argsort_bitwise": torch.equal(got_a, ref_sort.indices),
+        "bitonic_sort_kv_bitwise": torch.equal(got_k, ref_sort.values)
+        and torch.equal(got_v, torch.take_along_dim(3.0 * x_s,
+                                                    ref_sort.indices, -1)),
+        "equal_to_cpu": {k: equal(*v) for k, v in surface.items()},
+        "hosvd_rec_abs_vs_cpu": abs_err(rec_d.cpu(), rec_c),
+        "hosvd_rec_abs_vs_tensor": abs_err(rec_d, T_d),
+        "cp_als_rank": 8, "cp_als_sweeps": 50,
+        "cp_als_rec_rel_vs_cpu": rel_err(cp_d.cpu(), cp_c),
+        "cp_als_fit": float(torch.linalg.vector_norm(cp_d - T_d)
+                            / torch.linalg.vector_norm(T_d)),
+        "world_force_to_tau_abs_vs_cpu": abs_err(tau_f.cpu(), tau_fc)}
+    del x_s, got_s, got_a, got_k, got_v, ref_sort, prim, surface
+
+    # the CPU child's references, then the checks
+    ph["card_seconds"] = time.perf_counter() - t_phase
+    refs = cpu_refs()
+    ph["ssrms_solve"]["max_abs_u_vs_cpu_f64"] = abs_err(
+        us[:N_REF].cpu(), torch.as_tensor(refs["arm_us"]))
+    ph["ssrms_solve"]["reference_scenarios"] = N_REF
+    ph["ik"]["clik_ssrms"]["q_abs_vs_cpu"] = abs_err(
+        clik7_ref[0], torch.as_tensor(refs["arm_clik_q"]))
+    ph["ik"]["clik_ssrms"]["err_abs_vs_cpu"] = abs_err(
+        clik7_ref[1], torch.as_tensor(refs["arm_clik_err"]))
+    # the plant on the child's first states under its f64 solve's controls
+    ivp["plant_rk4"]["rel_vs_cpu"] = rel_err(arm_plant(
+        on(x0_np[:ARM_REF], f64), on(refs["arm_us"][:ARM_REF, 0], f64),
+        graph_steps=1).cpu(), torch.as_tensor(refs["arm_plant"]))
+    emit(ph)
+    for key, c in chains.items():
+        check(c["launches"] == [1, 1], f"{key} did not launch K1 and K5 once")
+        check(c["finite"], f"{key}: K1 or K5 outputs are not finite")
+        for k in ("k1_f64_rel", "k5_f64_rel"):
+            check(c[k] <= 1e-9, f"{key} {k} {c[k]:.2e} above 1e-9")
+    uv = ph["uav_kinematics"]
+    check(uv["launches"]["kte_step"] == 0 and uv["launches"]["kte_core"] == 0,
+          f"uav_kinematics launched K1 or K5: {uv['launches']}")
+    check(uv["finite"] and uv["rel_vs_cpu"] <= 1e-12,
+          f"uav_kinematics' step and LTV: {uv}")
+    so = ph["ssrms_solve"]
+    want = {k: {"kte_step": H, "pdip_whole": 1}.get(k, 0)
+            for k in so["launches"]}
+    check(so["launches"] == want, f"the arm's solve launched {so['launches']}")
+    check(so["finite"], "the arm's solve is not finite")
+    check(so["max_abs_u_vs_cpu_f64"] <= 1e-3,
+          f"the arm's f32 controls {so['max_abs_u_vs_cpu_f64']:.2e} from "
+          "the plain f64 solve")
+    for name, r in ph["ik"]["round_trip_max"].items():
+        for k, e in r.items():
+            check(e <= 1e-9, f"{name}: FK(IK(pose)) {k} error {e:.2e}")
+    c6, c7 = ph["ik"]["clik_3r3r"], ph["ik"]["clik_ssrms"]
+    check(c6["max_err_first_16"] < 1e-6 and c6["share_below_1e-6"] >= 0.99,
+          f"3R3R CLIK: {c6}")
+    check(c7["share_below_1e-6"] >= 0.99, f"SSRMS CLIK: {c7}")
+    check(c7["q_abs_vs_cpu"] <= 1e-8, "SSRMS CLIK against the CPU child")
+    check(ivp["plant_rk4"]["finite"] and ivp["plant_rk4"]["rel_vs_cpu"]
+          <= 1e-9, f"the arm's plant: {ivp['plant_rk4']}")
+    for key, r in ivp.items():
+        if "bar" in r:
+            check(r.get("ok", True) and r["endpoint_rel_err"] < r["bar"],
+                  f"{key}: {r}")
+    check(ivp["rosenbrock_ROBER"]["mass_err"] < 1e-7, "ROBER's mass")
+    mz = ivp["rosenbrock_MEDAKZO"]
+    check(mz["lead_rel_err"] < 2e-3 and mz["far_v_err"] <= 1e-8
+          and mz["far_u_max"] < 1e-8, f"MEDAKZO: {mz}")
+    st = ph["sorting_tensors_forces"]
+    for k in ("bitonic_sort_bitwise", "bitonic_argsort_bitwise",
+              "bitonic_sort_kv_bitwise"):
+        check(st[k], f"{k} is false")
+    for k, v in st["equal_to_cpu"].items():
+        check(v, f"{k} differs from the CPU's")
+    check(st["hosvd_rec_abs_vs_cpu"] <= 1e-10, "hosvd against the CPU")
+    check(st["cp_als_rec_rel_vs_cpu"] <= 1e-8, "cp_als against the CPU")
+    check(st["world_force_to_tau_abs_vs_cpu"] <= 1e-12,
+          "world_force_to_tau against the CPU")
+
+
 def kte_instances():
     """(chain, widths, type) of every K1/K5 library the run drives: the
     flagship arm in f32 and f64, planar_2link, the mixed chain and the
-    16-segment beam in f64."""
+    16-segment beam in f64; the pendulum (1, 1), the planar 3R arm (3, 3;
+    SCARA's widths too) in f64, and the 7-DoF SSRMS (7, 7; ERA's and
+    P3R3R's) in f32 and f64 (phase arms_ik_integrators)."""
     from reak_tpu_torch.kte import models
     from reak_tpu_torch.ops import kte_step
 
@@ -978,7 +1527,11 @@ def kte_instances():
                          (models.planar_2link(), (torch.float64,)),
                          (models.mixed_chain(), (torch.float64,)),
                          (models.flexible_beam(BEAM_SEGMENTS),
-                          (torch.float64,))):
+                          (torch.float64,)),
+                         (models.pendulum(), (torch.float64,)),
+                         (models.manip_3r_planar(), (torch.float64,)),
+                         (models.manip_ssrms(), (torch.float32,
+                                                 torch.float64))):
         out += [(spec.name, kte_step.instance_for(spec), dt) for dt in dtypes]
     return out
 
@@ -2185,8 +2738,9 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
               "call it routes to")
     del got_fx, want_fx, got_fr, want_fr, x0_fx, u0_fx
 
-    # ---- estimation and LQG (the port's examples, math/are, ctrl/lqg) ----
-    # its card work runs before the wait for the CPU child
+    # ---- the arm builders, IK and integrators, then estimation
+    # and LQG (the port's examples, math/are, ctrl/lqg); the card work of
+    # the first runs before the wait for the CPU child
     waited = {}
 
     def cpu_refs():
@@ -2194,6 +2748,8 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             waited["refs"], waited["s"] = cpu_references()
         return waited["refs"]
 
+    arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts,
+                        main_runs)
     estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
                counts, main_runs)
     refs, ref_wait = cpu_refs(), waited["s"]

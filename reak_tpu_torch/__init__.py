@@ -25,7 +25,10 @@ the belief-sampled scenario MPC and the generic MPC entry points
 ``ukf``, ``aug_kalman``, ``predictor``, ``lqg``, ``options``,
 ``aqr_space``, ``math.are``, the ``io`` config and recorders, and the
 examples ``reak_tpu_torch.examples.estimate_satellite3d``,
-``predict_satellite3d`` and ``satellite_mpc``); every Pallas kernel of
+``predict_satellite3d`` and ``satellite_mpc``); the arm builders, task
+forces and inverse kinematics (``kte.models``, ``kte.forces``,
+``kte.ik``), ``math.sorting``, ``math.tensors`` and the integrators
+(``reak_tpu_torch.integrators``); every Pallas kernel of
 the JAX package has its CUDA counterpart, and on CUDA tensors they take
 every width the JAX package takes (past their compile-time instances on
 runtime-width ones).

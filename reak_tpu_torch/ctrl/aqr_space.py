@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from reak_tpu_torch.math.are import solve_care
+from reak_tpu_torch.math.linalg import _inv, _solve
 
 
 def _matrix(A, device):
@@ -113,7 +114,7 @@ class MEAQRSpace(_BoxSpace):
         self.c = torch.zeros_like(A[0]) if c is None else _as(c, A)
         R = (torch.eye(m, dtype=A.dtype, device=A.device) if R is None
              else _as(R, A))
-        Rinv = torch.linalg.inv(R)
+        Rinv = _inv(R)
         self.lower = _as(lower, A)
         self.upper = _as(upper, A)
         self.time_weight = time_weight
@@ -133,7 +134,7 @@ class MEAQRSpace(_BoxSpace):
         e = b[None] - xbar                                  # (T, ..., n)
         G = self.Gs_reg.reshape((self.Gs_reg.shape[0],) + lead
                                 + self.Gs_reg.shape[1:])
-        Ge = torch.linalg.solve(G, e[..., None])[..., 0]
+        Ge = _solve(G, e[..., None])[..., 0]
         energy = torch.einsum("t...i,t...i->t...", e, Ge)
         cost = energy + self.time_weight * self.times.reshape(
             (self.times.shape[0],) + lead)
@@ -161,7 +162,7 @@ class MEAQRSpace(_BoxSpace):
         js = torch.clamp((t * jT).to(torch.int32), 0, last).long()
         jr = torch.clamp(jT - js, 0, last)               # T − s index
         e = b - (self.Phis[jT] @ a[..., None])[..., 0] - self.ds[jT]
-        lam = torch.linalg.solve(self.Gs_reg[jT], e[..., None])
+        lam = _solve(self.Gs_reg[jT], e[..., None])
         out = ((self.Phis[js] @ a[..., None])[..., 0] + self.ds[js]
                + (self.Gs[js] @ (self.Phis[jr].mT @ lam))[..., 0])
         out = self.clamp(out)
@@ -184,7 +185,7 @@ class IHAQRSpace(_BoxSpace):
         R = (torch.eye(m, dtype=A.dtype, device=A.device) if R is None
              else _as(R, A))
         self.P = solve_care(A, B, Q, R)
-        self.K = torch.linalg.solve(R, B.T @ self.P)
+        self.K = _solve(R, B.T @ self.P)
         Acl = A - B @ self.K
         self.lower = _as(lower, A)
         self.upper = _as(upper, A)

@@ -23,7 +23,7 @@ from torch.func import jacfwd
 
 from reak_tpu_torch.ctrl.belief import GaussianBelief
 from reak_tpu_torch.math import rotations as rot
-from reak_tpu_torch.math.linalg import solve_pd, symmetrize
+from reak_tpu_torch.math.linalg import _inv, solve_pd, symmetrize
 
 
 class Retraction(NamedTuple):
@@ -121,7 +121,7 @@ class HamiltonianMap(NamedTuple):
 def hamiltonian_predict_map(A, Q) -> HamiltonianMap:
     """Prediction as a Hamiltonian map: P⁺ = (T21 + T22 P)(T11 + T12 P)⁻¹
     with T = [[A⁻ᵀ, 0], [Q A⁻ᵀ, A]]."""
-    Ait = torch.linalg.inv(A).transpose(-1, -2)
+    Ait = _inv(A).transpose(-1, -2)
     z = torch.zeros_like(A)
     return HamiltonianMap(((Ait, z), (Q @ Ait, A)))
 
@@ -140,7 +140,7 @@ def apply_hamiltonian(T: HamiltonianMap, P):
     (T11, T12), (T21, T22) = T.blocks
     num = T21 + T22 @ P
     den = T11 + T12 @ P
-    return symmetrize(num @ torch.linalg.inv(den))
+    return symmetrize(num @ _inv(den))
 
 
 def compose_hamiltonian(T2: HamiltonianMap,

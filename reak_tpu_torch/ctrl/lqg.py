@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from reak_tpu_torch.math.are import clqr, dlqr, solve_care, solve_dare
-from reak_tpu_torch.math.linalg import solve_pd
+from reak_tpu_torch.math.linalg import _inv, solve_pd
 
 
 class LQGGains(NamedTuple):
@@ -40,7 +40,7 @@ def clqg(A, B, C, Q, R, W, V, iters: int = 40) -> LQGGains:
     dual)."""
     K, P = clqr(A, B, Q, R, iters)
     S = solve_care(A.mT, C.mT, W, V, iters)
-    L = S @ C.mT @ torch.linalg.inv(V)
+    L = S @ C.mT @ _inv(V)
     return LQGGains(K=K, L=L, P=P, S=S)
 
 

@@ -1,6 +1,7 @@
 """KTE multibody dynamics (port of ``reak_tpu.kte``): chain specs, the
 model zoo, the single-sample kinematics and dynamics of ``kte.dynamics``,
-and the lanes and register rollouts of ``kte.lanes`` and ``kte.soa``."""
+inverse kinematics (``kte.ik``), task-space forces (``kte.forces``), and
+the lanes and register rollouts of ``kte.lanes`` and ``kte.soa``."""
 from reak_tpu_torch.kte.spec import (
     ChainSpec,
     JointType,
@@ -24,6 +25,8 @@ from reak_tpu_torch.kte.dynamics import (
     unpack_state,
 )
 from reak_tpu_torch.kte import models
+from reak_tpu_torch.kte import ik
+from reak_tpu_torch.kte import forces
 
 __all__ = [
     "ChainSpec",
@@ -45,4 +48,6 @@ __all__ = [
     "pack_state",
     "unpack_state",
     "models",
+    "ik",
+    "forces",
 ]

@@ -46,10 +46,19 @@ class FkResult(NamedTuple):
     pre_quat: torch.Tensor  # (nb, 4) orientation of the frame before a joint
 
 
+def _one_dof_index(spec: ChainSpec) -> list:
+    """The joints with one dof (REVOLUTE, PRISMATIC), in chain order."""
+    return [i for i, t in enumerate(spec.joint_types)
+            if JointType(t) in (REVOLUTE, PRISMATIC)]
+
+
 @functools.lru_cache(maxsize=None)
 def _spec_consts(spec: ChainSpec):
     from reak_tpu_torch.kte.lanes import _Consts
 
+    nb = spec.n_joints
+    idx = np.asarray(_one_dof_index(spec), np.int64)
+    order = np.arange(nb)
     return _Consts(
         axes=np.asarray(spec.axes, np.float64),
         off_pos=np.asarray(spec.offsets_pos, np.float64),
@@ -57,11 +66,25 @@ def _spec_consts(spec: ChainSpec):
         com=np.asarray(spec.com_pos, np.float64),
         mass=np.asarray(spec.masses, np.float64),
         inertia=np.asarray(spec.inertias, np.float64).reshape(-1, 3, 3),
-        gravity=np.asarray(spec.gravity, np.float64))
+        gravity=np.asarray(spec.gravity, np.float64),
+        # body k moves with joint i iff k >= i: mask[i] (nb, 1)
+        mask=(order[None, :] >= order[:, None]).astype(np.float64)[:, :,
+                                                                    None],
+        # the same over the one-dof joints (nb, nv, 1), which of them
+        # revolve (1, nv, 1), and their indices
+        reach=(order[:, None] >= idx[None, :]).astype(np.float64)[:, :,
+                                                                   None],
+        w_rev=np.array([JointType(spec.joint_types[i]) == REVOLUTE
+                        for i in idx], np.float64)[None, :, None],
+        one_dof=idx,
+        stiffness=np.asarray(spec.stiffness, np.float64)[idx],
+        damping=np.asarray(spec.damping, np.float64)[idx],
+        rest_q=np.asarray(spec.rest_q, np.float64)[idx])
 
 
 def _spec_const(spec: ChainSpec, like) -> dict:
-    """The spec's metadata as tensors of ``like``'s dtype and device."""
+    """The spec's metadata as tensors of ``like``'s dtype and device, made
+    once for each (a CUDA graph capture refuses a copy from the host)."""
     return _spec_consts(spec)(like)
 
 
@@ -170,36 +193,32 @@ def jacobians(spec: ChainSpec, q, fk_res: FkResult | None = None):
         return _jacobians_1dof(spec, q, fk_res)
     nb = spec.n_joints
     cols_v, cols_w = [], []
-
-    def mask(i):  # body k moves with joint i iff k >= i
-        m = np.zeros((nb, 1))
-        m[i:] = 1.0
-        return torch.as_tensor(m, dtype=q.dtype, device=q.device)
+    mask = _spec_const(spec, q)["mask"]  # body k moves with joint i iff k >= i
 
     for i, jt in enumerate(spec.joint_types):
         jt = JointType(jt)
         if jt == REVOLUTE:
             a = fk_res.joint_axis[i]
             r = fk_res.com_pos - fk_res.joint_anchor[i]
-            cols_v.append(rot.cross(a[None, :], r) * mask(i))
-            cols_w.append(a.expand(nb, 3) * mask(i))
+            cols_v.append(rot.cross(a[None, :], r) * mask[i])
+            cols_w.append(a.expand(nb, 3) * mask[i])
         elif jt == PRISMATIC:
             a = fk_res.joint_axis[i]
-            cols_v.append(a.expand(nb, 3) * mask(i))
+            cols_v.append(a.expand(nb, 3) * mask[i])
             cols_w.append(_zeros((nb, 3), q))
         elif jt == FREE:
             # linear dofs: velocity in pre-frame coords → world
             pre_R = rot.q_to_matrix(fk_res.pre_quat[i])  # columns = axes
             for j in range(3):
-                cols_v.append(pre_R[:, j].expand(nb, 3) * mask(i))
+                cols_v.append(pre_R[:, j].expand(nb, 3) * mask[i])
                 cols_w.append(_zeros((nb, 3), q))
             # angular dofs: ω in base-body coords, anchored at the joint end
             base_R = rot.q_to_matrix(fk_res.body_quat[i])
             r = fk_res.com_pos - fk_res.joint_anchor[i]
             for j in range(3):
                 a = base_R[:, j]
-                cols_v.append(rot.cross(a[None, :], r) * mask(i))
-                cols_w.append(a.expand(nb, 3) * mask(i))
+                cols_v.append(rot.cross(a[None, :], r) * mask[i])
+                cols_w.append(a.expand(nb, 3) * mask[i])
         # FIXED: no columns
 
     if not cols_v:
@@ -214,17 +233,10 @@ def _jacobians_1dof(spec: ChainSpec, q, fk_res: FkResult):
     """Twist columns of a 1-DoF/fixed chain as masked batched cross
     products (the same Tcm as the generic path)."""
     nb = spec.n_joints
-    idx = [i for i, t in enumerate(spec.joint_types)
-           if JointType(t) in (REVOLUTE, PRISMATIC)]
-    if not idx:
+    if not _one_dof_index(spec):
         return _zeros((nb, 3, 0), q), _zeros((nb, 3, 0), q)
-    const = lambda a: torch.as_tensor(a, dtype=q.dtype, device=q.device)
-    idx_np = np.asarray(idx)
-    reach = const((np.arange(nb)[:, None] >= idx_np[None, :])
-                  .astype(np.float64)[:, :, None])        # (nb, nv, 1)
-    w_rev = const(np.array([JointType(spec.joint_types[i]) == REVOLUTE
-                            for i in idx], np.float64)[None, :, None])
-    sel = torch.as_tensor(idx_np, device=q.device)
+    c = _spec_const(spec, q)
+    reach, w_rev, sel = c["reach"], c["w_rev"], c["one_dof"]  # (nb, nv, 1)
     ax = fk_res.joint_axis[sel]  # (nv, 3)
     anch = fk_res.joint_anchor[sel]
     rel = fk_res.com_pos[:, None, :] - anch[None, :, :]  # (nb, nv, 3)
@@ -275,17 +287,13 @@ def _passive_joint_force(spec: ChainSpec, q, qd):
     friction (ref: spring.hpp:53, damper.hpp:51, joint_backlash.hpp:47,
     joint_friction.cpp:43-57).  Free-base dofs carry none."""
     nv = spec.nv
-    const = lambda a: torch.as_tensor(a, dtype=q.dtype, device=q.device)
-    idx = [i for i, t in enumerate(spec.joint_types)
-           if JointType(t) in (REVOLUTE, PRISMATIC)]
+    idx = _one_dof_index(spec)
     smooth = all(spec.backlash[i] == 0.0 and spec.stiction_coef[i] == 0.0
                  and spec.slip_coef[i] == 0.0 for i in idx)
     if smooth and not spec.has_free_base and len(idx) == nv:
         # vectorized spring/damper path (no deadband, no friction)
-        k = const(np.asarray(spec.stiffness)[idx])
-        d = const(np.asarray(spec.damping)[idx])
-        rq = const(np.asarray(spec.rest_q)[idx])
-        return -k * (q - rq) - d * qd
+        c = _spec_const(spec, q)
+        return -c["stiffness"] * (q - c["rest_q"]) - c["damping"] * qd
     f = [None] * nv
     for i, jt in enumerate(spec.joint_types):
         if JointType(jt) not in (REVOLUTE, PRISMATIC):

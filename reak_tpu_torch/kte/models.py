@@ -1,10 +1,7 @@
-"""Named robot chain builders (port of ``reak_tpu/kte/models.py``).
-
-Ported so far: the flagship arm, the planar 2-link arm, the two free-base
-chains of the scenario MPC and the two flexible beams (the widest chains of
-the reference's tests); the rest of the zoo follows with the later slices.
-``mixed_chain`` is the port's own: a chain drawn from a seed
-that takes every branch of the rollout-step kernel.
+"""Named robot chain builders (port of ``reak_tpu/kte/models.py``): the
+reference's fifteen builders, with the same arguments and defaults, and
+the port's own ``mixed_chain``, a chain drawn from a seed that takes every
+branch of the rollout-step kernel.  Each returns a :class:`ChainSpec`.
 """
 from __future__ import annotations
 
@@ -16,6 +13,60 @@ from reak_tpu_torch.kte.spec import (ChainSpec, FIXED, FREE, PRISMATIC,
 
 def _z(n):
     return np.tile(np.array([0.0, 0.0, 1.0]), (n, 1))
+
+
+def pendulum(
+    length=0.5,
+    mass=1.0,
+    motor_inertia=5.0,
+    damping=0.0,
+    gravity=9.81,
+    stiction=None,
+) -> ChainSpec:
+    """Single revolute pendulum in the x-y plane, matching the advanced
+    pendulum of the reference's test_am.cpp:100-126: z-axis revolute joint,
+    link of ``length`` along +x, point mass at the tip, rotor inertia on the
+    joint coordinate, gravity −y.
+
+    The motor (rotor) inertia about the joint axis is modeled as body-frame
+    Izz on the first body (equivalent to inertia_gen on the coordinate,
+    ref: inertia.hpp:53).
+    """
+    n = 1
+    inert = np.zeros((n, 3, 3))
+    inert[0, 2, 2] = motor_inertia
+    kw = {}
+    if stiction is not None:
+        v_st, v_sl, c_st, c_sl = stiction
+        kw = dict(
+            stiction_vel=[v_st], slip_vel=[v_sl],
+            stiction_coef=[c_st], slip_coef=[c_sl],
+        )
+    return ChainSpec.build(
+        joint_types=[REVOLUTE],
+        axes=_z(n),
+        com_pos=[[length, 0.0, 0.0]],
+        masses=[mass],
+        inertias=inert,
+        damping=[damping],
+        gravity=(0.0, -gravity, 0.0),
+        name="pendulum",
+        **kw,
+    )
+
+
+def double_pendulum(l1=0.5, l2=0.5, m1=1.0, m2=1.0, gravity=9.81) -> ChainSpec:
+    """Planar double pendulum (point masses at link tips), the mechanism of the
+    reference's test_bm.cpp mass-matrix demo."""
+    return ChainSpec.build(
+        joint_types=[REVOLUTE, REVOLUTE],
+        axes=_z(2),
+        offsets_pos=[[0.0, 0.0, 0.0], [l1, 0.0, 0.0]],
+        com_pos=[[l1, 0.0, 0.0], [l2, 0.0, 0.0]],
+        masses=[m1, m2],
+        gravity=(0.0, -gravity, 0.0),
+        name="double_pendulum",
+    )
 
 
 def planar_2link(
@@ -35,6 +86,20 @@ def planar_2link(
         inertias=inert,
         gravity=(0.0, -gravity, 0.0),
         name="planar_2link",
+    )
+
+
+def manip_3r_planar(l1=0.4, l2=0.3, l3=0.2,
+                    masses=(1.5, 1.0, 0.5)) -> ChainSpec:
+    """Planar 3R arm (ref: manip_3R_arm.hpp:48 manip_3R_2D_kinematics)."""
+    return ChainSpec.build(
+        joint_types=[REVOLUTE] * 3,
+        axes=_z(3),
+        offsets_pos=[[0, 0, 0], [l1, 0, 0], [l2, 0, 0]],
+        com_pos=[[l1 / 2, 0, 0], [l2 / 2, 0, 0], [l3 / 2, 0, 0]],
+        masses=list(masses),
+        gravity=(0.0, -9.81, 0.0),
+        name="manip_3R_planar",
     )
 
 
@@ -101,6 +166,123 @@ def manip_3r3r(
         inertias=inert,
         gravity=(0.0, 0.0, -gravity),
         name="manip_3R3R",
+    )
+
+
+def manip_p3r3r(track_length=3.0, carriage_mass=20.0, **kw) -> ChainSpec:
+    """Track + 6-DoF arm (CRS-A465 on rail), ref: manip_P3R3R_arm.hpp:60.
+
+    A prismatic x-axis track joint carrying the 3R3R arm.
+    """
+    arm = manip_3r3r(**kw)
+    axes = np.vstack([[1.0, 0.0, 0.0], np.asarray(arm.axes)])
+    offs = np.vstack([[0.0, 0.0, 0.0], np.asarray(arm.offsets_pos)])
+    com = np.vstack([[0.0, 0.0, 0.0], np.asarray(arm.com_pos)])
+    masses = np.concatenate([[carriage_mass], np.asarray(arm.masses)])
+    inert = np.concatenate(
+        [np.diag([0.1, 0.1, 0.1])[None],
+         np.asarray(arm.inertias).reshape(-1, 3, 3)], axis=0
+    )
+    return ChainSpec.build(
+        joint_types=[PRISMATIC] + [REVOLUTE] * 6,
+        axes=axes,
+        offsets_pos=offs,
+        com_pos=com,
+        masses=masses,
+        inertias=inert,
+        gravity=arm.gravity,
+        name="manip_P3R3R",
+    )
+
+
+def manip_scara(l1=0.35, l2=0.25, m=(4.0, 3.0, 0.8),
+                gravity=9.81) -> ChainSpec:
+    """SCARA arm: two z revolute joints + vertical prismatic
+    (ref: manip_SCARA_arm.hpp:50)."""
+    inert = np.zeros((3, 3, 3))
+    inert[0, 2, 2] = m[0] * l1 * l1 / 12.0
+    inert[1, 2, 2] = m[1] * l2 * l2 / 12.0
+    inert[2] = np.eye(3) * 1e-3
+    return ChainSpec.build(
+        joint_types=[REVOLUTE, REVOLUTE, PRISMATIC],
+        axes=np.array([[0, 0, 1.0], [0, 0, 1.0], [0, 0, 1.0]]),
+        offsets_pos=[[0, 0, 0], [l1, 0, 0], [l2, 0, 0]],
+        com_pos=[[l1 / 2, 0, 0], [l2 / 2, 0, 0], [0, 0, 0]],
+        masses=list(m),
+        inertias=inert,
+        gravity=(0.0, 0.0, -gravity),
+        name="manip_SCARA",
+    )
+
+
+def manip_era(link_lengths=None, masses=None) -> ChainSpec:
+    """7-DoF European Robotic Arm-style symmetric arm
+    (ref: manip_ERA_arm.hpp:50): roll-yaw-pitch — elbow pitch — pitch-yaw-roll."""
+    L = link_lengths or [0.34, 0.34, 3.1, 3.1, 0.34, 0.34, 0.2]
+    m = masses or [30.0, 25.0, 120.0, 120.0, 25.0, 30.0, 10.0]
+    axes = np.array(
+        [
+            [0.0, 0.0, 1.0],  # roll
+            [0.0, 1.0, 0.0],  # yaw
+            [1.0, 0.0, 0.0],  # pitch
+            [1.0, 0.0, 0.0],  # elbow pitch
+            [1.0, 0.0, 0.0],  # pitch
+            [0.0, 1.0, 0.0],  # yaw
+            [0.0, 0.0, 1.0],  # roll
+        ]
+    )
+    offs = np.zeros((7, 3))
+    com = np.zeros((7, 3))
+    inert = np.zeros((7, 3, 3))
+    for i in range(7):
+        offs[i] = [0.0, 0.0, L[i - 1] if i > 0 else 0.0]
+        com[i] = [0.0, 0.0, L[i] / 2]
+        I_perp = m[i] * L[i] ** 2 / 12.0
+        inert[i] = np.diag([I_perp, I_perp, 0.02 * m[i] + 1e-3])
+    return ChainSpec.build(
+        joint_types=[REVOLUTE] * 7,
+        axes=axes,
+        offsets_pos=offs,
+        com_pos=com,
+        masses=m,
+        inertias=inert,
+        gravity=(0.0, 0.0, 0.0),  # on-orbit arm
+        name="manip_ERA",
+    )
+
+
+def manip_ssrms(link_lengths=None, masses=None) -> ChainSpec:
+    """7-DoF SSRMS/Canadarm2-style arm (ref: manip_SSRMS_arm.hpp:51)."""
+    L = link_lengths or [0.38, 0.635, 6.85, 6.85, 0.635, 0.38, 0.3]
+    m = masses or [80.0, 60.0, 300.0, 300.0, 60.0, 80.0, 30.0]
+    axes = np.array(
+        [
+            [0.0, 0.0, 1.0],
+            [1.0, 0.0, 0.0],
+            [0.0, 1.0, 0.0],
+            [0.0, 1.0, 0.0],
+            [0.0, 1.0, 0.0],
+            [1.0, 0.0, 0.0],
+            [0.0, 0.0, 1.0],
+        ]
+    )
+    offs = np.zeros((7, 3))
+    com = np.zeros((7, 3))
+    inert = np.zeros((7, 3, 3))
+    for i in range(7):
+        offs[i] = [0.0, 0.0, L[i - 1] if i > 0 else 0.0]
+        com[i] = [0.0, 0.0, L[i] / 2]
+        I_perp = m[i] * L[i] ** 2 / 12.0
+        inert[i] = np.diag([I_perp, I_perp, 0.05 * m[i] + 1e-3])
+    return ChainSpec.build(
+        joint_types=[REVOLUTE] * 7,
+        axes=axes,
+        offsets_pos=offs,
+        com_pos=com,
+        masses=m,
+        inertias=inert,
+        gravity=(0.0, 0.0, 0.0),
+        name="manip_SSRMS",
     )
 
 
@@ -235,6 +417,33 @@ def floating_flexible_beam(
         damping=np.concatenate([[0.0], np.asarray(beam.damping)]),
         gravity=(0.0, 0.0, 0.0),
         name=f"floating_flexible_beam_{n}",
+    )
+
+
+def uav_kinematics(
+    mass=1.0,
+    inertia_diag=(0.01, 0.01, 0.02),
+    sensor_offset=(0.1, 0.0, -0.05),
+    gravity=9.81,
+) -> ChainSpec:
+    """UAV (quadrotor) kinematics chain: one FREE joint carrying the airframe
+    body plus a FIXED sensor/camera frame offset from it
+    (ref: ctrl/kte_models/uav_kinematics.hpp UAV_kinematics — a free-floating
+    coordinate frame with the quadrotor body hanging off it; the dynamics
+    pairing lives in ctrl.ss_systems.quadrotor).
+
+    The fixed second link gives the planner/DK-map a distinct end-effector
+    frame (the ref model's output frame) without adding DoFs.
+    """
+    inert = np.zeros((2, 3, 3))
+    inert[0] = np.diag(inertia_diag)
+    return ChainSpec.build(
+        joint_types=[FREE, FIXED],
+        offsets_pos=[[0.0, 0.0, 0.0], list(sensor_offset)],
+        masses=[mass, 0.0],
+        inertias=inert,
+        gravity=(0.0, 0.0, -gravity),
+        name="uav_kinematics",
     )
 
 

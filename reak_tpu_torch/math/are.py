@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from reak_tpu_torch.math.linalg import solve_pd, symmetrize
+from reak_tpu_torch.math.linalg import _inv, _solve, solve_pd, symmetrize
 
 
 def _eye_like(A):
@@ -38,8 +38,8 @@ def solve_dare(A, B, Q, R, iters: int = 30):
     Ak, Gk, Hk = A, B @ solve_pd(R, B.mT), Q
     for _ in range(iters):
         W = eye + Gk @ Hk
-        WinvA = torch.linalg.solve(W, Ak)
-        WinvG = torch.linalg.solve(W, Gk)
+        WinvA = _solve(W, Ak)
+        WinvG = _solve(W, Gk)
         A1 = Ak @ WinvA
         G1 = Gk + Ak @ WinvG @ Ak.mT
         H1 = Hk + WinvA.mT @ Hk @ Ak
@@ -63,7 +63,7 @@ def solve_care(A, B, Q, R, iters: int = 40):
     bot = torch.cat([-Q, -A.mT], dim=-1)
     Z = torch.cat([top, bot], dim=-2)
     for _ in range(iters):
-        Zinv = torch.linalg.inv(Z)
+        Zinv = _inv(Z)
         _, logabsdet = torch.linalg.slogdet(Z)
         c = torch.exp(logabsdet / (2 * n))
         c = torch.where(torch.isfinite(c) & (c > 0), c, torch.ones_like(c))
@@ -74,7 +74,7 @@ def solve_care(A, B, Q, R, iters: int = 40):
     eye = _eye_like(A)
     M = torch.cat([S12, S22 + eye], dim=-2)          # (2n, n)
     rhs = -torch.cat([S11 + eye, S21], dim=-2)       # (2n, n)
-    X = torch.linalg.solve(M.mT @ M, M.mT @ rhs)
+    X = _solve(M.mT @ M, M.mT @ rhs)
     return symmetrize(X)
 
 

@@ -24,6 +24,51 @@ def _cholesky(A):
                        torch.full_like(L, float("nan")))
 
 
+def _nan_where_failed(X, info, core=2):
+    """X, NaN throughout each batch entry whose ``info`` is not 0; ``info``
+    has the batch shape of the factored matrices, X a batch shape that
+    shape broadcasts to and ``core`` trailing axes."""
+    bad = (info != 0).reshape(info.shape + (1,) * core)
+    return torch.where(bad, torch.full_like(X, float("nan")), X)
+
+
+def _solve(A, B):
+    """``torch.linalg.solve(A, B)``, NaN for each batch entry whose A is
+    singular: the JAX package's ``jnp.linalg.solve`` gives non-finite values
+    for that entry alone, where ``torch.linalg.solve`` raises for the whole
+    batch and, on a card, reads the status back to the host at every call.
+    ``solve_ex`` leaves the status on the device; on the other entries the
+    result is ``solve``'s bit for bit."""
+    X, info = torch.linalg.solve_ex(A, B)
+    # B is a vector (or a batch of them) as torch.linalg.solve reads it
+    vec = B.ndim == 1 or (B.ndim == A.ndim - 1 and B.shape == A.shape[:-1])
+    return _nan_where_failed(X, info, 1 if vec else 2)
+
+
+def _inv(A):
+    """``torch.linalg.inv(A)`` with the rule of ``_solve``: NaN for each
+    singular matrix of the batch, ``inv``'s values bit for bit elsewhere."""
+    X, info = torch.linalg.inv_ex(A)
+    return _nan_where_failed(X, info)
+
+
+def _lu_factor(A):
+    """``(LU, pivots)`` of ``torch.linalg.lu_factor_ex``, LU NaN for each
+    singular matrix of the batch (``jax.scipy.linalg.lu_factor`` returns a
+    factor with a zero pivot there, which its solve turns into non-finite
+    values); for ``_lu_solve``."""
+    LU, pivots, info = torch.linalg.lu_factor_ex(A)
+    return _nan_where_failed(LU, info), pivots
+
+
+def _lu_solve(LU, pivots, B):
+    """Solve with the factor of ``_lu_factor``; ``B`` is (..., n) or
+    (..., n, k).  An entry whose factor failed comes out NaN."""
+    vec = B.ndim == LU.ndim - 1
+    X = torch.linalg.lu_solve(LU, pivots, B[..., None] if vec else B)
+    return X[..., 0] if vec else X
+
+
 def symmetrize(A):
     """½(A + Aᵀ)."""
     return 0.5 * (A + A.transpose(-1, -2))
@@ -95,7 +140,7 @@ def expm_pade(A, order: int = 7, squarings: int = 8):
     V = sum(c[k] * _matpow(A2, k // 2, eye) for k in range(0, order + 1, 2))
     U = A @ sum(c[k] * _matpow(A2, (k - 1) // 2, eye)
                 for k in range(1, order + 1, 2))
-    F = torch.linalg.solve(V - U, V + U)
+    F = _solve(V - U, V + U)
     for _ in range(squarings):
         F = F @ F
     return F
@@ -179,9 +224,9 @@ def star_product(M1, M2):
     (A2, B2), (C2, D2) = M2
     n = A1.shape[-1]
     eye = torch.eye(n, dtype=A1.dtype, device=A1.device).expand(A1.shape)
-    W = torch.linalg.solve(eye - B1 @ C2, A1)
+    W = _solve(eye - B1 @ C2, A1)
     A = A2 @ W
-    B = B2 + A2 @ torch.linalg.solve(eye - B1 @ C2, B1 @ D2)
+    B = B2 + A2 @ _solve(eye - B1 @ C2, B1 @ D2)
     C = C1 + D1 @ C2 @ W
-    D = D1 @ torch.linalg.solve(eye - C2 @ B1, D2)
+    D = D1 @ _solve(eye - C2 @ B1, D2)
     return ((A, B), (C, D))

@@ -52,7 +52,7 @@ def rot2d_apply(theta, v):
 
 def qidentity(dtype=torch.float32, batch_shape=(), device="cuda"):
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    q[..., 0].fill_(1.0)  # a fill on the device, no copy from the host
     return q
 
 
