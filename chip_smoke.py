@@ -51,6 +51,22 @@ version on the card, and drives the port's main paths through the kernels:
   plant, the stiff test suite through the adaptive, multistep and
   Rosenbrock integrators at their tests' bars, the bitonic sorts, HOSVD and
   CP-ALS, and the task-space forces, each against its CPU result;
+- the optimizers, the geometry and the profiler (phase
+  ``optimizers_geometry``, f64 unless said): every optimizer family of
+  ``reak_tpu_torch.opt`` (root finders, line searches, least squares with
+  inverse kinematics of the 6-DoF arm by Levenberg–Marquardt, BFGS, SR1,
+  nonlinear CG, Newton, Nelder–Mead, the constrained solvers, the LP,
+  finite differences) on 8192 seeded problems under one
+  ``torch.func.vmap`` each, at its reference test's bar and against the
+  CPU child; Newton once more with one non-finite problem; the planner's
+  collision scenes (``kte.fk`` → ``geom.pose_shapes`` →
+  ``geom.proxy_query``: the arm's capsules against a sphere and the floor,
+  then also a box and a flat-capped cylinder, and a planar 2-link arm)
+  at 8192 configurations in f64 and f32; an ``io.profiling``
+  section timer around each part; and (phase ``flagship_trace``) a
+  ``torch.profiler`` trace of one warm flagship solve, whose kernel events
+  must name K1 50 times and K2 once, with the device-busy share of its
+  window;
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -685,7 +701,8 @@ def cpu_reference(path):
              floating_arm_xs=xs_fa.numpy(), beam_us=us_bm.numpy(),
              beam_xs=xs_bm.numpy(), generic_x0=x0_gen.numpy(),
              generic_us=us_gen.numpy(), **estimation_references(),
-             **arm_references(), seconds=time.perf_counter() - t0)
+             **arm_references(), **optimizers_geometry_references(),
+             seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
 
@@ -1141,7 +1158,8 @@ def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
     (32, 24, 16) tensor ≤1e-10 and ≤1e-8 relative of the CPU's, and
     world_force_to_tau on the arm at B = 8192 ≤1e-12 of the CPU's.  The
     K1 and K2 launches of (b) go into ``main_runs``; ``cpu_refs()`` gives
-    the child's ``arm_references()``, called after the card's work."""
+    the child's ``arm_references()``, called after the card's work.
+    Returns the 3R3R CLIK's share below 1e-6."""
     from torch.func import vmap
 
     from reak_tpu_torch.ctrl import mpc, riccati_soa
@@ -1510,6 +1528,597 @@ def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
     check(st["cp_als_rec_rel_vs_cpu"] <= 1e-8, "cp_als against the CPU")
     check(st["world_force_to_tau_abs_vs_cpu"] <= 1e-12,
           "world_force_to_tau against the CPU")
+    return c6["share_below_1e-6"]
+
+
+# ---- phase optimizers_geometry: the optimization toolbox (opt/*), the
+# geometry (geom/*) and the profiler (io/profiling) ------------------------
+# OG_B problems of each optimizer family and OG_B configurations of each
+# scene; the first OG_REF of each held to the CPU child's plain f64 run, the
+# first OG_LP_REF LPs to scipy's linprog (HiGHS) in the child; problem
+# OG_NAN of the F14 run made non-finite
+OG_B, OG_REF, OG_LP_REF, OG_NAN = 8192, 256, 64, 17
+# the fit of tests/test_opt.py:99-110 (y = exp(b t), 20 times on [0, 1])
+OG_FIT_T = np.linspace(0.0, 1.0, 20)
+# the optimizers that leave some of these draws outside their reference
+# test's bar (nonlinear CG stops mid-valley, Newton runs off from starts
+# where the shifted Hessian is nearly singular, as the JAX package does):
+# their share is printed, and Newton's runs off on paths that the last bits
+# of eigvalsh decide, so it is held to the CPU on the problems that meet
+# the bar on both
+OG_UNCONVERGED = ("nonlinear_cg_fr", "nonlinear_cg_pr", "newton_method")
+# the card against the CPU for fd_gradient, fd_jacobian and fd_hessian:
+# a central difference divides a last-bit difference of f (CUDA's sin and
+# the CPU's differ by an ulp, ~9e-16 at |f| ≤ 3.75) by 2 eps = 2e-4, and
+# the Hessian's difference of differences by eps² = 1e-8 once more (≈ 9e-8;
+# 7.5e-9 on an H100)
+OG_FD_BARS = (1e-9, 1e-9, 1e-7)
+
+
+def random_standard_lp(rng, m, n):
+    """tests/test_lp.py:21-32's draw: a feasible, bounded standard-form LP
+    (x* > 0, reduced costs ≥ 0 with m of them zero)."""
+    A = rng.standard_normal((m, n))
+    b = A @ rng.uniform(0.5, 2.0, n)
+    y = rng.standard_normal(m)
+    s = rng.uniform(0.1, 1.0, n)
+    s[rng.choice(n, size=m, replace=False)] = 0.0
+    return A, b, A.T @ y + s
+
+
+def og_draws(batch=None):
+    """The optimizer problems' parameters and the scenes' configurations,
+    numpy seed 0, drawn in this order; the LPs last, one after another as
+    tests/test_lp.py draws them."""
+    batch = batch or OG_B
+    rng = np.random.default_rng(0)
+    d = {"bisection_a": rng.uniform(0.8, 1.25, batch),     # cos x − a x
+         "cubic_c": rng.uniform(4.0, 6.0, batch),          # x³ − 2x − c
+         "exp_c": rng.uniform(1.5, 3.0, batch),            # eˣ − c
+         "square_c": rng.uniform(1.0, 3.0, batch),         # x² − c
+         "broyden_r2": rng.uniform(2.0, 6.0, batch),       # |x|² = r², x₀ = x₁
+         "golden_m": rng.uniform(0.5, 2.5, batch),         # (x − m)² on [0, 3]
+         "dichotomous_m": rng.uniform(-0.5, 0.5, batch),   # |x − m| on [−1, 1]
+         "wolfe_m": rng.uniform(1.0, 3.0, (batch, 2)),     # |x − m|² from 0
+         "fit_b": rng.uniform(-2.0, -0.5, batch),          # y = exp(b t)
+         "rosenbrock_x0": np.array([-1.2, 1.0])
+         + rng.uniform(-0.2, 0.2, (batch, 2)),
+         "nelder_mead_c": np.array([0.3, -0.7, 1.1])
+         + rng.uniform(-0.3, 0.3, (batch, 3)),
+         "al_eq_s": rng.uniform(0.5, 2.0, batch),          # x₀ + x₁ = s
+         "al_ineq_m": rng.uniform(1.5, 3.0, batch),        # (x − m)², x ≤ 1
+         "sqp_rho": rng.uniform(1.5, 3.0, batch),          # x₀² + x₁² = ρ
+         "barrier_m": rng.uniform(0.5, 2.0, batch),        # (x + m)², x ≥ 0
+         "fd_x": rng.uniform(-1.5, 1.5, (batch, 3)),
+         "scene_q": rng.uniform(-2.8, 2.8, (batch, 6)),
+         "planar_q": rng.uniform(-np.pi, np.pi, (batch, 2))}
+    lps = [random_standard_lp(rng, 4, 9) for _ in range(batch)]
+    d["lp_A"], d["lp_b"], d["lp_c"] = (np.stack(x) for x in zip(*lps))
+    return d
+
+
+def clik3_draws(batch=None):
+    """The 3R3R CLIK's configurations and starts of phase
+    arms_ik_integrators (numpy seed 31, after that phase's round-trip and
+    SCARA draws)."""
+    batch = batch or ARM_B
+    irng = np.random.default_rng(31)
+    irng.uniform(-1.2, 1.2, (batch, 6))
+    irng.uniform(-1.2, 1.2, (batch, 7))
+    for lim in (np.pi, 2.5, 0.2):
+        irng.uniform(-lim, lim, batch)
+    q = irng.uniform(-0.8, 0.8, (batch, 6))
+    return q, q + 0.1 * irng.standard_normal((batch, 6))
+
+
+def optimizer_families(d, device, n=None):
+    """{family: run} of the optimizer families on the first ``n`` draws of
+    ``d`` (f64 on ``device``): ``run()`` solves the family's batch under
+    one torch.func.vmap and returns its outputs as a tuple."""
+    from torch.func import vmap
+
+    from reak_tpu_torch import opt
+    from reak_tpu_torch.kte import ik, models
+    from reak_tpu_torch.math import rotations as rot
+    from reak_tpu_torch.opt import lp
+
+    t = lambda k: torch.as_tensor(d[k][:n], dtype=torch.float64,
+                                  device=device).contiguous()
+    fit_t = torch.as_tensor(OG_FIT_T, device=device)
+    z = lambda c: 0.0 * c  # a batched zero (starts that are constants)
+
+    def fit(b):
+        return lambda p: p[0] * torch.exp(p[1] * fit_t) - torch.exp(b * fit_t)
+
+    def fit_start(b):
+        return torch.stack([z(b) + 0.8, z(b) - 0.1])
+
+    def result(r):
+        return tuple(r) if isinstance(r, tuple) else (r,)
+
+    arm = models.manip_3r3r()
+    nb = len(d["bisection_a"][:n])
+    q_t, q_0 = (torch.as_tensor(a[:nb], device=device)
+                for a in clik3_draws())
+
+    def ik_residual(p_t, quat_t):
+        def r(theta):
+            p, quat = ik.ee_pose(arm, theta)
+            return torch.cat([p - p_t, rot.qmul(rot.qconj(quat_t),
+                                                quat)[1:]])
+        return r
+
+    fams = {
+        "bisection": lambda: vmap(lambda a: opt.bisection(
+            lambda x: torch.cos(x) - a * x, z(a), z(a) + 1.5))(
+                t("bisection_a")),
+        "secant": lambda: vmap(lambda c: opt.secant(
+            lambda x: x ** 3 - 2 * x - c, z(c) + 2.0, z(c) + 3.0))(
+                t("cubic_c")),
+        "illinois": lambda: vmap(lambda c: opt.illinois(
+            lambda x: x ** 3 - 2 * x - c, z(c) + 1.0, z(c) + 3.0))(
+                t("cubic_c")),
+        "ridders": lambda: vmap(lambda c: opt.ridders(
+            lambda x: torch.exp(x) - c, z(c), z(c) + 2.0))(t("exp_c")),
+        "brent": lambda: vmap(lambda c: opt.brent(
+            lambda x: torch.exp(x) - c, z(c), z(c) + 2.0))(t("exp_c")),
+        "newton_raphson": lambda: vmap(lambda c: opt.newton_raphson(
+            lambda x: x * x - c, z(c) + 1.0))(t("square_c")),
+        "broyden": lambda: vmap(lambda r2: opt.broyden(
+            lambda x: torch.stack([x[0] ** 2 + x[1] ** 2 - r2, x[0] - x[1]]),
+            torch.stack([z(r2) + 1.0, z(r2) + 2.0]), iters=60))(
+                t("broyden_r2")),
+        "golden_section": lambda: vmap(lambda m: opt.golden_section(
+            lambda x: (x - m) ** 2, z(m), z(m) + 3.0))(t("golden_m")),
+        "dichotomous_search": lambda: vmap(lambda m: opt.dichotomous_search(
+            lambda x: torch.abs(x - m), z(m) - 1.0, z(m) + 1.0))(
+                t("dichotomous_m")),
+        "wolfe_zoom": lambda: vmap(lambda m: opt.wolfe_zoom(
+            lambda x: (torch.sum((x - m) ** 2), 2.0 * (x - m)), z(m),
+            2.0 * m, torch.sum(m * m), -2.0 * m))(t("wolfe_m")),
+        "backtracking_armijo": lambda: vmap(
+            lambda m: opt.backtracking_armijo(
+                lambda x: torch.sum((x - m) ** 2), z(m), 2.0 * m,
+                torch.sum(m * m), -2.0 * m))(t("wolfe_m")),
+        "gauss_newton": lambda: vmap(lambda b: opt.gauss_newton(
+            fit(b), fit_start(b), iters=25))(t("fit_b")),
+        "levenberg_marquardt": lambda: vmap(lambda b: opt.levenberg_marquardt(
+            fit(b), fit_start(b), iters=40))(t("fit_b")),
+        "jacobian_transpose": lambda: vmap(lambda b: opt.jacobian_transpose(
+            fit(b), fit_start(b), iters=300))(t("fit_b")),
+        "lm_ik_3r3r": lambda: vmap(
+            lambda qt, q0: opt.levenberg_marquardt(
+                ik_residual(*ik.ee_pose(arm, qt)), q0, iters=40))(q_t, q_0),
+        "bfgs": lambda: vmap(lambda x0: opt.bfgs(_rosenbrock, x0, iters=120))(
+            t("rosenbrock_x0")),
+        "nonlinear_cg_fr": lambda: vmap(lambda x0: opt.nonlinear_cg(
+            _rosenbrock, x0, iters=400, variant="fr"))(t("rosenbrock_x0")),
+        "nonlinear_cg_pr": lambda: vmap(lambda x0: opt.nonlinear_cg(
+            _rosenbrock, x0, iters=1600, variant="pr"))(t("rosenbrock_x0")),
+        "newton_method": lambda: vmap(lambda x0: opt.newton_method(
+            _rosenbrock, x0, iters=60))(t("rosenbrock_x0")),
+        "sr1_trust_region": lambda: vmap(lambda x0: opt.sr1_trust_region(
+            _rosenbrock, x0, iters=200))(t("rosenbrock_x0")),
+        "nelder_mead": lambda: vmap(lambda c: opt.nelder_mead(
+            lambda x: torch.sum((x - c) ** 2), z(c), iters=300))(
+                t("nelder_mead_c")),
+        "augmented_lagrangian_eq": lambda: vmap(
+            lambda s: opt.augmented_lagrangian(
+                lambda x: torch.sum(x ** 2), torch.stack([z(s), z(s)]),
+                ce=lambda x: torch.stack([x[0] + x[1] - s])))(t("al_eq_s")),
+        "augmented_lagrangian_ineq": lambda: vmap(
+            lambda m: opt.augmented_lagrangian(
+                lambda x: torch.sum((x - m) ** 2), z(m)[None],
+                ci=lambda x: torch.stack([1.0 - x[0]])))(t("al_ineq_m")),
+        "sqp_equality": lambda: vmap(lambda rho: opt.sqp_equality(
+            lambda x: x[0] + x[1],
+            lambda x: torch.stack([x[0] ** 2 + x[1] ** 2 - rho]),
+            torch.stack([z(rho) + 1.5, z(rho) + 0.1]), iters=40))(
+                t("sqp_rho")),
+        "log_barrier": lambda: vmap(lambda m: opt.log_barrier(
+            lambda x: torch.sum((x + m) ** 2), lambda x: x,
+            (z(m) + 0.5)[None]))(t("barrier_m")),
+        "solve_lp": lambda: vmap(lambda A, b, c: lp.solve_lp(
+            A, b, c, iters=40))(t("lp_A"), t("lp_b"), t("lp_c")),
+        "fd": lambda: vmap(lambda x: (
+            opt.fd_gradient(_fd_f, x, eps=1e-4, order=4),
+            opt.fd_jacobian(_fd_v, x, eps=1e-4),
+            opt.fd_hessian(_fd_f, x)))(t("fd_x")),
+    }
+    return {k: (lambda run=run: result(run())) for k, run in fams.items()}
+
+
+def _rosenbrock(x):
+    return torch.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1.0 - x[:-1]) ** 2)
+
+
+def _fd_f(x):
+    return torch.sin(x[0]) * x[1] ** 2 + x[2]
+
+
+def _fd_v(x):
+    return torch.stack([x[0] * x[1], torch.cos(x[2])])
+
+
+def nan_newton(d, device, n=None):
+    """newton_method at 60 iterations on the Rosenbrock starts with start
+    OG_NAN made NaN (F14 on the card)."""
+    from torch.func import vmap
+
+    from reak_tpu_torch import opt
+
+    x0 = torch.as_tensor(d["rosenbrock_x0"][:n], device=device).clone()
+    x0[OG_NAN, 0] = float("nan")
+    return vmap(lambda x: opt.newton_method(_rosenbrock, x, iters=60))(x0)
+
+
+def scene_models(scene, device, dtype):
+    """(chain, robot shapes, environment) of a scene, as tensors of
+    ``dtype`` on ``device``.  "A": examples/run_crs_planner.py:47-75 —
+    manip_3r3r's chain capsules (r = 0.05; from each body's origin to the
+    next joint, a 0.06 tool stub on the last), the sphere obstacle and the
+    floor plane.  "B": A plus a box (half extents 0.12, 0.08, 0.10 at
+    (−0.35, 0.25, 0.45), turned 0.5 rad about (1, 1, 0)/√2) and a
+    flat-capped cylinder (r = 0.08 from (0.1, −0.45, 0.2) to (0.1, −0.45,
+    0.7)).  "planar": planar_2link (0.4, 0.3) with capped-rectangle links
+    (tests/test_geom2d.py:172-197) against that test's circle and a
+    rectangle (half 0.12 × 0.06 at (−0.3, 0.45), 0.4 rad)."""
+    from reak_tpu_torch.geom import proximity as prox, proximity2d as p2
+    from reak_tpu_torch.geom import shapes as sh, shapes2d as s2
+    from reak_tpu_torch.kte import models
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                  device=device)
+    if scene == "planar":
+        robot = s2.ShapeSet2D(
+            crects=s2.CappedRectangle(t([[0.2, 0.0], [0.15, 0.0]]),
+                                      t([0.0, 0.0]), t([0.2, 0.15]),
+                                      t([0.05, 0.05])),
+            crect_body=torch.tensor([0, 1], device=device))
+        env = p2.ProxyModel2D(
+            circles=s2.Circle(t([[0.55, 0.0]]), t([0.1])),
+            rects=s2.Rectangle(t([[-0.3, 0.45]]), t([0.4]),
+                               t([[0.12, 0.06]])))
+        return models.planar_2link(l1=0.4, l2=0.3), robot, env
+    spec = models.manip_3r3r()
+    nb = spec.n_joints
+    offs = np.asarray(spec.offsets_pos, float)
+    robot = sh.ShapeSet(
+        capsules=sh.Capsule(t(np.zeros((nb, 3))),
+                            t(np.vstack([offs[1:], [[0.0, 0.0, 0.06]]])),
+                            t(np.full(nb, 0.05))),
+        capsule_body=torch.arange(nb, device=device))
+    env = dict(spheres=sh.Sphere(t([[0.35, 0.0, 0.55]]), t([0.18])),
+               planes=sh.Plane(t([[0.0, 0.0, 1.0]]), t([-0.12])))
+    if scene == "B":
+        h = 0.25
+        axis = np.array([1.0, 1.0, 0.0]) / np.sqrt(2.0)
+        env["boxes"] = sh.Box(
+            t([[-0.35, 0.25, 0.45]]),
+            t([[np.cos(h), *(np.sin(h) * axis)]]), t([[0.12, 0.08, 0.10]]))
+        env["cylinders"] = sh.Cylinder(t([[0.1, -0.45, 0.2]]),
+                                       t([[0.1, -0.45, 0.7]]), t([0.08]))
+    return spec, robot, prox.ProxyModel(**env)
+
+
+def scene_clearance(scene, q):
+    """Signed clearance of each configuration q (B, nq) of a scene, composed
+    as planning/workspace.py:113-121 (3-D) and :227-241 (planar) compose it:
+    kte.fk → pose_shapes → proxy_query under one torch.func.vmap over q,
+    closing over the shapes."""
+    from torch.func import vmap
+
+    from reak_tpu_torch import kte
+    from reak_tpu_torch.geom import proximity as prox, proximity2d as p2
+    from reak_tpu_torch.geom import shapes as sh, shapes2d as s2
+
+    spec, robot, env = scene_models(scene, q.device, q.dtype)
+
+    def one(x):
+        res = kte.fk(spec, x)
+        if scene == "planar":
+            ang = 2.0 * torch.atan2(res.body_quat[:, 3], res.body_quat[:, 0])
+            posed = s2.pose_shapes_2d(robot, res.body_pos[:, :2], ang)
+            return p2.proxy_query_2d(p2.ProxyModel2D.from_shapes(posed), env)
+        posed = sh.pose_shapes(robot, res.body_pos, res.body_quat)
+        return prox.proxy_query(prox.ProxyModel(
+            spheres=posed.spheres, capsules=posed.capsules,
+            boxes=posed.boxes, cylinders=posed.cylinders), env)
+
+    return vmap(one)(q)
+
+
+def optimizers_geometry_references():
+    """Phase optimizers_geometry's plain f64 references on CPU tensors: every
+    optimizer family on the first OG_REF problems (``og_<family>_<i>``),
+    the scenes' clearances at the first OG_REF
+    configurations (``og_scene_<scene>``) and scipy's linprog (HiGHS) on the
+    first OG_LP_REF LPs (``og_linprog``)."""
+    from scipy.optimize import linprog
+
+    d = og_draws()
+    out = {}
+    for name, run in optimizer_families(d, "cpu", OG_REF).items():
+        for i, a in enumerate(run()):
+            out[f"og_{name}_{i}"] = a.numpy()
+    for scene, qk in (("A", "scene_q"), ("B", "scene_q"),
+                      ("planar", "planar_q")):
+        out[f"og_scene_{scene}"] = scene_clearance(
+            scene, torch.as_tensor(d[qk][:OG_REF])).numpy()
+    out["og_linprog"] = np.array([
+        linprog(d["lp_c"][i], A_eq=d["lp_A"][i], b_eq=d["lp_b"][i],
+                bounds=(0, None), method="highs").fun
+        for i in range(OG_LP_REF)])
+    return out
+
+
+def _newton_roots(f, df, x0, iters=60):
+    """numpy Newton iterations: the exact roots the root finders' bars are
+    measured from."""
+    x = np.array(x0, np.float64)
+    for _ in range(iters):
+        x = x - f(x) / df(x)
+    return x
+
+
+def optimizer_bars(name, out, d, dev):
+    """(per-problem mask of the family's reference-test bar, worst error)
+    for the outputs ``out`` of one family on all of ``d``'s problems."""
+    from torch.func import grad, hessian, jacfwd, vmap
+
+    o = [a.double().cpu().numpy() for a in out]
+    a_b = d["bisection_a"]
+    cubic = _newton_roots(lambda x: x ** 3 - 2 * x - d["cubic_c"],
+                          lambda x: 3 * x ** 2 - 2, np.full(OG_B, 2.0))
+    fit_x = np.stack([np.ones(OG_B), d["fit_b"]], 1)
+    exact = {
+        "bisection": (_newton_roots(lambda x: np.cos(x) - a_b * x,
+                                    lambda x: -np.sin(x) - a_b,
+                                    np.full(OG_B, 0.7)), 1e-9),
+        "secant": (cubic, 1e-8), "illinois": (cubic, 1e-8),
+        "ridders": (np.log(d["exp_c"]), 1e-8),
+        "brent": (np.log(d["exp_c"]), 1e-6),
+        "golden_section": (d["golden_m"], 1e-7),
+        "dichotomous_search": (d["dichotomous_m"], 1e-5),
+        "gauss_newton": (fit_x, 1e-5), "levenberg_marquardt": (fit_x, 1e-5),
+        "jacobian_transpose": (fit_x, 1e-5),
+        "bfgs": (np.ones((OG_B, 2)), 2e-3),
+        "nonlinear_cg_fr": (np.ones((OG_B, 2)), 2e-3),
+        "nonlinear_cg_pr": (np.ones((OG_B, 2)), 2e-3),
+        "newton_method": (np.ones((OG_B, 2)), 2e-3),
+        "sr1_trust_region": (np.ones((OG_B, 2)), 2e-3),
+        "nelder_mead": (d["nelder_mead_c"], 1e-4),
+        "augmented_lagrangian_eq": (
+            np.repeat(d["al_eq_s"][:, None] / 2, 2, 1), 1e-5),
+        "augmented_lagrangian_ineq": (np.ones((OG_B, 1)), 1e-4),
+        "sqp_equality": (np.repeat(-np.sqrt(d["sqp_rho"][:, None] / 2), 2,
+                                   1), 1e-5),
+        "log_barrier": (np.zeros((OG_B, 1)), 1e-3)}
+    if name in exact:
+        want, bar = exact[name]
+        err = np.abs(o[0] - want).reshape(OG_B, -1).max(1)
+        ok = err <= bar
+        if name == "augmented_lagrangian_eq":
+            ok &= o[2] < 1e-6
+        return ok, float(err.max())
+    if name == "broyden":
+        # two roots, ±√(r²/2)(1, 1): the distance to the nearer one
+        root = np.sqrt(d["broyden_r2"] / 2)[:, None]
+        err = np.minimum(np.abs(o[0] - root), np.abs(o[0] + root)).max(1)
+        return err <= 1e-7, float(err.max())
+    if name == "newton_raphson":
+        err = np.abs(o[0] - np.sqrt(d["square_c"])) / np.sqrt(d["square_c"])
+        return err <= 1e-12, float(err.max())
+    if name in ("wolfe_zoom", "backtracking_armijo"):
+        f0 = np.sum(d["wolfe_m"] ** 2, 1)
+        return o[1] < f0, float(np.max(o[1] - f0))
+    if name == "lm_ik_3r3r":
+        return o[1] < 1e-6, float(o[1].max())
+    if name == "solve_lp":
+        res = np.maximum(o[5], o[6])
+        return res < 1e-7, float(res.max())
+    if name == "fd":
+        x = torch.as_tensor(d["fd_x"], device=dev)
+        refs = (vmap(grad(_fd_f))(x), vmap(jacfwd(_fd_v))(x),
+                vmap(hessian(_fd_f))(x))
+        err = np.max([np.abs(a - r.cpu().numpy()).reshape(OG_B, -1).max(1)
+                      for a, r in zip(o, refs)], axis=0)
+        return err <= 1e-5, float(err.max())
+    raise KeyError(name)
+
+
+def scaled_err(got, ref):
+    """max |got − ref| over max(max |ref|, 1): relative to the size of the
+    reference, absolute for outputs that converge to 0 (residual and
+    gradient norms, duality gaps), whose relative error means nothing."""
+    ref = ref.double()
+    return float((got.double() - ref).abs().max()
+                 / max(float(ref.abs().max()), 1.0))
+
+
+def optimizers_geometry(card, dev):
+    """Phase optimizers_geometry, on the card: (a) every optimizer family
+    of ``optimizer_families`` at OG_B problems, f64, each under one
+    torch.func.vmap, timed; each problem against its reference test's bar
+    (all problems, but for OG_UNCONVERGED, whose share is printed, and the
+    LM IK, held to CLIK's ≥ 99 % below 1e-6); the first OG_REF problems
+    ≤1e-9 of the CPU child's plain f64 run (``scaled_err``; Newton on the
+    problems that meet the bar on both; the finite differences at
+    OG_FD_BARS), the first OG_LP_REF LP objectives
+    ≤1e-5 relative of scipy's linprog; newton_method once more with
+    problem OG_NAN non-finite: that problem NaN, the others bit for bit the
+    clean run (F14 on the card); (b) the scenes' clearances
+    (``scene_models``) at OG_B configurations in f64 and f32: f64 ≤1e-9
+    absolute of the CPU child's on the first OG_REF; f32 ≤1e-3 of f64 with
+    the same sign where |d| > 1e-3, except where the f64 clearance is an
+    overlap (< −1e-6) in scene B: there the depth is signed_pair's
+    subgradient estimate, whose path the rounding decides (its JAX
+    counterpart differs between jax.jit and op by op;
+    tests/test_torch_geom.py), held to the sign and 1e-2; the colliding
+    share printed; (c) an ExecTimeProfiler section around each part, its
+    report on a line of its own.  Runs the card's work and returns
+    ``finish(refs, clik_share)``, which holds it to the child's
+    ``optimizers_geometry_references()`` in ``refs``, prints the phase and
+    checks it (so that the card's work runs before the wait for the
+    child)."""
+    from reak_tpu_torch.io import profiling
+
+    t_phase = time.perf_counter()
+    prof = profiling.ExecTimeProfiler()
+    d = og_draws()
+    ph = {"phase": "optimizers_geometry", "card": card, "B": OG_B,
+          "dtype": "float64", "optimizers": {}, "scenes": {}}
+    outs = {}
+    for name, run in optimizer_families(d, dev).items():
+        with prof.section(name):
+            outs[name], ms = timed(run)
+        ok, worst = optimizer_bars(name, outs[name], d, dev)
+        ph["optimizers"][name] = {"ms": ms, "share_meeting_bar":
+                                  float(ok.mean()), "worst": worst}
+    with prof.section("newton_method_nan"):
+        nan_res, ms = timed(lambda: nan_newton(d, dev))
+    clean = outs["newton_method"]
+    others = [i for i in range(OG_B) if i != OG_NAN]
+    ph["newton_method_nan"] = {
+        "ms": ms, "problem": OG_NAN,
+        "nan_problem_all_nan": all(bool(torch.isnan(a[OG_NAN]).all())
+                                   for a in nan_res),
+        "others_bitwise_clean": all(torch.equal(a[others], b[others])
+                                    for a, b in zip(nan_res, clean))}
+    q = {k: torch.as_tensor(d[k], device=dev) for k in ("scene_q",
+                                                        "planar_q")}
+    clear = {}
+    for scene, qk in (("A", "scene_q"), ("B", "scene_q"),
+                      ("planar", "planar_q")):
+        row = {}
+        for dt, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            with prof.section(f"scene_{scene}_{tag}"):
+                clear[scene, tag], row[f"{tag}_ms"] = timed(
+                    lambda: scene_clearance(scene, q[qk].to(dt)))
+        d64, d32 = clear[scene, "f64"], clear[scene, "f32"].double()
+        depth = (d64 < -1e-6) if scene == "B" else torch.zeros_like(
+            d64, dtype=torch.bool)
+        big = d64.abs() > 1e-3
+        row.update(
+            colliding_share=float((d64 < 0).double().mean()),
+            finite=bool(torch.isfinite(d64).all()
+                        and torch.isfinite(d32).all()),
+            f32_max_abs_vs_f64=abs_err(d32[~depth], d64[~depth]),
+            f32_sign_flips=int(((d32 < 0) != (d64 < 0))[big].sum()))
+        if scene == "B":
+            row["overlap_share"] = float(depth.double().mean())
+            row["f32_max_abs_vs_f64_overlaps"] = abs_err(d32[depth],
+                                                         d64[depth])
+        ph["scenes"][scene] = row
+    ph["card_seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "optimizers_geometry.profile", "card": card,
+          "report": prof.report().splitlines()})
+    return lambda refs, clik_share: _og_finish(ph, outs, clear, refs,
+                                               clik_share)
+
+
+def _og_finish(ph, outs, clear, refs, clik_share):
+    """optimizers_geometry's comparisons with the CPU child, its line (the
+    LM IK's share below 1e-6 beside ``clik_share``, phase
+    arms_ik_integrators' 3R3R CLIK on the same targets) and its checks."""
+    for name, out in outs.items():
+        row = ph["optimizers"][name]
+        ref = [torch.as_tensor(refs[f"og_{name}_{i}"])
+               for i in range(len(out))]
+        got = [a[:OG_REF].cpu() for a in out]
+        if name == "newton_method":
+            # the problems at the test's bar on both the card and the CPU
+            at_bar = lambda x: (x - 1.0).abs().amax(1) < 2e-3
+            both = at_bar(got[0]) & at_bar(ref[0])
+            row["problems_at_bar_card_cpu_both"] = [
+                int(at_bar(got[0]).sum()), int(at_bar(ref[0]).sum()),
+                int(both.sum())]
+            got, ref = [a[both] for a in got], [a[both] for a in ref]
+        row["rel_vs_cpu"] = [scaled_err(a, b) for a, b in zip(got, ref)]
+    row = ph["optimizers"]["lm_ik_3r3r"]
+    row["share_below_1e-6"] = row["share_meeting_bar"]
+    row["clik_3r3r_share_below_1e-6"] = clik_share
+    lp_obj = outs["solve_lp"][3][:OG_LP_REF].cpu().numpy()
+    ph["optimizers"]["solve_lp"]["obj_rel_vs_linprog"] = float(np.max(
+        np.abs(lp_obj - refs["og_linprog"]) / np.abs(refs["og_linprog"])))
+    for scene in ("A", "B", "planar"):
+        ph["scenes"][scene]["f64_abs_vs_cpu"] = abs_err(
+            clear[scene, "f64"][:OG_REF].cpu(),
+            torch.as_tensor(refs[f"og_scene_{scene}"]))
+    emit(ph)
+    for name, row in ph["optimizers"].items():
+        bars = OG_FD_BARS if name == "fd" else (1e-9,) * len(
+            row["rel_vs_cpu"])
+        check(all(e <= b for e, b in zip(row["rel_vs_cpu"], bars)),
+              f"{name} against the CPU: {row}")
+        if name == "lm_ik_3r3r":
+            check(row["share_below_1e-6"] >= 0.99, f"the LM IK: {row}")
+        elif name not in OG_UNCONVERGED:
+            check(row["share_meeting_bar"] == 1.0,
+                  f"{name}: a problem misses its test's bar: {row}")
+    check(ph["optimizers"]["solve_lp"]["obj_rel_vs_linprog"] <= 1e-5,
+          "the LP objectives against scipy's linprog")
+    nm = ph["newton_method_nan"]
+    check(nm["nan_problem_all_nan"] and nm["others_bitwise_clean"],
+          f"newton_method with one non-finite problem: {nm}")
+    for scene, row in ph["scenes"].items():
+        check(row["finite"], f"scene {scene}: clearances not finite")
+        check(row["f64_abs_vs_cpu"] <= 1e-9,
+              f"scene {scene}: f64 against the CPU: {row}")
+        check(row["f32_max_abs_vs_f64"] <= 1e-3
+              and row["f32_sign_flips"] == 0
+              and row.get("f32_max_abs_vs_f64_overlaps", 0.0) <= 1e-2,
+              f"scene {scene}: f32 against f64: {row}")
+
+
+def trace_flagship(card, solve, x0, u0):
+    """Part (c) of phase optimizers_geometry: io/profiling.device_trace
+    around one warm flagship one-pass solve (phase times' configuration);
+    the Chrome trace's CUDA kernel events must name K1's kernel H times and
+    K2's once.  Prints the five longest device operations and the share of
+    the traced window (its first event's start to its last event's end,
+    host and device) in which the device ran an operation."""
+    from reak_tpu_torch.io import profiling
+    from reak_tpu_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR / "flagship_trace"
+    solve(x0, u0)
+    torch.cuda.synchronize()
+    with profiling.device_trace(str(out_dir)):
+        solve(x0, u0)
+        torch.cuda.synchronize()
+    trace = json.loads((out_dir / "trace.json").read_text())
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    on_device = [e for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in on_device if e["cat"] == "kernel"]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e.get("dur", 0) for e in events)
+    busy, reach = 0.0, start
+    for e in sorted(on_device, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], reach), e["ts"] + e.get("dur", 0)
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    longest = sorted(on_device, key=lambda e: -e.get("dur", 0))[:5]
+    row = {"phase": "flagship_trace", "card": card, "B": B, "H": H,
+           "iters": ITERS, "dtype": "float32",
+           "trace": os.path.relpath(out_dir / "trace.json", ROOT),
+           "trace_bytes": (out_dir / "trace.json").stat().st_size,
+           "device_events": len(on_device), "kernel_events": len(kernels),
+           "k1_kernel_events": sum("kte_step_kernel" in e["name"]
+                                   for e in kernels),
+           "k2_kernel_events": sum("pdip_whole_kernel" in e["name"]
+                                   for e in kernels),
+           "window_ms": (end - start) / 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / (end - start),
+           "longest_device_ops": [{"name": e["name"][:90],
+                                   "ms": e.get("dur", 0) / 1e3}
+                                  for e in longest]}
+    emit(row)
+    check(row["k1_kernel_events"] == H and row["k2_kernel_events"] == 1,
+          f"the traced flagship solve's kernels: {row['k1_kernel_events']} "
+          f"K1, {row['k2_kernel_events']} K2")
 
 
 def kte_instances():
@@ -2748,8 +3357,10 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             waited["refs"], waited["s"] = cpu_references()
         return waited["refs"]
 
-    arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts,
-                        main_runs)
+    og_finish = optimizers_geometry(card, dev)
+    clik_share = arms_ik_integrators(card, dev, cpu_refs, reset_counts,
+                                     counts, main_runs)
+    og_finish(cpu_refs(), clik_share)
     estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
                counts, main_runs)
     refs, ref_wait = cpu_refs(), waited["s"]
@@ -3526,6 +4137,8 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
           "k3b_line_search_shape_ms":
           k3_cases[f"solve_lanes_multi(n=6,k=1,B={B})"].get("ms"),
           "k2_wide_ms": k2w["ms"], "k2_wide_plain_ms": k2w["plain_ms"]})
+
+    trace_flagship(card, solve, x0_32, u0_32)
 
     # launches over the main-path runs (flagship one and two passes,
     # satellite on K2 and on the passes, floating arm, the long-horizon

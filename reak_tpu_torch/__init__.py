@@ -28,7 +28,9 @@ examples ``reak_tpu_torch.examples.estimate_satellite3d``,
 ``predict_satellite3d`` and ``satellite_mpc``); the arm builders, task
 forces and inverse kinematics (``kte.models``, ``kte.forces``,
 ``kte.ik``), ``math.sorting``, ``math.tensors`` and the integrators
-(``reak_tpu_torch.integrators``); every Pallas kernel of
+(``reak_tpu_torch.integrators``); the optimization toolbox
+(``reak_tpu_torch.opt``), the geometry (``reak_tpu_torch.geom``) and the
+profiler (``io.profiling``); every Pallas kernel of
 the JAX package has its CUDA counterpart, and on CUDA tensors they take
 every width the JAX package takes (past their compile-time instances on
 runtime-width ones).

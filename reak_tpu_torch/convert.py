@@ -2,9 +2,11 @@
 
 Each function duck-types its argument: anything with the fields of
 ``ChainSpec``, ``MPCProblem``, ``GaussianBelief``, ``SatelliteParams``,
-``AirshipParams``, ``QuadrotorParams``, ``TSOSBelief`` or
-``PredictedBeliefTrajectory`` as numbers, tuples, numpy arrays
-or arrays that ``numpy.asarray`` reads.  Nothing here imports JAX.
+``AirshipParams``, ``QuadrotorParams``, ``TSOSBelief``,
+``PredictedBeliefTrajectory``, the shape sets ``ShapeSet`` and
+``ShapeSet2D`` or the proximity models ``ProxyModel`` and ``ProxyModel2D``
+as numbers, tuples, numpy arrays or arrays that ``numpy.asarray`` reads.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -18,6 +20,12 @@ from reak_tpu_torch.ctrl.predictor import PredictedBeliefTrajectory
 from reak_tpu_torch.ctrl.ss_systems import (AirshipParams, QuadrotorParams,
                                             SatelliteParams, airship3D,
                                             quadrotor, satellite3D)
+from reak_tpu_torch.geom.proximity import ProxyModel
+from reak_tpu_torch.geom.proximity2d import ProxyModel2D
+from reak_tpu_torch.geom.shapes import (Box, Capsule, Cylinder, Plane,
+                                        ShapeSet, Sphere)
+from reak_tpu_torch.geom.shapes2d import (CappedRectangle, Circle,
+                                          Rectangle, Seg2D, ShapeSet2D)
 from reak_tpu_torch.kte.spec import ChainSpec
 
 
@@ -97,3 +105,52 @@ def quadrotor_from(obj) -> QuadrotorParams:
     f = lambda a: np.array(a, np.float64)
     return quadrotor(mass=f(obj.mass), inertia=f(obj.inertia), arm=f(obj.arm),
                      k_torque=f(obj.k_torque), gravity=f(obj.gravity))
+
+
+def _shape_records(cls, kinds, obj, device, dtype):
+    """``cls`` with the fields of ``obj``: each shape record (``kinds``:
+    field → record type) as tensors of ``dtype`` on ``device``, each other
+    field (the body indices) as int64 on ``device``; absent fields stay
+    None."""
+    out = {}
+    for field in cls._fields:
+        value = getattr(obj, field, None)
+        if value is None:
+            continue
+        if field in kinds:
+            rec = kinds[field]
+            out[field] = rec(*(torch.as_tensor(np.array(getattr(value, f)),
+                                               dtype=dtype, device=device)
+                               for f in rec._fields))
+        else:
+            out[field] = torch.as_tensor(np.array(value), dtype=torch.int64,
+                                         device=device)
+    return cls(**out)
+
+
+_SHAPES_3D = {"spheres": Sphere, "capsules": Capsule, "boxes": Box,
+              "cylinders": Cylinder, "planes": Plane}
+_SHAPES_2D = {"circles": Circle, "rects": Rectangle,
+              "crects": CappedRectangle, "segs": Seg2D}
+
+
+def shapes_from(obj, device, dtype) -> ShapeSet:
+    """The port's ``ShapeSet`` with the shapes and body indices of
+    ``obj``."""
+    return _shape_records(ShapeSet, _SHAPES_3D, obj, device, dtype)
+
+
+def proxy_from(obj, device, dtype) -> ProxyModel:
+    """The port's ``ProxyModel`` with the shapes of ``obj``."""
+    return _shape_records(ProxyModel, _SHAPES_3D, obj, device, dtype)
+
+
+def shapes2d_from(obj, device, dtype) -> ShapeSet2D:
+    """The port's ``ShapeSet2D`` with the shapes and body indices of
+    ``obj``."""
+    return _shape_records(ShapeSet2D, _SHAPES_2D, obj, device, dtype)
+
+
+def proxy2d_from(obj, device, dtype) -> ProxyModel2D:
+    """The port's ``ProxyModel2D`` with the shapes of ``obj``."""
+    return _shape_records(ProxyModel2D, _SHAPES_2D, obj, device, dtype)

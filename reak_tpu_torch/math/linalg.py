@@ -69,6 +69,52 @@ def _lu_solve(LU, pivots, B):
     return X[..., 0] if vec else X
 
 
+def _finite_or_eye(A):
+    """(A with each non-finite matrix of the batch replaced by the identity,
+    the batch's mask of finite matrices), the mask computed on the device."""
+    ok = torch.isfinite(A).all(dim=-1).all(dim=-1)
+    eye = torch.eye(A.shape[-2], A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.where(ok[..., None, None], A, eye), ok
+
+
+def _nan_unless(X, ok, core):
+    """X, NaN throughout each batch entry where ``ok`` is false; X has
+    ``core`` trailing axes past the batch shape of ``ok``."""
+    keep = ok.reshape(ok.shape + (1,) * core)
+    return torch.where(keep, X, torch.full_like(X, float("nan")))
+
+
+def _eigh(A):
+    """``torch.linalg.eigh(A)`` that never raises for the batch: each
+    non-finite matrix is decomposed as the identity and its eigenvalues and
+    vectors come out NaN, as the JAX package's ``jnp.linalg.eigh`` gives
+    NaN for that entry alone; the other entries are ``eigh``'s bit for bit.
+    ``torch.linalg.eigh`` has no ``_ex`` form, so on a card torch still
+    reads its convergence status back to the host at every call: this
+    removes the raise, not the read."""
+    A_, ok = _finite_or_eye(A)
+    w, V = torch.linalg.eigh(A_)
+    return _nan_unless(w, ok, 1), _nan_unless(V, ok, 2)
+
+
+def _eigvalsh(A):
+    """``torch.linalg.eigvalsh(A)`` with the rule of ``_eigh``: NaN for each
+    non-finite matrix, ``eigvalsh``'s values bit for bit elsewhere (the host
+    read of the status stays on a card)."""
+    A_, ok = _finite_or_eye(A)
+    return _nan_unless(torch.linalg.eigvalsh(A_), ok, 1)
+
+
+def _svd(A, full_matrices: bool = True):
+    """``torch.linalg.svd(A, full_matrices)`` with the rule of ``_eigh``:
+    (U, S, Vh) NaN for each non-finite matrix, ``svd``'s values bit for bit
+    elsewhere (the host read of the status stays on a card)."""
+    A_, ok = _finite_or_eye(A)
+    U, S, Vh = torch.linalg.svd(A_, full_matrices=full_matrices)
+    return (_nan_unless(U, ok, 2), _nan_unless(S, ok, 1),
+            _nan_unless(Vh, ok, 2))
+
+
 def symmetrize(A):
     """½(A + Aᵀ)."""
     return 0.5 * (A + A.transpose(-1, -2))
@@ -161,8 +207,9 @@ def inf_norm(A):
 
 
 def sqrtm_psd(A):
-    """Symmetric PSD matrix square root via eigh."""
-    w, V = torch.linalg.eigh(A)
+    """Symmetric PSD matrix square root via eigh (``_eigh``: NaN for a
+    non-finite matrix of the batch, the others unaffected)."""
+    w, V = _eigh(A)
     w = torch.clamp(w, min=0.0)
     return (V * torch.sqrt(w)[..., None, :]) @ V.transpose(-1, -2)
 

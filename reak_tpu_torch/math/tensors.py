@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from reak_tpu_torch.math.linalg import _solve
+from reak_tpu_torch.math.linalg import _solve, _svd
 
 
 def tensor3_vec(T, v):
@@ -127,12 +127,14 @@ def hosvd(T, ranks=None):
     ``(core, factors)`` with ``T ≈ multi_mode_dot(core, factors)``; factors
     have orthonormal columns (left singular vectors of each unfolding, each
     column's sign as the linear-algebra library gives it).  The full-rank
-    reconstruction is exact to machine precision."""
+    reconstruction is exact to machine precision.  A tensor that is not
+    finite gives NaN factors and core (``math/linalg._svd``), where
+    ``torch.linalg.svd`` would raise for a batch under vmap."""
     if ranks is None:
         ranks = T.shape
     factors = []
     for mode in range(T.ndim):
-        U, _, _ = torch.linalg.svd(unfold(T, mode), full_matrices=False)
+        U, _, _ = _svd(unfold(T, mode), full_matrices=False)
         factors.append(U[:, : ranks[mode]])
     core = multi_mode_dot(T, [U.T for U in factors])
     return core, factors
