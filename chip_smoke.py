@@ -67,6 +67,19 @@ version on the card, and drives the port's main paths through the kernels:
   ``torch.profiler`` trace of one warm flagship solve, whose kernel events
   must name K1 50 times and K2 once, with the device-busy share of its
   window;
+- the interpolators, the joint-space bundles, the archives and the native
+  recorder (phase ``interp_spaces_io``, f64 unless said), on the 6-DoF CRS
+  arm's joint space (±2.8 rad, 1.5 rad/s, 3 rad/s²): the SVP and SAP
+  bundles of ``spaces/tangent`` (reach times and interpolation at 64
+  fractions of 8192 state pairs; reach times also in f32), the
+  rate-limited space, the JAX tests' bars per pair on dense sweeps, a
+  quintic ``interp`` trajectory through 1,024 waypoints at 8192 × 64 times
+  and through ``kte.fk`` of the arm, ``planning/queries.path_cost``, the
+  UAV corridor scenario's clearance at 8192 times, one bundle through the
+  three archive formats of ``io/serialization`` (bit for bit back),
+  ``examples/estimate_satellite3d.run_from_options`` and ``--options``
+  against the in-code run (bit for bit), and ``io/native_recorder``
+  against the Python recorder on 524,288 rows;
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -664,8 +677,10 @@ def cpu_reference(path):
     satellite's generic scenario MPC (ctrl/mpc_manifold) on GEN_REF_B
     states this process draws itself, the three Monte-Carlo filters' first
     EST_REF_RUNS runs over EST_REF_STEPS steps, DLQR_REF gains of dlqr
-    on the plain step's linearization, and phase arms_ik_integrators'
-    7-DoF arm solve and CLIK (``arm_references``).  Saved to ``path``."""
+    on the plain step's linearization, phase arms_ik_integrators'
+    7-DoF arm solve and CLIK (``arm_references``), and phases
+    optimizers_geometry's and interp_spaces_io's references.  Saved to
+    ``path``."""
     sys.path.insert(0, ROOT)
     from reak_tpu_torch.ctrl import (belief, manifold_lanes, mpc, mpc_manifold,
                                      ss_systems)
@@ -702,6 +717,7 @@ def cpu_reference(path):
              beam_xs=xs_bm.numpy(), generic_x0=x0_gen.numpy(),
              generic_us=us_gen.numpy(), **estimation_references(),
              **arm_references(), **optimizers_geometry_references(),
+             **interp_spaces_references(),
              seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
@@ -2071,6 +2087,482 @@ def _og_finish(ph, outs, clear, refs, clik_share):
               f"scene {scene}: f32 against f64: {row}")
 
 
+# phase interp_spaces_io: the 6-DoF CRS-A465 arm manip_3r3r in joint space
+# (bounds ±2.8 rad, examples/run_crs_planner.py:66-67; speed 1.5 rad/s, the
+# interception query's v_max, :155; accel twice the speed, the ratio of
+# tests/test_tangent_spaces.py:61-62; jerk = accel, spaces/tangent.py's
+# default); ISI_B state pairs (numpy seed 0) at f64 and f32, interpolated at
+# ISI_FRACS fractions, the first ISI_REF held to the CPU child; the JAX
+# tests' bars checked on dense sweeps of tests/test_pulses.py's grids
+# (ISI_DENSE samples: 257 for SVP, 513 for SAP); a quintic trajectory of
+# ISI_WAYPOINTS waypoints evaluated at ISI_B × ISI_TIMES times; the
+# estimation options run ISI_OPT_STEPS steps (tests/test_estimator_options.
+# py:104-114), and --options ISI_CLI_STEPS
+ISI_B, ISI_FRACS, ISI_REF, ISI_WAYPOINTS, ISI_TIMES = 8192, 64, 256, 1024, 64
+ISI_LIMIT, ISI_SPEED, ISI_ACCEL = 2.8, 1.5, 3.0
+ISI_DENSE = {"svp": 257, "sap": 513}
+ISI_OPT_STEPS, ISI_CLI_STEPS = 150, 20
+# tests/test_tangent_spaces.py:45-48 (SVP) and :68-71 (SAP): the endpoints'
+# bars (q at t=0, q̇ at t=0, q at t=1, q̇ at t=1); tests/test_pulses.py's
+# continuity bars (Δq/Δt against the mean q̇: 2e-2; Δq̇/Δt against the mean
+# q̈: 5e-2) and the limits' slack (1e-6)
+ISI_END_BARS = {"svp": (1e-8, 1e-8, 1e-6, 1e-7),
+                "sap": (1e-8, 1e-8, 5e-3, 1e-6)}
+ISI_CONT_BARS, ISI_LIMIT_SLACK = (2e-2, 5e-2), 1e-6
+# F18: the share of the ISI_B pairs where a joint has no feasible profile at
+# the synchronized duration, as measured on an H100 (151 SVP pairs and 50
+# SAP pairs of 8192), and the bar held on each share: which boundary pairs
+# are infeasible is decided by the rounding of the reach time
+# (tests/test_torch_spaces.py::test_f18_crs_pairs_miss_the_bars_as_in_jax),
+# so a few may move, and no more
+ISI_INFEASIBLE = {"svp": 151 / ISI_B, "sap": 50 / ISI_B}
+ISI_INFEASIBLE_BAR = 8 / ISI_B
+
+
+def isi_draws():
+    """Phase interp_spaces_io's numpy draws (seed 0): the state pairs, the
+    quintic trajectory's waypoints and its query times (fractions of its
+    span)."""
+    rng = np.random.default_rng(0)
+    u = lambda scale, *shape: scale * rng.uniform(-1.0, 1.0, shape)
+    b, n, w = ISI_B, 6, ISI_WAYPOINTS
+    return {"qa": u(ISI_LIMIT, b, n), "qb": u(ISI_LIMIT, b, n),
+            "qda": u(ISI_SPEED, b, n), "qdb": u(ISI_SPEED, b, n),
+            "qdda": u(ISI_ACCEL, b, n), "qddb": u(ISI_ACCEL, b, n),
+            "knots": np.cumsum(rng.uniform(0.05, 0.15, w)),
+            "wp": u(ISI_LIMIT, w, n), "wv": u(ISI_SPEED, w, n),
+            "wa": u(ISI_ACCEL, w, n),
+            "tq": rng.uniform(0.0, 1.0, (b, ISI_TIMES))}
+
+
+def isi_spaces(device, dtype):
+    """(SVP bundle, SAP bundle, rate-limited joint space) of the CRS arm."""
+    from reak_tpu_torch import spaces as sp
+    from reak_tpu_torch.kte import models
+
+    full = lambda x: torch.full((6,), x, dtype=dtype, device=device)
+    lo, hi, v, a = full(-ISI_LIMIT), full(ISI_LIMIT), full(ISI_SPEED), full(
+        ISI_ACCEL)
+    return (sp.Ndof1stOrderSpace(lo, hi, v), sp.Ndof2ndOrderSpace(lo, hi, v, a),
+            sp.RateLimitedNdofSpace.for_chain(models.manip_3r3r(), lo, hi, v))
+
+
+def isi_points(d, device, dtype, n=None):
+    """{"svp": (a, b), "sap": (a, b)} of the first ``n`` state pairs."""
+    from reak_tpu_torch import spaces as sp
+
+    t = lambda k: torch.as_tensor(d[k][:n], dtype=dtype, device=device)
+    return {"svp": (sp.NdofPoint1(t("qa"), t("qda")),
+                    sp.NdofPoint1(t("qb"), t("qdb"))),
+            "sap": (sp.NdofPoint2(t("qa"), t("qda"), t("qdda")),
+                    sp.NdofPoint2(t("qb"), t("qdb"), t("qddb")))}
+
+
+def isi_bundles(d, device, dtype, n=None):
+    """Part (a): each bundle's distance (reach time) and interpolation at
+    ISI_FRACS fractions of the first ``n`` pairs, and the rate-limited
+    space's distance and mapping round trip, as {name: tensor}."""
+    s1, s2, rl = isi_spaces(device, dtype)
+    pts = isi_points(d, device, dtype, n)
+    fr = torch.linspace(0.0, 1.0, ISI_FRACS, dtype=dtype, device=device)[:, None]
+    out = {}
+    for name, space in (("svp", s1), ("sap", s2)):
+        a, b = pts[name]
+        out[f"{name}_T"] = space.distance(a, b)
+        for f, x in zip(a._fields, space.interpolate(a, b, fr)):
+            out[f"{name}_{f}"] = x
+    qa, qb = pts["svp"][0].q, pts["svp"][1].q
+    out["rl_distance"] = rl.distance(rl.from_natural(qa), rl.from_natural(qb))
+    out["rl_round_trip"] = rl.to_natural(rl.from_natural(qa))
+    return out
+
+
+def isi_bar_masks(d, device, dtype, n=None):
+    """``isi_bars`` and ``isi_feasible`` of both bundles on the first ``n``
+    pairs: {name: bool tensor (n,)}."""
+    s1, s2, _ = isi_spaces(device, dtype)
+    pts = isi_points(d, device, dtype, n)
+    out = {}
+    for name, space in (("svp", s1), ("sap", s2)):
+        a, b = pts[name]
+        fr = torch.linspace(0.0, 1.0, ISI_DENSE[name], dtype=dtype,
+                            device=device)[:, None]
+        T = space.distance(a, b)
+        out.update(isi_bars(name, a, b, space.interpolate(a, b, fr), T))
+        out[f"{name}_feasible"] = isi_feasible(name, space, a, b, T[:, None])
+    return out
+
+
+def isi_bars(name, a, b, p, T):
+    """Per pair, whether the pair meets the JAX tests' bars, given bundle
+    ``name``'s interpolation ``p`` at ISI_DENSE[name] fractions (the dense
+    grid of tests/test_pulses.py) and its reach times ``T``: the endpoints
+    at fractions 0 and 1, |q̇| ≤ speed (and |q̈| ≤ accel on the SAP
+    bundle) and the continuity of q (and of q̇).  {bar: bool tensor}."""
+    dt = (T / (ISI_DENSE[name] - 1))[None, :, None]
+    worst = lambda x: x.abs().amax(dim=-1)
+    e = ISI_END_BARS[name]
+    out = {f"{name}_endpoints": ((worst(p.q[0] - a.q) <= e[0])
+                                 & (worst(p.qd[0] - a.qd) <= e[1])
+                                 & (worst(p.q[-1] - b.q) <= e[2])
+                                 & (worst(p.qd[-1] - b.qd) <= e[3])),
+           f"{name}_speed": (p.qd.abs() - ISI_SPEED).amax(dim=(0, 2))
+           <= ISI_LIMIT_SLACK,
+           f"{name}_continuity": ((p.q[1:] - p.q[:-1]) / dt - 0.5 * (
+               p.qd[1:] + p.qd[:-1])).abs().amax(dim=(0, 2))
+           <= ISI_CONT_BARS[0]}
+    if name == "sap":
+        out["sap_accel"] = (p.qdd.abs() - ISI_ACCEL).amax(dim=(0, 2)) \
+            <= ISI_LIMIT_SLACK
+        out["sap_accel_continuity"] = ((p.qd[1:] - p.qd[:-1]) / dt - 0.5 * (
+            p.qdd[1:] + p.qdd[:-1])).abs().amax(dim=(0, 2)) \
+            <= ISI_CONT_BARS[1]
+    return out
+
+
+def isi_feasible(name, space, a, b, T, vp=None):
+    """Per pair, whether every joint's profile of bundle ``name`` at the
+    synchronized duration ``T`` (pairs, 1) with peak velocity ``vp``
+    (the bundle's own where not given) is feasible: its two ramps fit the
+    duration (slack ≥ −1e-9) and, with the cruise between them, cover the
+    move (to 1e-6).  Where one is not (fault F18 of the reference), the
+    pulse evaluated anyway jumps."""
+    from reak_tpu_torch.interp import pulses as pl
+
+    if name == "svp":
+        if vp is None:
+            vp = pl.svp_peak_velocity(a.q, b.q, a.qd, b.qd, space.speed, T,
+                                      space.a_ramp)
+        d1, t1 = pl._svp_ramp(a.qd, vp, space.a_ramp)
+        d2, t2 = pl._svp_ramp(vp, b.qd, space.a_ramp)
+    else:
+        if vp is None:
+            vp = pl.sap_peak_velocity(a.q, b.q, a.qd, b.qd, space.speed,
+                                      space.accel, T, space.jerk)
+        d1, t1 = pl._sap_ramp(a.qd, vp, space.accel, space.jerk)
+        d2, t2 = pl._sap_ramp(vp, b.qd, space.accel, space.jerk)
+    slack = T - t1 - t2
+    cover = (b.q - a.q) - (d1 + d2 + vp * slack.clamp_min(0.0))
+    return ((slack >= -1e-9) & (cover.abs() <= 1e-6)).all(dim=-1)
+
+
+def isi_trajectory(d, device, dtype):
+    """The quintic trajectory through the ISI_WAYPOINTS waypoints, and the
+    query times (ISI_B, ISI_TIMES) across its span."""
+    from reak_tpu_torch import interp as ip
+
+    t = lambda k: torch.as_tensor(d[k], dtype=dtype, device=device)
+    tr = ip.waypoint_trajectory(t("knots"), t("wp"), t("wv"), t("wa"))
+    return tr, tr.t0 + t("tq") * (tr.t1 - tr.t0)
+
+
+def isi_trajectories(d, device, dtype, n=None):
+    """Part (b): the quintic trajectory at the first ``n`` rows of query
+    times (pos, vel, acc), the tool positions of manip_3r3r through
+    ``transformed_trajectory`` (kte.fk under torch.func.vmap) at the first
+    time of each of the ISI_B rows, and planning/queries.path_cost of the
+    waypoint path on NdofSpace and on the SVP bundle."""
+    from torch.func import vmap
+
+    from reak_tpu_torch import interp as ip, kte, spaces as sp
+    from reak_tpu_torch.kte import models
+    from reak_tpu_torch.planning import queries
+
+    tr, tq = isi_trajectory(d, device, dtype)
+    pos, vel, acc = tr.eval_with_derivatives(tq[:n])
+    spec = models.manip_3r3r()
+    tool = ip.transformed_trajectory(
+        tr, vmap(lambda q: kte.fk(spec, q).body_pos[-1]))
+    s1, _, _ = isi_spaces(device, dtype)
+    costs = torch.tensor([
+        queries.path_cost(sp.NdofSpace(s1.lower, s1.upper), tr.points),
+        queries.path_cost(s1, sp.NdofPoint1(tr.points, tr.vels))],
+        dtype=torch.float64)
+    return {"traj_pos": pos, "traj_vel": vel, "traj_acc": acc,
+            "tool_pos": tool.eval(tq[:, 0]), "path_costs": costs}
+
+
+def isi_uav_clearance(device, dtype):
+    """Part (c): kte/scenarios.uav_corridor_scenario on ``device``, its
+    start → goal trajectory over [0, 10] s at ISI_B times, and the robot's
+    signed clearance from the environment at each, composed as
+    planning/workspace.py:113-121 composes it: kte.fk → pose_shapes →
+    proxy_query under one torch.func.vmap, closing over the shapes."""
+    from torch.func import vmap
+
+    from reak_tpu_torch import interp as ip, kte
+    from reak_tpu_torch.geom import proximity as prox, shapes as sh
+    from reak_tpu_torch.kte import scenarios
+
+    sc = scenarios.uav_corridor_scenario(device=device, dtype=dtype)
+    traj = ip.point_to_point_trajectory(sc.start, sc.goal, 0.0, 10.0)
+    q = traj.eval(torch.linspace(0.0, 10.0, ISI_B, dtype=dtype, device=device))
+
+    def one(x):
+        res = kte.fk(sc.robot, x)
+        posed = sh.pose_shapes(sc.robot_shapes, res.body_pos, res.body_quat)
+        return prox.proxy_query(prox.ProxyModel(
+            spheres=posed.spheres, capsules=posed.capsules,
+            boxes=posed.boxes, cylinders=posed.cylinders), sc.env)
+
+    return sc, vmap(one)(q)
+
+
+def interp_spaces_references():
+    """Phase interp_spaces_io's plain f64 references on CPU tensors
+    (``isi_<name>``): part (a) on the first ISI_REF pairs, part (b) on the
+    first ISI_REF rows of query times (the tool positions and path costs
+    whole), part (c)'s clearances."""
+    f64 = torch.float64
+    d = isi_draws()
+    out = {**isi_bundles(d, "cpu", f64, ISI_REF),
+           **isi_trajectories(d, "cpu", f64, ISI_REF),
+           "uav_clearance": isi_uav_clearance("cpu", f64)[1]}
+    return {f"isi_{k}": v.numpy() for k, v in out.items()}
+
+
+def isi_archives(dev, sc, tr):
+    """Part (d): one bundle (the UAV scenario, the waypoint trajectory, the
+    flagship MPCProblem and scene A's shapes and environment of phase
+    optimizers_geometry) saved as .json, .json.gz and .rkb in a temporary
+    directory and loaded back; {format: row}, and the schema kinds of
+    reak.NavigationScenario."""
+    import tempfile
+
+    from reak_tpu_torch.ctrl import mpc
+    from reak_tpu_torch.io import serialization as ser
+
+    _, robot, env = scene_models("A", dev, torch.float64)
+    bundle = {"scenario": sc, "trajectory": tr,
+              "flagship": flagship_problem(mpc, dev, torch.float64),
+              "scene_a_robot": robot, "scene_a_env": env}
+    # the canonical document of each: every array's values (float64 and
+    # float32 exact in JSON's shortest repr, -0.0 kept), dtype and shape
+    doc = lambda x: json.dumps(ser.to_document(x))
+    want = doc(bundle)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt in (".json", ".json.gz", ".rkb"):
+            path = os.path.join(tmp, f"bundle{fmt}")
+            t0 = time.perf_counter()
+            ser.save_scene(path, bundle)
+            t1 = time.perf_counter()
+            back = ser.load_scene(path)
+            t2 = time.perf_counter()
+            rows[fmt] = {"bytes": os.path.getsize(path),
+                         "save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3,
+                         "bitwise": doc(back) == want}
+    kinds = {f["name"]: f["kind"] for f in ser.build_schemes()["schemes"][
+        "reak.NavigationScenario"]["fields"]}
+    return rows, kinds
+
+
+def isi_options(dev):
+    """Part (e): the TSOS airship options of tests/test_estimator_options.
+    py:104-114 saved as .rkx and run on the card by run_from_options(path),
+    beside _run_from_options on the same options built in code; the same
+    at ISI_CLI_STEPS steps through the example's --options.  Returns the
+    row, with both comparisons and the test's bars (:119-126)."""
+    import dataclasses
+    import tempfile
+
+    from reak_tpu_torch.ctrl.options import EstimatorOptions
+    from reak_tpu_torch.examples import estimate_satellite3d as est
+    from reak_tpu_torch.io import serialization as ser
+
+    opts = EstimatorOptions(
+        system_kind="airship_aug", mass=2.0, inertia_diag=(0.8, 1.0, 1.2),
+        time_step=0.05, measurements="pose_sonars", tsos=True,
+        room_lower=(-8.0, -8.0, -8.0), room_upper=(8.0, 8.0, 8.0),
+        measurement_noise=(1e-6,) * 3 + (1e-6,) * 3 + (1e-5,) * 6,
+        initial_cov_diag=(1e-2,) * 12 + (0.05,) * 5,
+        initial_state=tuple(np.concatenate(
+            [np.zeros(3), [1, 0, 0, 0], np.zeros(6),
+             [0.15, 0.02, -0.01, 0.0, 0.3]])), steps=ISI_OPT_STEPS)
+    same = lambda r, s: bool(torch.equal(r[1].mean, s[1].mean)
+                             and torch.equal(r[1].cov, s[1].cov)
+                             and torch.equal(r[2], s[2]))
+    row = {"steps": ISI_OPT_STEPS, "cli_steps": ISI_CLI_STEPS}
+    real = est._run_from_options
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tsos_airship.rkx")
+        ser.save_scene(path, opts)
+        got, row["run_from_options_ms"] = timed(
+            lambda: est.run_from_options(path, seed=0, device=dev))
+        want, row["in_code_ms"] = timed(
+            lambda: real(opts, seed=0, device=dev))
+        cli = dataclasses.replace(opts, steps=ISI_CLI_STEPS)
+        cli_path = os.path.join(tmp, "tsos_airship_cli.rkx")
+        ser.save_scene(cli_path, cli)
+        runs = []
+        est._run_from_options = lambda *a, **k: runs.append(real(*a, **k)) \
+            or runs[-1]
+        try:
+            t0 = time.perf_counter()
+            rc = est.main([f"--options={cli_path}", f"--device={dev}"])
+            row["cli_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            est._run_from_options = real
+        cli_want = real(cli, seed=0, device=dev)
+    belief, x_true = got[1], got[2]
+    row.update(
+        bitwise_run_from_options=same(got, want),
+        bitwise_cli=rc == 0 and len(runs) == 1 and same(runs[0], cli_want),
+        options_round_trip=dataclasses.asdict(got[0]) == dataclasses.asdict(
+            opts),
+        position_error=float(torch.linalg.vector_norm(belief.mean[0:3]
+                                                      - x_true[0:3])),
+        aug_error=float((belief.mean[13:18].cpu() - torch.tensor(
+            [0.15, 0.02, -0.01, 0.0, 0.3], dtype=torch.float64)).abs().max()),
+        device=str(belief.mean.device))
+    return row
+
+
+def isi_recorder(tq, pos):
+    """Part (f): the native recorder built from native/recorder.cpp (timed),
+    the ISI_B × ISI_TIMES rows (t, q) of part (b) written by the native
+    recorder and by the Python BinaryRecorder, each file read back by
+    NativeExtractor and by open_extractor."""
+    import tempfile
+
+    from reak_tpu_torch.io import native_recorder as nr
+    from reak_tpu_torch.io.recorder import BinaryRecorder, open_extractor
+
+    t0 = time.perf_counter()
+    nr.build_library()
+    row = {"build_s": time.perf_counter() - t0}
+    nr.load_library()
+    rows = torch.cat([tq.reshape(-1, 1), pos.reshape(-1, 6)], 1).cpu().numpy()
+    cols = ["t"] + [f"q{i}" for i in range(6)]
+    row["rows"] = rows.shape[0]
+    reads = []
+    with tempfile.TemporaryDirectory() as tmp:
+        native, python = (os.path.join(tmp, f"{w}.bin")
+                          for w in ("native", "python"))
+        t0 = time.perf_counter()
+        with nr.NativeRecorder(native, cols) as rec:
+            rec.record_rows(rows)
+            rec.flush()
+        t1 = time.perf_counter()
+        rec = BinaryRecorder(python, cols)
+        for r in rows:
+            rec.record(r)
+        rec.close()
+        t2 = time.perf_counter()
+        row["native_rows_per_s"] = rows.shape[0] / (t1 - t0)
+        row["python_rows_per_s"] = rows.shape[0] / (t2 - t1)
+        for path in (native, python):
+            with nr.NativeExtractor(path) as ext:
+                reads.append((ext.columns, ext.read_all()))
+            reads.append(open_extractor(path))
+    row["all_reads_bitwise"] = all(
+        list(c) == cols and r.dtype == rows.dtype and np.array_equal(r, rows)
+        for c, r in reads)
+    return row
+
+
+def interp_spaces_io(card, dev):
+    """Phase interp_spaces_io, on the card (slice 13): (a) the SVP and SAP
+    bundles' reach times and interpolations at ISI_FRACS fractions on ISI_B
+    pairs of the CRS arm in f64 (and the reach times in f32), the
+    rate-limited space's mapping round trip, and the JAX tests' bars per
+    pair on dense sweeps; (b) the quintic trajectory at ISI_B × ISI_TIMES
+    times, the arm's tool through transformed_trajectory, path costs; (c)
+    the UAV corridor's clearance at ISI_B times; (d) the archives; (e)
+    run_from_options and --options; (f) the native recorder.  Returns
+    ``finish(refs)``, which holds the card's f64 results to the CPU
+    child's ``interp_spaces_references()``, prints the phase and checks it
+    (so that the card's work runs before the wait for the child)."""
+    f64, f32 = torch.float64, torch.float32
+    t_phase = time.perf_counter()
+    d = isi_draws()
+    ph = {"phase": "interp_spaces_io", "card": card, "B": ISI_B,
+          "fracs": ISI_FRACS, "waypoints": ISI_WAYPOINTS,
+          "times": [ISI_B, ISI_TIMES]}
+    out, ph["bundles_ms"] = timed(lambda: isi_bundles(d, dev, f64))
+    out32, ph["bundles_f32_ms"] = timed(lambda: isi_bundles(d, dev, f32))
+    for name in ("svp", "sap"):
+        t32, t64 = out32[f"{name}_T"], out[f"{name}_T"]
+        rel = (t32.double() - t64).abs() / t64.abs().clamp_min(1e-300)
+        ph[f"{name}_f32_T"] = {"max_rel": float(rel.max()),
+                               "worst_pair": int(rel.argmax()),
+                               "share_beyond_1e-4": float((rel > 1e-4).double()
+                                                          .mean())}
+    ph["rl_round_trip_max_abs"] = abs_err(out["rl_round_trip"],
+                                          torch.as_tensor(d["qa"], device=dev))
+    masks, ph["bars_ms"] = timed(lambda: isi_bar_masks(d, dev, f64))
+    ph["bars_share_met"] = {k: float(m.double().mean())
+                            for k, m in masks.items()}
+    traj, ph["trajectories_ms"] = timed(lambda: isi_trajectories(d, dev, f64))
+    tr, tq = isi_trajectory(d, dev, f64)
+    ph["trajectory_eval_ms"] = timed(lambda: tr.eval_with_derivatives(tq))[1]
+    ph["path_costs"] = traj["path_costs"].tolist()
+    (sc, clear), ph["uav_ms"] = timed(lambda: isi_uav_clearance(dev, f64))
+    ph["uav_min_clearance"] = float(clear.min())
+    ph["uav_colliding_share"] = float((clear < 0).double().mean())
+    ph["card_seconds"] = time.perf_counter() - t_phase
+    ph["archives"], ph["scheme_kinds"] = isi_archives(dev, sc, tr)
+    ph["options"] = isi_options(dev)
+    ph["recorder"] = isi_recorder(tq, traj["traj_pos"])
+    ph["seconds"] = time.perf_counter() - t_phase
+    card_out = {k: v[:, :ISI_REF] if v.ndim == 3 else v[:ISI_REF]
+                for k, v in out.items()}
+    card_out.update({k: traj[k][:ISI_REF]
+                     for k in ("traj_pos", "traj_vel", "traj_acc")},
+                    tool_pos=traj["tool_pos"], path_costs=traj["path_costs"],
+                    uav_clearance=clear)
+    return lambda refs: _isi_finish(ph, card_out, masks, refs)
+
+
+def _isi_finish(ph, card_out, masks, refs):
+    """interp_spaces_io's comparisons with the CPU child, its line and its
+    checks."""
+    rel = {}
+    for k, v in card_out.items():
+        rel[k] = rel_err(v.cpu(), torch.as_tensor(refs[f"isi_{k}"]))
+    ph["rel_vs_cpu"] = rel
+    # F18: the pairs that miss a bar, and of them those with a feasible
+    # profile at the synchronized duration (none may)
+    ph["bars_missed_feasible"] = {
+        k: int((~m & masks[k[:3] + "_feasible"]).sum())
+        for k, m in masks.items() if not k.endswith("_feasible")}
+    emit(ph)
+    for k, e in rel.items():
+        bar = 1e-12 if k.startswith(("traj_", "tool_", "path_")) else 1e-9
+        check(e <= bar, f"interp_spaces_io {k} against the CPU: {e}")
+    check(not any(ph["bars_missed_feasible"].values()),
+          f"interp_spaces_io: a pair with a feasible profile misses a bar: "
+          f"{ph['bars_missed_feasible']}")
+    for name, share in ISI_INFEASIBLE.items():
+        got = 1.0 - ph["bars_share_met"][f"{name}_feasible"]
+        check(abs(got - share) <= ISI_INFEASIBLE_BAR,
+              f"interp_spaces_io: {name}'s infeasible share {got} is not "
+              f"within {ISI_INFEASIBLE_BAR} of {share} (F18)")
+    for k in ("svp_endpoints", "svp_speed", "sap_speed", "sap_accel"):
+        check(ph["bars_share_met"][k] == 1.0,
+              f"interp_spaces_io: a pair misses {k}: {ph['bars_share_met']}")
+    for name in ("svp", "sap"):
+        check(ph[f"{name}_f32_T"]["max_rel"] <= 1e-3,
+              f"{name} f32 reach times: {ph[f'{name}_f32_T']}")
+    check(ph["rl_round_trip_max_abs"] <= 1e-14, "the rate-limited round trip")
+    check(all(r["bitwise"] for r in ph["archives"].values()),
+          f"an archive did not load back bit for bit: {ph['archives']}")
+    want = {"name": "str", "robot": "object:reak.ChainSpec",
+            "robot_shapes": "object:reak.ShapeSet",
+            "env": "object:reak.ProxyModel"}
+    check(all(ph["scheme_kinds"][k] == v for k, v in want.items()),
+          f"NavigationScenario's scheme (F17): {ph['scheme_kinds']}")
+    op = ph["options"]
+    check(op["bitwise_run_from_options"] and op["bitwise_cli"]
+          and op["options_round_trip"] and op["device"].startswith("cuda"),
+          f"run_from_options against _run_from_options: {op}")
+    check(op["position_error"] < 0.05 and op["aug_error"] < 0.15,
+          f"the TSOS airship run misses its test's bars: {op}")
+    check(ph["recorder"]["all_reads_bitwise"],
+          f"the recorders' files: {ph['recorder']}")
+    check(np.isfinite(ph["uav_min_clearance"]), "the UAV clearance")
+
+
 def trace_flagship(card, solve, x0, u0):
     """Part (c) of phase optimizers_geometry: io/profiling.device_trace
     around one warm flagship one-pass solve (phase times' configuration);
@@ -3358,9 +3850,11 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
         return waited["refs"]
 
     og_finish = optimizers_geometry(card, dev)
+    isi_finish = interp_spaces_io(card, dev)
     clik_share = arms_ik_integrators(card, dev, cpu_refs, reset_counts,
                                      counts, main_runs)
     og_finish(cpu_refs(), clik_share)
+    isi_finish(cpu_refs())
     estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
                counts, main_runs)
     refs, ref_wait = cpu_refs(), waited["s"]

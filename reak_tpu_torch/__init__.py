@@ -30,7 +30,11 @@ forces and inverse kinematics (``kte.models``, ``kte.forces``,
 ``kte.ik``), ``math.sorting``, ``math.tensors`` and the integrators
 (``reak_tpu_torch.integrators``); the optimization toolbox
 (``reak_tpu_torch.opt``), the geometry (``reak_tpu_torch.geom``) and the
-profiler (``io.profiling``); every Pallas kernel of
+profiler (``io.profiling``); the interpolators (``reak_tpu_torch.interp``),
+the joint-space and tangent-bundle spaces (``reak_tpu_torch.spaces``), the
+archives (``io.serialization``, byte for byte the JAX package's), the
+scenarios (``kte.scenarios``), the planning queries (``planning.queries``)
+and the native recorder (``io.native_recorder``); every Pallas kernel of
 the JAX package has its CUDA counterpart, and on CUDA tensors they take
 every width the JAX package takes (past their compile-time instances on
 runtime-width ones).

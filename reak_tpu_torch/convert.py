@@ -4,9 +4,11 @@ Each function duck-types its argument: anything with the fields of
 ``ChainSpec``, ``MPCProblem``, ``GaussianBelief``, ``SatelliteParams``,
 ``AirshipParams``, ``QuadrotorParams``, ``TSOSBelief``,
 ``PredictedBeliefTrajectory``, the shape sets ``ShapeSet`` and
-``ShapeSet2D`` or the proximity models ``ProxyModel`` and ``ProxyModel2D``
-as numbers, tuples, numpy arrays or arrays that ``numpy.asarray`` reads.
-Nothing here imports JAX.
+``ShapeSet2D``, the proximity models ``ProxyModel`` and ``ProxyModel2D``,
+the interpolators' ``Trajectory`` or the scenario bundles
+``NavigationScenario`` and ``ChaserTargetScenario`` as numbers, tuples,
+numpy arrays or arrays that ``numpy.asarray`` reads: a JAX object, or one
+that ``io.serialization.load_scene`` returned.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from reak_tpu_torch.geom.shapes import (Box, Capsule, Cylinder, Plane,
                                         ShapeSet, Sphere)
 from reak_tpu_torch.geom.shapes2d import (CappedRectangle, Circle,
                                           Rectangle, Seg2D, ShapeSet2D)
+from reak_tpu_torch.interp.trajectory import Trajectory
+from reak_tpu_torch.kte.scenarios import (ChaserTargetScenario,
+                                          NavigationScenario)
 from reak_tpu_torch.kte.spec import ChainSpec
 
 
@@ -154,3 +159,40 @@ def shapes2d_from(obj, device, dtype) -> ShapeSet2D:
 def proxy2d_from(obj, device, dtype) -> ProxyModel2D:
     """The port's ``ProxyModel2D`` with the shapes of ``obj``."""
     return _shape_records(ProxyModel2D, _SHAPES_2D, obj, device, dtype)
+
+
+def interp_trajectory_from(obj, device, dtype) -> Trajectory:
+    """The port's interpolator ``Trajectory`` with the times, points and
+    (where present) velocities and accelerations of ``obj``, as tensors of
+    ``dtype`` on ``device``."""
+    t = lambda a: None if a is None else torch.as_tensor(
+        np.array(a), dtype=dtype, device=device)
+    return Trajectory(t(obj.times), t(obj.points), t(getattr(obj, "vels", None)),
+                      t(getattr(obj, "accs", None)))
+
+
+def navigation_scenario_from(obj, device, dtype) -> NavigationScenario:
+    """The port's ``NavigationScenario`` with the fields of ``obj``: the
+    robot through ``spec_from``, its shapes and the environment on
+    ``device`` in ``dtype``, the bounds, start and goal as tensors of
+    ``dtype`` on ``device``."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return NavigationScenario(
+        name=str(obj.name), robot=spec_from(obj.robot),
+        robot_shapes=shapes_from(obj.robot_shapes, device, dtype),
+        env=proxy_from(obj.env, device, dtype),
+        bounds_lower=t(obj.bounds_lower), bounds_upper=t(obj.bounds_upper),
+        start=t(obj.start), goal=t(obj.goal))
+
+
+def chaser_target_scenario_from(obj, device, dtype) -> ChaserTargetScenario:
+    """The port's ``ChaserTargetScenario`` with the fields of ``obj``, as
+    ``navigation_scenario_from`` carries them."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return ChaserTargetScenario(
+        name=str(obj.name), chaser=spec_from(obj.chaser),
+        chaser_shapes=shapes_from(obj.chaser_shapes, device, dtype),
+        target=spec_from(obj.target),
+        target_shapes=shapes_from(obj.target_shapes, device, dtype),
+        env=proxy_from(obj.env, device, dtype), start=t(obj.start),
+        target_state=t(obj.target_state))

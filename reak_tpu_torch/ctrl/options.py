@@ -9,12 +9,10 @@ its measurement model (sonar-in-room grounding included) and its noise
 model and initial belief.  The covariances and the initial belief are
 float64 tensors on ``device``, the card unless the caller says otherwise.
 
-Not yet ported: the JAX module registers the class with the typed-JSON
-archive layer (``register_type("reak.EstimatorOptions", …)``,
-``reak_tpu/ctrl/options.py:154``), so that a whole configuration is one
-serialized scene.  The port has no ``io/serialization`` yet (its built-in
-registrations need ``geom``, ``interp`` and ``planning``), so an
-``EstimatorOptions`` is built in code.
+The class is registered with the typed-JSON archive layer under the JAX
+package's tag (``register_type("reak.EstimatorOptions", …)``,
+``reak_tpu/ctrl/options.py:154``), so a whole configuration is one
+serialized scene that either package reads.
 """
 from __future__ import annotations
 
@@ -26,6 +24,7 @@ import torch
 
 from reak_tpu_torch.ctrl import ss_systems as ss
 from reak_tpu_torch.ctrl.belief import GaussianBelief
+from reak_tpu_torch.io.serialization import register_type
 
 # default sonar array: 6 axis-aligned rays from the body origin
 _DEF_SONAR_DIR = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
@@ -150,3 +149,6 @@ class EstimatorOptions:
 
 def _tensor(values, device):
     return torch.as_tensor(np.asarray(values, np.float64), device=device)
+
+
+register_type("reak.EstimatorOptions", EstimatorOptions)

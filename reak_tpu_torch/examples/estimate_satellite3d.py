@@ -16,9 +16,10 @@ TSOS branch of ``run_from_options`` builds it).  The JAX example gives them
 the 9×9 tangent covariance and fails with a shape error (fault F10 of the
 reference); the ``iekf`` filter keeps the 9×9 one.
 
-``--options`` (an ``EstimatorOptions`` scene file) needs the port's
-``io/serialization``, which is not ported yet; ``_run_from_options`` runs
-the same estimation from an ``EstimatorOptions`` instance.
+``--options`` (an ``EstimatorOptions`` scene file, written by either
+package's ``io.serialization.save_scene``) runs ``run_from_options``;
+``_run_from_options`` runs the same estimation from an ``EstimatorOptions``
+instance.
 
 Usage:
   python -m reak_tpu_torch.examples.estimate_satellite3d \\
@@ -27,6 +28,8 @@ Usage:
       --filter=iekf --output=est.csv
   python -m reak_tpu_torch.examples.estimate_satellite3d --mc-runs=256 \\
       --filter=iekf
+  python -m reak_tpu_torch.examples.estimate_satellite3d \\
+      --options=tsos_airship.rkx
 """
 import sys
 
@@ -68,15 +71,17 @@ def _ambient_cov(R):
     return torch.block_diag(R[0:3, 0:3], eye4 * R[3, 3], R[6:, 6:])
 
 
-def run_from_options(path: str, seed: int = 0):
+def run_from_options(path: str, seed: int = 0, device="cuda"):
     """Drive a full estimation run from a serialized EstimatorOptions scene
-    (the JAX example's entry point): needs the port's ``io/serialization``.
-    ``_run_from_options`` takes an ``EstimatorOptions`` instance."""
-    raise NotImplementedError(
-        "run_from_options(path) and --options read an EstimatorOptions "
-        "scene file through io/serialization, which reak_tpu_torch does not "
-        "port yet; build the EstimatorOptions in code and call "
-        "_run_from_options(opts)")
+    (ref: satellite_modeling_options.hpp:73,537 + the --init/--system files
+    of estimate_satellite3D.cpp): model kind, noise, measurement config
+    (incl. sonar grounding) and the TSOS-vs-joint filter choice all come
+    from the archive.  Returns (opts, final joint belief, truth state), as
+    ``_run_from_options`` does on the loaded options."""
+    from reak_tpu_torch.ctrl import options  # noqa: F401 (registers the tag)
+    from reak_tpu_torch.io.serialization import load_scene
+
+    return _run_from_options(load_scene(path), seed, device)
 
 
 def _run_from_options(opts, seed: int = 0, device="cuda"):
@@ -248,7 +253,17 @@ def main(argv=None):
                            defaults=DEFAULTS)
     dev = torch.device(cfg["device"])
     if cfg["options"]:
-        run_from_options(cfg["options"], cfg["seed"])
+        opts, belief, x_true = run_from_options(cfg["options"], cfg["seed"],
+                                                dev)
+        err_p = float(torch.linalg.vector_norm(belief.mean[0:3]
+                                               - x_true[0:3]))
+        print(f"options={cfg['options']} kind={opts.system_kind} "
+              f"meas={opts.measurements} tsos={opts.tsos}")
+        print(f"final position error: {err_p:.3e}")
+        if opts.n_aug:
+            print("estimated aug params:",
+                  belief.mean[13:13 + opts.n_aug].cpu().numpy())
+        return 0
     params, F = make_system(cfg)
     gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 

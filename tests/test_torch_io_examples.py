@@ -106,8 +106,35 @@ def test_estimate_cli_roundtrip(tmp_path):
     with open(out) as f:
         lines = f.read().strip().splitlines()
     assert len(lines) == 31  # header + 30 estimates
-    with pytest.raises(NotImplementedError):
-        est.main(["--options=est_options.rkx", CPU])
+
+
+def test_estimate_cli_options(tmp_path, monkeypatch, capsys):
+    """``--options`` runs ``run_from_options`` on the archive: its run is,
+    bit for bit, ``_run_from_options`` on the same options (20 steps), and
+    it prints that run's final position error."""
+    from reak_tpu_torch.ctrl.options import EstimatorOptions
+    from reak_tpu_torch.io.serialization import save_scene
+
+    opts = EstimatorOptions(system_kind="satellite", measurements="pose_gyro",
+                            mass=1.5, inertia_diag=(0.9, 1.1, 1.0),
+                            measurement_noise=(1e-4,) * 9,
+                            initial_cov_diag=(1e-2,) * 12, steps=20)
+    path = str(tmp_path / "sat.rkx")
+    save_scene(path, opts)
+    runs = []
+    real = est._run_from_options
+    monkeypatch.setattr(est, "_run_from_options",
+                        lambda *a, **k: runs.append(real(*a, **k)) or runs[-1])
+    assert est.main([f"--options={path}", CPU]) == 0
+    (got_opts, b, x), = runs
+    _, b_ref, x_ref = real(opts, seed=0, device="cpu")
+    assert got_opts == opts
+    assert torch.equal(b.mean, b_ref.mean) and torch.equal(b.cov, b_ref.cov)
+    assert torch.equal(x, x_ref)
+    err = float(torch.linalg.vector_norm(b_ref.mean[0:3] - x_ref[0:3]))
+    out = capsys.readouterr().out
+    assert f"final position error: {err:.3e}" in out
+    assert "kind=satellite meas=pose_gyro tsos=False" in out
 
 
 def test_estimate_cli_mc(capsys):

@@ -194,8 +194,10 @@ def test_floating_arm_scenario_mpc_matches_jax(rng, linesearch):
     x_ref[3] = 1.0
     kw = dict(tangent_dim=2 * nv, quat_index=3, qp_iters=8, sqp_iters=2,
               sqp_linesearch=linesearch)
-    us_j, xs_j = jml.make_scenario_mpc_lanes(
-        *_jax_host_chain(0.02), prob_j, **kw)(
+    # one jit of the JAX solve: run eagerly, it traces and compiles its
+    # rollout scan again at each of its sqp_iters + 1 rollouts
+    us_j, xs_j = jax.jit(jml.make_scenario_mpc_lanes(
+        *_jax_host_chain(0.02), prob_j, **kw))(
         jnp.asarray(x0), jnp.asarray(x_ref), jnp.zeros((B, H, nv)))
     before = dict(chol_lanes.launches)
     us_t, xs_t = ml.make_scenario_mpc_lanes(

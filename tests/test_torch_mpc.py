@@ -3,13 +3,16 @@ the JAX package's make_kte_mpc on the 6-DoF arm, H=3, B=4, 8 Mehrotra
 iterations, f64 on the CPU, regulator and tracking.  Bar: ≤1e-8 absolute on
 the controls and the predicted states.  The multi-pass SQP with its line
 search is held to the JAX package in tests/test_torch_sqp.py."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from reak_tpu.ctrl import mpc as jmpc
-from reak_tpu.kte import models as jmodels
+from reak_tpu.ctrl import mpc as jmpc, riccati_soa as jriccati_soa
+from reak_tpu.kte import lanes as jlanes, models as jmodels
 from reak_tpu_torch import convert
 from reak_tpu_torch.ctrl import mpc
 from reak_tpu_torch.ops import kte_step, pdip_whole
@@ -32,9 +35,32 @@ def _port(prob_j):
             convert.problem_from(prob_j, "cpu", torch.float64))
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted(factory, *args):
+    return jax.jit(factory(*args))
+
+
+_JITTED_QP = jax.jit(jriccati_soa.solve_box_mpc_riccati_soa_fused,
+                     static_argnames=("iters", "use_kernels"))
+
+
+@pytest.fixture
+def jax_jitted_parts(monkeypatch):
+    """The JAX make_kte_mpc with its rollouts and QP jitted once per
+    configuration: run eagerly, it compiles every scan again on each call,
+    so both cases below compiled the same rollout and QP scans."""
+    ltv, nom = jlanes.make_rollout_ltv_lanes, jlanes.make_rollout_lanes
+    monkeypatch.setattr(jlanes, "make_rollout_ltv_lanes",
+                        lambda *a: _jitted(ltv, *a))
+    monkeypatch.setattr(jlanes, "make_rollout_lanes",
+                        lambda *a: _jitted(nom, *a))
+    monkeypatch.setattr(jriccati_soa, "solve_box_mpc_riccati_soa_fused",
+                        _JITTED_QP)
+
+
 @pytest.mark.parametrize("tracking", [False, True],
                          ids=["regulator", "tracking"])
-def test_make_kte_mpc_matches_jax(rng, tracking):
+def test_make_kte_mpc_matches_jax(rng, tracking, jax_jitted_parts):
     x0 = np.concatenate([rng.uniform(-0.5, 0.5, (B, 6)),
                          rng.uniform(-0.2, 0.2, (B, 6))], axis=1)
     u0 = rng.uniform(-1.0, 1.0, (B, H, 6))

@@ -8,8 +8,10 @@ the JAX package's vmap; both branches of ``make_kte_scenario_mpc``;
 ``sample_belief_states``, whose draws come from a ``torch.Generator``: the
 same seed gives the same states, and 20,000 tangent draws have the
 belief's mean and covariance within 4σ.  The satellite's JAX references run
-under ``jax.jit`` (one compile takes less time than the op-by-op run); the
-chains' run op by op (a jitted KTE rollout compiles for minutes)."""
+under ``jax.jit`` (one compile takes less time than the op-by-op run); so
+do both branches of ``make_kte_scenario_mpc`` on their small chains (run
+eagerly, each rollout compiled its scan again); the other chains' run op
+by op (a jitted KTE rollout of the 6-DoF arm compiles for minutes)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -154,8 +156,8 @@ def test_make_kte_scenario_mpc_both_branches():
         got = mm.make_kte_scenario_mpc(s, p_t, dt, qp_iters=6,
                                        sqp_iters=sqp)(
             *(torch.as_tensor(a) for a in (x0s, x_ref, us0)))
-        want = jmm.make_kte_scenario_mpc(j, p_j, dt, qp_iters=6,
-                                         sqp_iters=sqp)(
+        want = jax.jit(jmm.make_kte_scenario_mpc(j, p_j, dt, qp_iters=6,
+                                                 sqp_iters=sqp))(
             *(jnp.asarray(a) for a in (x0s, x_ref, us0)))
         _close(got, tuple(want))
 

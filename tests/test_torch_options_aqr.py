@@ -107,8 +107,38 @@ def test_tsos_airship_estimation_from_options():
                                           - x_true[0:3])) < 0.05
     a_true = np.array([0.15, 0.02, -0.01, 0.0, 0.3])
     assert np.max(np.abs(belief.mean[13:18].numpy() - a_true)) < 0.15
-    with pytest.raises(NotImplementedError):
-        est.run_from_options("est_options.rkx")
+
+
+def test_run_from_options_reads_the_archive(tmp_path):
+    """``run_from_options(path)`` on an options archive gives, bit for bit,
+    what ``_run_from_options`` gives on the same options (20 steps), and
+    so does an archive written by the JAX package."""
+    import dataclasses
+
+    from reak_tpu.io.serialization import save_scene as jax_save_scene
+    from reak_tpu_torch.examples import estimate_satellite3d as est
+    from reak_tpu_torch.io.serialization import save_scene
+
+    kw = dict(system_kind="airship_aug", mass=2.0,
+              inertia_diag=(0.8, 1.0, 1.2), time_step=0.05,
+              measurements="pose_sonars", tsos=True,
+              room_lower=(-8.0, -8.0, -8.0), room_upper=(8.0, 8.0, 8.0),
+              measurement_noise=(1e-6,) * 3 + (1e-6,) * 3 + (1e-5,) * 6,
+              initial_cov_diag=(1e-2,) * 12 + (0.05,) * 5,
+              initial_state=tuple(np.concatenate(
+                  [np.zeros(3), [1, 0, 0, 0], np.zeros(6),
+                   [0.15, 0.02, -0.01, 0.0, 0.3]])), steps=20)
+    opts = EstimatorOptions(**kw)
+    _, b_ref, x_ref = est._run_from_options(opts, seed=0, device="cpu")
+    port_path, jax_path = str(tmp_path / "p.rkx"), str(tmp_path / "j.rkx")
+    save_scene(port_path, opts)
+    jax_save_scene(jax_path, JOptions(**kw))
+    for path in (port_path, jax_path):
+        loaded, b, x = est.run_from_options(path, seed=0, device="cpu")
+        assert dataclasses.asdict(loaded) == dataclasses.asdict(opts)
+        assert torch.equal(b.mean, b_ref.mean) and torch.equal(b.cov,
+                                                               b_ref.cov)
+        assert torch.equal(x, x_ref)
 
 
 A = np.array([[0.0, 1.0], [0.0, 0.0]])   # double integrator
