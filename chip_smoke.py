@@ -6,8 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``reak_tpu_torch/csrc`` (one ``nvcc``
-per source, all started together), holds each against its plain torch
-version on the card, and drives the port's main paths through the kernels:
+per library, as many at once as the host has cores but one; beside the
+build runs the card's work of what launches no kernel: the phases
+``optimizers_geometry``, ``interp_spaces_io`` and ``planning``, the stiff
+suite and the filters), holds each kernel against its plain torch version
+on the card, and drives the port's main paths through the kernels:
 
 - the flagship batched KTE-MPC solve ``ctrl.mpc.make_kte_mpc`` (6-DoF
   CRS-A465 arm, n=12, m=6, H=50, 8 Mehrotra iterations, f32, B=8192), one
@@ -80,6 +83,19 @@ version on the card, and drives the port's main paths through the kernels:
   ``examples/estimate_satellite3d.run_from_options`` and ``--options``
   against the in-code run (bit for bit), and ``io/native_recorder``
   against the Python recorder on 524,288 rows;
+- the planners (phase ``planning``, f64) on the CRS scene of
+  ``examples/run_crs_planner.py`` (the arm's capsules against the sphere
+  and the floor, margin 0.01, 12 checks an edge): ``rrt_plan_batch`` (256
+  runs, capacity 4096, waves of 64) and ``rrt_star_plan_batch`` (8 runs,
+  capacity 2048, 60 waves) through ``monte_carlo_engine_batched``, each
+  after an untimed wave; the ported example's eight planners at its CLI
+  defaults, every one but SBA* finding a path, every path found held to
+  its query's ends, to a 4× denser edge check and to ``path_cost``; both
+  batched planners and the example's eight on the card against the CPU
+  child from the same host draws (trees index for index; success, counts
+  and iterations equal, costs and paths ≤1e-12); and the
+  ``vlist_engine`` dump of the example's rewired RRT* tree, whose costs
+  must be the edge sums (F1 fixed in the port);
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -130,7 +146,9 @@ the solves and the kernels with CUDA events.  The plain f64 CPU references
 run in a child process (``--cpu-reference``) beside the card's phases;
 the child also solves the satellite's generic route on states it draws
 itself, and the card solves the same states, and runs the Monte-Carlo
-filters' first runs and ``dlqr`` on the plain step's linearization.
+filters' first runs and ``dlqr`` on the plain step's linearization.  A
+second child (``--op-counts``) counts the plain versions' operations that
+the bounds of the wide and long calls need (``op_counts``).
 Each phase prints one JSON line; the card's name and power limit follow as
 ``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
 with its launches on the main paths, its time per launch beside its plain
@@ -161,6 +179,20 @@ SAT_B, SAT_H, SAT_DT = 8192, 20, 0.1
 FA_B, FA_H, FA_DT = 2048, 16, 0.02
 N_REF = 256  # scenarios of the plain f64 CPU references
 H_LONG = 256  # the long-horizon path: past the TPU kernel's VMEM bound
+# the build: one nvcc a core but one, each this far below the smoke's
+# priority, so that the card work run beside it keeps a core; the libraries
+# that take longest to compile first, the 16-joint K1/K5 the longest (the
+# build line's library_seconds has when each one ended)
+NVCC_NICENESS = 19
+BUILD_LONGEST_FIRST = (
+    "kte_step@16x16_f64", "pdip_whole@32x16_f32", "pdip_whole@32x16_f64",
+    "riccati_bwd@32x16_f32", "riccati_bwd@32x16_f64", "pdip_whole@24x12_f64",
+    "pdip_whole@24x12_f32", "kte_step@8x6_f64", "pdip_whole@16x8_f64",
+    "kte_step@7x7_f32", "pdip_whole@16x8_f32", "kte_step@7x7_f64",
+    "riccati_bwd@24x12_f32", "riccati_bwd@24x12_f64", "kte_step@6x6_f32",
+    "kte_step@6x6_f64")
+# K2's iterations in phase past_the_caps' f32 device-memory case
+PTC_F32_DEVICE_ITERS = 2
 # the 16-segment flexible beam (kte/models.flexible_beam): n=32, m=16; its
 # fastest mode is overdamped at |λ| ≈ 5.1e5 /s, and the order-4 series is
 # stable for |λ| dt ≤ 2.78
@@ -343,11 +375,112 @@ def ops_per_scenario(fn, make_args):
     return (counts[1] - counts[0]) / 2
 
 
+def k2_ops_per_scenario(make_args, iters=ITERS):
+    """``ops_per_scenario`` of the plain whole solve (K2's plain version,
+    ``ctrl/riccati_soa._fused_scan``) at ``iters`` iterations.  Every
+    iteration makes the same aten calls on the same shapes, so the count
+    follows from a count of one iteration and of two."""
+    from reak_tpu_torch.ctrl import riccati_soa
+
+    o1, o2 = (ops_per_scenario(
+        lambda *a, it=it: riccati_soa._fused_scan(*a, iters=it), make_args)
+        for it in (1, 2))
+    return o1 + (iters - 1) * (o2 - o1)
+
+
 def cpu_args(args, batch, nb):
     """``args`` for a count on the CPU: the first nb scenarios of each
     scenario-last tensor (last axis ``batch``), the others whole; f64."""
     return tuple((t[..., :nb] if t.dim() > 1 and t.shape[-1] == batch
                   else t).double().cpu() for t in args)
+
+
+# the plain versions' operation counts that the bounds of the wide and
+# long calls need, counted by a CPU process of their own (``--op-counts``)
+# beside the card's phases: a count depends on the shapes only, so it runs
+# on inputs of the calls' shapes, four scenarios each
+OP_COUNT_TILES = ((33, 17), (48, 24), (62, 31))
+OP_COUNT_BEAMS = (17, 24)
+
+
+def count_problem(n, m, horizon, nb=4, seed=0):
+    """CPU f64 inputs of K2's and K4a-c's shapes at (n, m) and ``horizon``
+    with ``nb`` scenarios (the layout of ``smoke``'s ``synthetic``)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    return {"A": t(0.1 * rng.standard_normal((horizon, n, n, nb))
+                   + np.eye(n)[None, :, :, None]),
+            "Bm": t(0.2 * rng.standard_normal((horizon, n, m, nb))),
+            "c": t(0.05 * rng.standard_normal((horizon, n, nb))),
+            "Q": t(np.eye(n) + 0.01), "QN": t(5.0 * np.eye(n)),
+            "R": t(0.1 * np.eye(m) + 0.01),
+            "x0": t(rng.standard_normal((n, nb))),
+            "lb": t(np.full(m, -1.5)), "ub": t(np.full(m, 1.5)),
+            "q": t(rng.standard_normal((horizon, n, nb))),
+            "u_eff": t(rng.standard_normal((horizon, m, nb))),
+            "D": t(rng.uniform(0.5, 2.0, (horizon, m, nb))),
+            "rhs": t(rng.standard_normal((horizon, m, nb))),
+            "k": t(rng.standard_normal((horizon, m, nb))),
+            "dx0": t(rng.standard_normal((n, nb)))}
+
+
+def op_counts(seed=0):
+    """{key: operations per scenario} of the plain versions: K2 (the plain
+    whole solve at ITERS iterations) as ``k2@<n>x<m>,H<h>`` and K4a-c as
+    ``<entry>@<n>x<m>,H<h>``, at each width of OP_COUNT_TILES (H = 4),
+    K2 at (32, 16), H = 12 and at the flagship's (12, 6), H = H and
+    H_LONG; and K1 and K5 (their plain step and core) on the beams of
+    OP_COUNT_BEAMS segments as ``k1@beam<segments>`` and
+    ``k5@beam<segments>``."""
+    from reak_tpu_torch.ctrl import riccati_soa
+    from reak_tpu_torch.kte import models
+    from reak_tpu_torch.ops import kte_core, kte_step
+
+    plain_pass = {"fused_backward": riccati_soa.fused_backward_plain,
+                  "vector_backward": riccati_soa.vector_backward_plain,
+                  "forward": riccati_soa.forward_plain}
+    k2_keys = ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb", "ub")
+    out = {}
+    for (n, m), h, passes in ([(w, 4, True) for w in OP_COUNT_TILES]
+                              + [((32, 16), 12, False), ((N, M), H, False),
+                                 ((N, M), H_LONG, False)]):
+        p = count_problem(n, m, h, seed=seed)
+        first = lambda args: (lambda nb: cpu_args(args, 4, nb))
+        out[f"k2@{n}x{m},H{h}"] = k2_ops_per_scenario(
+            first([p[k] for k in k2_keys]))
+        if passes:
+            pa = [p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN",
+                                 "R")]
+            K_, G_ = riccati_soa.fused_backward_plain(*pa)[1:3]
+            for e, a in (("fused_backward", pa),
+                         ("vector_backward", [p["A"], p["Bm"], p["rhs"], K_,
+                                              G_]),
+                         ("forward", [p["A"], p["Bm"], K_, p["k"],
+                                      p["dx0"]])):
+                out[f"{e}@{n}x{m},H{h}"] = ops_per_scenario(plain_pass[e],
+                                                            first(a))
+    rng = np.random.default_rng(seed)
+    for segs in OP_COUNT_BEAMS:
+        chain = models.flexible_beam(segs)
+        xu = (torch.as_tensor(rng.uniform(-0.5, 0.5, (2 * chain.nv, 4))),
+              torch.as_tensor(rng.uniform(-5.0, 5.0, (chain.nv, 4))))
+        for key, plain in (("k1", kte_step.make_step_plain(chain, BEAM_DT)),
+                           ("k5", kte_core.make_core_plain(chain))):
+            out[f"{key}@beam{segs}"] = ops_per_scenario(plain, first(xu))
+    return out
+
+
+def op_count_process(path):
+    """``--op-counts``: ``op_counts()`` saved to ``path``, one thread."""
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    counts_ = op_counts()
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, seconds=time.perf_counter() - t0,
+             **{k: np.float64(v) for k, v in counts_.items()})
+    os.replace(tmp, path)
+    return 0
 
 
 def nbytes(*tensors):
@@ -679,7 +812,8 @@ def cpu_reference(path):
     EST_REF_RUNS runs over EST_REF_STEPS steps, DLQR_REF gains of dlqr
     on the plain step's linearization, phase arms_ik_integrators'
     7-DoF arm solve and CLIK (``arm_references``), and phases
-    optimizers_geometry's and interp_spaces_io's references.  Saved to
+    optimizers_geometry's, interp_spaces_io's and planning's references.
+    Saved to
     ``path``."""
     sys.path.insert(0, ROOT)
     from reak_tpu_torch.ctrl import (belief, manifold_lanes, mpc, mpc_manifold,
@@ -717,7 +851,7 @@ def cpu_reference(path):
              beam_xs=xs_bm.numpy(), generic_x0=x0_gen.numpy(),
              generic_us=us_gen.numpy(), **estimation_references(),
              **arm_references(), **optimizers_geometry_references(),
-             **interp_spaces_references(),
+             **interp_spaces_references(), **planning_references(),
              seconds=time.perf_counter() - t0)
     os.replace(tmp, path)
     return 0
@@ -827,42 +961,16 @@ def are_solvers(rng, batch, n, m, device):
     return {"spectral_D_doublings": doubled, **rows}
 
 
-def estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
-               counts, main_runs):
-    """Phase estimation, on the card: the Monte-Carlo filters, prediction
-    and planning from the estimate, and the batched ARE and LQG solvers.
-    ``cpu_refs()`` returns the CPU child's results, ``estimation_
-    references()`` among them, waiting for the child: it is called after
-    the card's work, which runs while the child may still be running.
-    ``step_k``, ``k64``, ``x_np`` and ``u_np`` are phase k1_vs_plain's K1,
-    its f64 outputs and its inputs; the K1 and K2 launches go into
-    ``main_runs``."""
+def estimation_filters(card, dev):
+    """Phase estimation's parts (a) and (b) (see ``estimation``), which
+    launch no kernel: the card's work, run beside the build.  Returns the
+    phase's line so far, with the first runs of each f64 filter for the
+    comparison with the CPU child, as ``(es, ref_runs)``."""
     f64 = torch.float64
     on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
-    # (README.md:104, examples/*.py, tests/test_are_spectral.py)
-    # (a) the Monte-Carlo filters of examples/estimate_satellite3d.py at its
-    # defaults (150 steps, dt 0.05, pose and gyro, noise 1e-3), each one
-    # vmap of run_filter: iekf, ekf and ukf at f64 on EST_RUNS runs (every
-    # run's final position and rate errors < EST_BAR, as
-    # tests/test_ss_systems.py:95-96 holds them, and its attitude error
-    # < EST_BAR rad; the first EST_REF_RUNS runs over EST_REF_STEPS steps
-    # ≤1e-9 relative to the CPU child's), then iekf at f32 on EST_RUNS_F32
-    # runs of the same truth (each within the same bars, each of the first
-    # EST_RUNS within EST_F32_BAR of its f64 final state);
-    # (b) predict_satellite3d at its defaults (150 IEKF steps, H = 50) with
-    # EST_SCENARIOS scenarios: unit quaternions, a growing covariance
-    # trace, the H+1 covariances factored in one call; (c) satellite_mpc at
-    # its defaults (15 IEKF steps, sample_belief_states, the lanes route on
-    # K2, H = 20, dt 0.1, ±20, 8 iterations, 2 passes, f64) on
-    # EST_SCENARIOS scenarios, every one within 0.1 of the target; (d) dlqr
-    # (Q = I, R = I) on the (A_d, B_d) of K1 at phase k1_vs_plain's inputs,
-    # DARE residual ≤1e-8 of ‖P‖, DLQR_REF gains ≤1e-9 relative to the CPU
-    # child's; and every solver of math/are and ctrl/lqg on ARE_B seeded
-    # systems at (ARE_N, ARE_M), each within its bar (are_solvers).
     from reak_tpu_torch.examples import estimate_satellite3d as est, \
-        predict_satellite3d as pred_ex, satellite_mpc as smpc
+        predict_satellite3d as pred_ex
     from reak_tpu_torch.io.config import config_from_args
-    from reak_tpu_torch.math import are
 
     t_est = time.perf_counter()
     es = {"phase": "estimation", "card": card, "filters": {}}
@@ -916,6 +1024,49 @@ def estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
         "matrices_factored": sum(int(np.prod(sh[:-2])) for sh in
                                  chol.shapes)}
     del pr
+    es["seconds"] = time.perf_counter() - t_est
+    return es, ref_runs
+
+
+def estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
+               counts, main_runs, filters):
+    """Phase estimation, on the card: the Monte-Carlo filters, prediction
+    and planning from the estimate, and the batched ARE and LQG solvers.
+    ``cpu_refs()`` returns the CPU child's results, ``estimation_
+    references()`` among them, waiting for the child: it is called after
+    the card's work, which runs while the child may still be running.
+    ``step_k``, ``k64``, ``x_np`` and ``u_np`` are phase k1_vs_plain's K1,
+    its f64 outputs and its inputs; the K1 and K2 launches go into
+    ``main_runs``; ``filters`` is what ``estimation_filters`` returned
+    (parts (a) and (b), run beside the build)."""
+    f64 = torch.float64
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    # (README.md:104, examples/*.py, tests/test_are_spectral.py)
+    # (a) the Monte-Carlo filters of examples/estimate_satellite3d.py at its
+    # defaults (150 steps, dt 0.05, pose and gyro, noise 1e-3), each one
+    # vmap of run_filter: iekf, ekf and ukf at f64 on EST_RUNS runs (every
+    # run's final position and rate errors < EST_BAR, as
+    # tests/test_ss_systems.py:95-96 holds them, and its attitude error
+    # < EST_BAR rad; the first EST_REF_RUNS runs over EST_REF_STEPS steps
+    # ≤1e-9 relative to the CPU child's), then iekf at f32 on EST_RUNS_F32
+    # runs of the same truth (each within the same bars, each of the first
+    # EST_RUNS within EST_F32_BAR of its f64 final state);
+    # (b) predict_satellite3d at its defaults (150 IEKF steps, H = 50) with
+    # EST_SCENARIOS scenarios: unit quaternions, a growing covariance
+    # trace, the H+1 covariances factored in one call; (c) satellite_mpc at
+    # its defaults (15 IEKF steps, sample_belief_states, the lanes route on
+    # K2, H = 20, dt 0.1, ±20, 8 iterations, 2 passes, f64) on
+    # EST_SCENARIOS scenarios, every one within 0.1 of the target; (d) dlqr
+    # (Q = I, R = I) on the (A_d, B_d) of K1 at phase k1_vs_plain's inputs,
+    # DARE residual ≤1e-8 of ‖P‖, DLQR_REF gains ≤1e-9 relative to the CPU
+    # child's; and every solver of math/are and ctrl/lqg on ARE_B seeded
+    # systems at (ARE_N, ARE_M), each within its bar (are_solvers).
+    from reak_tpu_torch.examples import satellite_mpc as smpc
+    from reak_tpu_torch.io.config import config_from_args
+    from reak_tpu_torch.math import are
+
+    t_est = time.perf_counter()
+    es, ref_runs = filters
     # (c) planning from the estimate, on K2
     reset_counts()
     plan, ms = timed(lambda: smpc.plan(config_from_args(
@@ -957,7 +1108,7 @@ def estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
     es["are"] = {"B": ARE_B, "n": ARE_N, "m": ARE_M, "dtype": "float64",
                  **are_solvers(np.random.default_rng(13), ARE_B, ARE_N,
                                ARE_M, dev)}
-    es["seconds"] = time.perf_counter() - t_est
+    es["seconds"] += time.perf_counter() - t_est
     refs = cpu_refs()
     for kind in ("iekf", "ekf", "ukf"):
         es["filters"][kind]["rel_vs_cpu"] = rel_err(
@@ -1145,7 +1296,70 @@ def endpoint_rel_err(y, ref):
     return float(np.max(np.abs(y[m] - ref[m]) / (np.abs(ref[m]) + 1e-30)))
 
 
-def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
+def stiff_suite(dev):
+    """Phase arms_ik_integrators' stiff suite (its part (d) after the
+    plant), which launches no kernel: run beside the build.  Returns its
+    entries of the phase's ``integrators``."""
+    from reak_tpu_torch.integrators import (adaptive, implicit, ivp_suite,
+                                            multistep)
+
+    f64 = torch.float64
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    ivp = {}
+    hires = ivp_suite.HIRES
+    y_h = on(hires.y0, f64)
+
+    def adaptive_run(key, run, ref, bar):
+        reads = adaptive.host_reads
+        res, ms = timed(run)
+        ivp[key] = {"attempts": int(res.n_steps), "ok": bool(res.ok),
+                    "host_reads": adaptive.host_reads - reads, "ms": ms,
+                    "endpoint_rel_err": endpoint_rel_err(res.y, ref),
+                    "bar": bar}
+        return res
+
+    adaptive_run("dopri45_HIRES", lambda: adaptive.integrate_adaptive(
+        hires.f, y_h, hires.t0, hires.tf, dt0=1e-4, tol=1e-10, dt_min=1e-12,
+        max_steps=2_000_000, method="dopri45", check_every=IVP_CHECK,
+        graphed=True), hires.y_ref, 1e-4)
+    dt_h = (hires.tf - hires.t0) / HIRES_STEPS
+    for key, fn in (("adams_bm5_HIRES", multistep.adams_bm5),
+                    ("hamming_iter_mod_HIRES", multistep.hamming_iter_mod)):
+        y, ms = timed(lambda: fn(hires.f, y_h, hires.t0, dt_h, HIRES_STEPS,
+                                 graph_steps=IVP_GRAPH))
+        ivp[key] = {"steps": HIRES_STEPS, "ms": ms,
+                    "endpoint_rel_err": endpoint_rel_err(y, hires.y_ref),
+                    "bar": 1e-5}
+    for name, dt0, rtol, atol, max_steps, bar in ROSENBROCK_RUNS:
+        prob = getattr(ivp_suite, name)
+        res = adaptive_run(f"rosenbrock_{name}",
+                           lambda: implicit.integrate_rosenbrock(
+                               prob.f, on(prob.y0, f64), prob.t0, prob.tf,
+                               dt0=dt0, rtol=rtol, atol=atol,
+                               max_steps=max_steps, check_every=IVP_CHECK,
+                               graphed=True), prob.y_ref, bar)
+        if name == "ROBER":
+            ivp["rosenbrock_ROBER"]["mass_err"] = abs(float(res.y.sum())
+                                                      - 1.0)
+    med = ivp_suite.MEDAKZO
+    res = adaptive_run("rosenbrock_MEDAKZO",
+                       lambda: implicit.integrate_rosenbrock(
+                           med.f, on(med.y0, f64), med.t0, med.tf, dt0=1e-8,
+                           rtol=1e-6, atol=1e-12, max_steps=200_000,
+                           check_every=IVP_CHECK, graphed=True),
+                       med.y_ref, 2e-3)
+    y_m = res.y.cpu().numpy()
+    ivp["rosenbrock_MEDAKZO"].update(
+        states=int(y_m.shape[0]),
+        lead_rel_err=float(np.max(np.abs(y_m[0:30:2] - med.y_ref[0:30:2])
+                                  / np.abs(med.y_ref[0:30:2]))),
+        far_v_err=float(np.max(np.abs(y_m[391:400:2] - 1.0))),
+        far_u_max=float(np.max(np.abs(y_m[390:400:2]))))
+    return ivp
+
+
+def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs,
+                        stiff):
     """Phase arms_ik_integrators, on the card, f64 unless said:
     (a) the seven new fixed-base builders on K1/K5 at B = 1, 77, 1001
     against their plain versions (≤1e-9 relative), and uav_kinematics'
@@ -1167,7 +1381,8 @@ def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
     integrate_adaptive (dopri45), adams_bm5 and
     hamming_iter_mod on HIRES and integrate_rosenbrock on HIRES, ROBER,
     OREGO, VDP and MEDAKZO at tests/test_stiff_ivp.py's settings and bars
-    (the multistep methods at HIRES_STEPS);
+    (the multistep methods at HIRES_STEPS; ``stiff`` is what
+    ``stiff_suite`` returned, run beside the build);
     (e) the bitonic networks on (SORT_B, SORT_N) f32 bit for bit
     torch.sort(stable=True), lexsort_2key, median_partition and top_k
     equal to the CPU's, hosvd and cp_als reconstructions of a seeded
@@ -1179,8 +1394,6 @@ def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
     from torch.func import vmap
 
     from reak_tpu_torch.ctrl import mpc, riccati_soa
-    from reak_tpu_torch.integrators import (adaptive, implicit, ivp_suite,
-                                            multistep)
     from reak_tpu_torch.kte import forces, ik, lanes, models
     from reak_tpu_torch.math import rotations as rot, sorting, tensors
     from reak_tpu_torch.ops import kte_core, kte_step
@@ -1368,55 +1581,7 @@ def arms_ik_integrators(card, dev, cpu_refs, reset_counts, counts, main_runs):
                          "graph_steps": 1,
                          "finite": bool(torch.isfinite(xs_plant).all())}}
     del xs_plant
-    hires = ivp_suite.HIRES
-    y_h = on(hires.y0, f64)
-
-    def adaptive_run(key, run, ref, bar):
-        reads = adaptive.host_reads
-        res, ms = timed(run)
-        ivp[key] = {"attempts": int(res.n_steps), "ok": bool(res.ok),
-                    "host_reads": adaptive.host_reads - reads, "ms": ms,
-                    "endpoint_rel_err": endpoint_rel_err(res.y, ref),
-                    "bar": bar}
-        return res
-
-    adaptive_run("dopri45_HIRES", lambda: adaptive.integrate_adaptive(
-        hires.f, y_h, hires.t0, hires.tf, dt0=1e-4, tol=1e-10, dt_min=1e-12,
-        max_steps=2_000_000, method="dopri45", check_every=IVP_CHECK,
-        graphed=True), hires.y_ref, 1e-4)
-    dt_h = (hires.tf - hires.t0) / HIRES_STEPS
-    for key, fn in (("adams_bm5_HIRES", multistep.adams_bm5),
-                    ("hamming_iter_mod_HIRES", multistep.hamming_iter_mod)):
-        y, ms = timed(lambda: fn(hires.f, y_h, hires.t0, dt_h, HIRES_STEPS,
-                                 graph_steps=IVP_GRAPH))
-        ivp[key] = {"steps": HIRES_STEPS, "ms": ms,
-                    "endpoint_rel_err": endpoint_rel_err(y, hires.y_ref),
-                    "bar": 1e-5}
-    for name, dt0, rtol, atol, max_steps, bar in ROSENBROCK_RUNS:
-        prob = getattr(ivp_suite, name)
-        res = adaptive_run(f"rosenbrock_{name}",
-                           lambda: implicit.integrate_rosenbrock(
-                               prob.f, on(prob.y0, f64), prob.t0, prob.tf,
-                               dt0=dt0, rtol=rtol, atol=atol,
-                               max_steps=max_steps, check_every=IVP_CHECK,
-                               graphed=True), prob.y_ref, bar)
-        if name == "ROBER":
-            ivp["rosenbrock_ROBER"]["mass_err"] = abs(float(res.y.sum())
-                                                      - 1.0)
-    med = ivp_suite.MEDAKZO
-    res = adaptive_run("rosenbrock_MEDAKZO",
-                       lambda: implicit.integrate_rosenbrock(
-                           med.f, on(med.y0, f64), med.t0, med.tf, dt0=1e-8,
-                           rtol=1e-6, atol=1e-12, max_steps=200_000,
-                           check_every=IVP_CHECK, graphed=True),
-                       med.y_ref, 2e-3)
-    y_m = res.y.cpu().numpy()
-    ivp["rosenbrock_MEDAKZO"].update(
-        states=int(y_m.shape[0]),
-        lead_rel_err=float(np.max(np.abs(y_m[0:30:2] - med.y_ref[0:30:2])
-                                  / np.abs(med.y_ref[0:30:2]))),
-        far_v_err=float(np.max(np.abs(y_m[391:400:2] - 1.0))),
-        far_u_max=float(np.max(np.abs(y_m[390:400:2]))))
+    ivp.update(stiff)
     ph["integrators"] = ivp
 
     # (e) sorting, tensors and forces
@@ -2563,6 +2728,288 @@ def _isi_finish(ph, card_out, masks, refs):
     check(np.isfinite(ph["uav_min_clearance"]), "the UAV clearance")
 
 
+# phase planning: the planners of reak_tpu_torch.planning on the CRS scene of
+# examples/run_crs_planner.py:47-80 (manip_3r3r, its six chain capsules r =
+# 0.05, the sphere and the floor plane, margin 0.01, 12 checks an edge;
+# joint bounds ±2.8 rad), f64.  (a) the batched Monte-Carlo planners:
+# rrt_plan_batch at PL_RRT = (runs, capacity, wave, max waves) and
+# rrt_star_plan_batch at PL_STAR = (runs, capacity, waves), both through
+# monte_carlo_engine_batched, draws from a CUDA generator (seed PL_SEED);
+# (b) the example's eight planners at its CLI defaults; (c) the card against
+# the CPU child with the same host draws (planning/draws.HostDraws, numpy
+# seed PL_SEED): rrt_plan_batch PL_CMP_RRT = (runs, waves) and
+# rrt_star_plan_batch PL_CMP_STAR, capacity PL_CMP_CAP, and the example's
+# eight planners at its CLI defaults; (d) F1: the vlist_engine dump of (b)'s
+# rewired RRT* tree.  Paths are checked with PL_DENSE× the edge checks.
+# Every example planner but PL_NO_PATH finds a path (SBA* finds none on this
+# scene in the JAX package's example too).
+PL_SEED = 0
+PL_RRT = (256, 4096, 64, 200)
+PL_STAR = (8, 2048, 60)
+PL_CMP_RRT, PL_CMP_STAR, PL_CMP_CAP = (4, 20), (2, 20), 2048
+PL_DENSE = 4
+PL_PLANNERS = ("rrt", "birrt", "rrt_star", "prm", "sbastar", "fadprm", "rrg")
+PL_NO_PATH = {"sbastar"}
+
+
+def pl_compare_runs(device):
+    """(c)'s runs on ``device`` from the host draws: per batched planner
+    the runs' vertex tensors, parents and counts (and RRT*'s stored costs),
+    as numpy arrays of the first ``count`` slots; per example planner its
+    (success, vertices, iterations, cost) and its path."""
+    from reak_tpu_torch.examples import run_crs_planner as ex
+    from reak_tpu_torch.planning import draws, rrt, rrt_star
+
+    _, ws, q = ex.build_scene(device)
+    out = {}
+    for name in PL_PLANNERS + ("intercept",):
+        cfg = dict(ex.DEFAULTS, planner=name, device=str(device),
+                   seed=draws.HostDraws(PL_SEED))
+        r = (ex.intercept(cfg) if name == "intercept" else ex.plan(cfg))[2]
+        out[f"pl_ex_{name}_stats"] = np.array(
+            [r.success, r.n_vertices, r.n_iterations, r.cost], np.float64)
+        out[f"pl_ex_{name}_path"] = np.zeros((0, 0)) if r.path is None \
+            else np.asarray(r.path, np.float64)
+    for name, fn, (runs, waves) in (
+            ("rrt", rrt.rrt_plan_batch, PL_CMP_RRT),
+            ("star", rrt_star.rrt_star_plan_batch, PL_CMP_STAR)):
+        res, _ = fn(ws, q, n_runs=runs, max_iters=waves,
+                    capacity=PL_CMP_CAP, seed=draws.HostDraws(PL_SEED))
+        out[f"pl_{name}_counts"] = np.array([r.n_vertices for r in res])
+        out[f"pl_{name}_waves"] = np.array([r.n_iterations for r in res])
+        for key in ("verts", "parents", "costs"):
+            if key in res[0].stats:
+                out[f"pl_{name}_{key}"] = np.concatenate(
+                    [r.stats[key] for r in res])
+    return out
+
+
+def planning_references():
+    """Phase planning's references on CPU tensors: (c)'s runs."""
+    return pl_compare_runs("cpu")
+
+
+def pl_path_check(ws_dense, space, res, start, goal=None, goal_tol=None):
+    """(endpoints right, collision-free under the dense edge check, |cost −
+    path_cost| / cost) of a successful joint-space path: the first point is
+    the start; the last is the goal where the planner appends it, else
+    within ``goal_tol`` of ``goal``."""
+    from reak_tpu_torch.planning.queries import path_cost
+
+    dev = space.lower.device
+    path = torch.as_tensor(np.asarray(res.path), dtype=torch.float64,
+                           device=dev)
+    first = bool(torch.equal(path[0].cpu(), torch.as_tensor(start)))
+    if goal_tol is None:
+        last = bool(torch.equal(path[-1].cpu(), torch.as_tensor(goal)))
+    else:
+        last = float(space.distance(path[-1].cpu(), torch.as_tensor(goal))) \
+            <= goal_tol
+    free = bool(ws_dense.edge_free_batch(path[:-1], path[1:]).all())
+    cost = path_cost(space, path)
+    return first and last, free, abs(res.cost - cost) / max(cost, 1e-300)
+
+
+def planning(card, dev, counts):
+    """Phase planning, on the card (slice 14): (a)–(d) above.  Returns
+    ``finish(refs)``, which holds (c) to the CPU child's
+    ``planning_references()``, prints the phase and checks it."""
+    from reak_tpu_torch.examples import run_crs_planner as ex
+    from reak_tpu_torch.ops import _build
+    from reak_tpu_torch.planning import (ChainWorkspace, engines, rrt,
+                                         rrt_star)
+
+    t_phase = time.perf_counter()
+    launches_before = counts()
+    spec, ws, q = ex.build_scene(dev)
+    dense = ChainWorkspace(ws.space, spec, ws.robot_shapes, ws.env,
+                           margin=ws.margin, n_checks=PL_DENSE * ws.n_checks)
+    ph = {"phase": "planning", "card": card, "scene": "run_crs_planner",
+          "dtype": "float64", "n_checks": ws.n_checks}
+    start, goal = q.start, q.goal
+
+    # (a) the batched Monte-Carlo planners
+    runs, cap, wave, waves = PL_RRT
+    kept = {}
+
+    def keep(fn, name):
+        def run(*a, **k):
+            kept[name] = fn(*a, **k)
+            return kept[name]
+        return run
+
+    runs_s, cap_s, waves_s = PL_STAR
+    # one untimed wave of each at the timed shapes first, so that the
+    # timings do not depend on what earlier phases warmed
+    warm = torch.Generator(dev).manual_seed(PL_SEED + 1)
+    rrt.rrt_plan_batch(ws, q, n_runs=runs, max_iters=1, capacity=cap,
+                       wave=wave, seed=warm)
+    rrt_star.rrt_star_plan_batch(ws, q, n_runs=runs_s, max_iters=1,
+                                 capacity=cap_s, seed=warm)
+    gen = torch.Generator(dev).manual_seed(PL_SEED)
+    torch.cuda.synchronize()
+    st = engines.monte_carlo_engine_batched(
+        keep(rrt.rrt_plan_batch, "rrt"), ws, q, n_runs=runs,
+        max_iters=waves, capacity=cap, wave=wave, seed=gen)
+    res = kept["rrt"][0]
+    n_waves = res[0].n_iterations
+    ph["rrt_batch"] = {
+        "runs": runs, "capacity": cap, "wave": wave, "waves": n_waves,
+        "success_rate": st["success_rate"], "mean_cost": st["mean_cost"],
+        "mean_vertices": st["mean_vertices"],
+        "wall_s": st["wall_total_s"],
+        "ms_per_wave": st["wall_total_s"] * 1e3 / n_waves,
+        "ms_per_run": st["mean_time_s"] * 1e3}
+    checks = [pl_path_check(dense, ws.space, r, start, goal)
+              for r in res if r.success]
+    ph["rrt_batch"]["paths_ok"] = [sum(c[0] for c in checks),
+                                   sum(c[1] for c in checks), len(checks)]
+    ph["rrt_batch"]["max_cost_rel_err"] = max(c[2] for c in checks)
+    st = engines.monte_carlo_engine_batched(
+        keep(rrt_star.rrt_star_plan_batch, "star"), ws, q, n_runs=runs_s,
+        max_iters=waves_s, capacity=cap_s, seed=gen)
+    checks = [pl_path_check(dense, ws.space, r, start, goal)
+              for r in kept["star"][0] if r.success]
+    ph["rrt_star_batch"] = {
+        "runs": runs_s, "capacity": cap_s, "waves": waves_s,
+        "success_rate": st["success_rate"], "mean_cost": st["mean_cost"],
+        "mean_vertices": st["mean_vertices"], "wall_s": st["wall_total_s"],
+        "ms_per_wave": st["wall_total_s"] * 1e3 / waves_s,
+        "ms_per_run": st["mean_time_s"] * 1e3,
+        "paths_ok": [sum(c[0] for c in checks), sum(c[1] for c in checks),
+                     len(checks)],
+        "max_cost_rel_err": max((c[2] for c in checks), default=0.0)}
+    ph["batched_seconds"] = time.perf_counter() - t_phase
+
+    # (b) the example's planners at its CLI defaults, once each; RRT*'s
+    # through vlist_engine, whose dump (d) reads
+    stem = str(_build.BUILD_DIR / "planning" / "rrt_star")
+    ph["example"] = {}
+    for name in PL_PLANNERS + ("intercept",):
+        cfg = dict(ex.DEFAULTS, planner=name, device=str(dev))
+        t0 = time.perf_counter()
+        if name == "intercept":
+            _, iq, r = ex.intercept(cfg)
+        elif name == "rrt_star":
+            r = engines.vlist_engine(lambda *a, **k: ex.plan(cfg)[2], ws, q,
+                                     stem)
+        else:
+            _, _, r = ex.plan(cfg)
+        row = {"success": r.success, "cost": r.cost,
+               "vertices": r.n_vertices, "iterations": r.n_iterations,
+               "wall_s": time.perf_counter() - t0}
+        if r.success and name == "intercept":
+            # the last waypoint within goal_tol of the target's tabulated
+            # row at its time (the planner's goal test)
+            path = np.asarray(r.path)
+            grid = np.linspace(0.0, iq.t_budget, iq.target_samples)
+            i = min(int(np.searchsorted(grid, path[-1, 0])), len(grid) - 1)
+            tgt = np.asarray(iq.target_traj(float(grid[i])))
+            jp = np.ascontiguousarray(path[:, 1:])
+            row["ends_ok"] = bool(path[0, 0] == 0.0
+                                  and np.array_equal(jp[0], iq.start)
+                                  and np.linalg.norm(jp[-1] - tgt)
+                                  < iq.goal_tol)
+            row["dense_free"] = bool(dense.edge_free_batch(
+                torch.as_tensor(jp[:-1], device=dev),
+                torch.as_tensor(jp[1:], device=dev)).all())
+            row["cost_rel_err"] = abs(r.cost - path[-1, 0]) / path[-1, 0]
+        elif r.success:
+            ends, free, err = pl_path_check(
+                dense, ws.space, r, start, goal,
+                goal_tol=0.3 if name == "rrg" else None)
+            row.update(ends_ok=ends, dense_free=free, cost_rel_err=err)
+        ph["example"][name] = row
+    ph["example_seconds"] = sum(r["wall_s"] for r in ph["example"].values())
+
+    # (c) the card's runs from the host draws
+    card_cmp = pl_compare_runs(dev)
+
+    # (d) F1: the dump of (b)'s RRT* tree from the card; each vertex's
+    # cost-to-come against its edge lengths summed root first
+    verts, parents, cost = engines.load_vlist(stem + "_vlist.csv")
+    edge = ws.space.distance(torch.as_tensor(verts[np.maximum(parents, 0)]),
+                             torch.as_tensor(verts)).numpy()
+    sums = np.zeros(len(parents))
+    for i in range(len(parents)):
+        chain = [i]
+        while parents[chain[-1]] >= 0:
+            chain.append(parents[chain[-1]])
+        for j in chain[-2::-1]:
+            sums[i] += edge[j]
+    ph["f1"] = {"vertices": len(parents),
+                "rewired_to_higher_index": int(
+                    (parents > np.arange(len(parents))).sum()),
+                "max_abs_cost_err": float(np.abs(cost - sums).max())}
+    ph["card_seconds"] = time.perf_counter() - t_phase
+    ph["launches"] = {k: v - launches_before[k] for k, v in counts().items()}
+    return lambda refs: _pl_finish(ph, card_cmp, refs)
+
+
+def _pl_finish(ph, card_cmp, refs):
+    """planning's comparison with the CPU child, its line and its checks."""
+    cmp = {}
+    for name in ("rrt", "star"):
+        same = all(np.array_equal(card_cmp[f"pl_{name}_{k}"],
+                                  refs[f"pl_{name}_{k}"])
+                   for k in ("counts", "waves", "parents"))
+        rel = {k: rel_err(torch.as_tensor(card_cmp[f"pl_{name}_{k}"]),
+                          torch.as_tensor(refs[f"pl_{name}_{k}"]))
+               for k in ("verts", "costs") if f"pl_{name}_{k}" in refs}
+        cmp[name] = {"indices_equal": same, "rel": rel,
+                     "vertices": card_cmp[f"pl_{name}_counts"].tolist(),
+                     "waves": card_cmp[f"pl_{name}_waves"].tolist()}
+    ex_cmp = {}
+    for name in PL_PLANNERS + ("intercept",):
+        got, want = (d[f"pl_ex_{name}_stats"] for d in (card_cmp, refs))
+        p_got, p_want = (d[f"pl_ex_{name}_path"] for d in (card_cmp, refs))
+        same_path = p_got.shape == p_want.shape
+        ex_cmp[name] = {
+            "success": bool(got[0]), "vertices": int(got[1]),
+            "iterations": int(got[2]), "cost": float(got[3]),
+            "counts_equal": bool(np.array_equal(got[:3], want[:3])
+                                 and same_path),
+            "cost_rel": float(abs(got[3] - want[3])
+                              / max(abs(want[3]), 1e-300))
+            if np.isfinite(want[3]) else float(got[3] != want[3]),
+            "path_rel": float(rel_err(torch.as_tensor(p_got),
+                                      torch.as_tensor(p_want)))
+            if same_path and p_want.size else 0.0}
+    cmp["example"] = ex_cmp
+    ph["card_vs_cpu"] = cmp
+    emit(ph)
+    check(not any(ph["launches"].values()),
+          f"phase planning launched a kernel: {ph['launches']}")
+    for name, c in ex_cmp.items():
+        check(c["counts_equal"] and c["cost_rel"] <= 1e-12
+              and c["path_rel"] <= 1e-12,
+              f"planning: the example's {name} from the host draws differs "
+              f"from the CPU's: {c}")
+    for name in ("rrt", "star"):
+        c = cmp[name]
+        check(c["indices_equal"],
+              f"planning ({name}): the card's tree differs from the CPU's")
+        check(all(e <= 1e-12 for e in c["rel"].values()),
+              f"planning ({name}): vertices or costs off the CPU's: {c}")
+    for key in ("rrt_batch", "rrt_star_batch"):
+        b = ph[key]
+        check(b["success_rate"] > 0.5, f"planning {key}: {b}")
+        check(b["paths_ok"][0] == b["paths_ok"][1] == b["paths_ok"][2],
+              f"planning {key}: a path's ends or dense check: {b}")
+        check(b["max_cost_rel_err"] <= 1e-12, f"planning {key}'s costs")
+    for name, r in ph["example"].items():
+        check(not r["success"] or (r["ends_ok"] and r["dense_free"]
+                                   and r["cost_rel_err"] <= 1e-12),
+              f"planning: the example's {name} path: {r}")
+    for runs in (ph["example"], ex_cmp):
+        check({n for n, r in runs.items() if not r["success"]} == PL_NO_PATH,
+              f"planning: the example's planners: {runs}")
+    check(ph["f1"]["rewired_to_higher_index"] > 0,
+          f"planning: no rewired vertex in the F1 tree: {ph['f1']}")
+    check(ph["f1"]["max_abs_cost_err"] <= 1e-12,
+          f"planning: F1 cost-to-come off the edge sums: {ph['f1']}")
+
+
 def trace_flagship(card, solve, x0, u0):
     """Part (c) of phase optimizers_geometry: io/profiling.device_trace
     around one warm flagship one-pass solve (phase times' configuration);
@@ -2655,6 +3102,31 @@ def kernel_libraries():
             **pdip_whole.LIBRARIES, **riccati_bwd.LIBRARIES}
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from reak_tpu_torch.ops import (chol_lanes, kte_core, kte_step,
+                                    pdip_whole, riccati_bwd)
+
+    kte_step.launches = 0
+    kte_core.launches = 0
+    pdip_whole.launches = 0
+    for per_entry in (chol_lanes.launches, riccati_bwd.launches):
+        for key in per_entry:
+            per_entry[key] = 0
+
+
+def counts():
+    """{kernel entry: launches since the last ``reset_counts``}."""
+    from reak_tpu_torch.ops import (chol_lanes, kte_core, kte_step,
+                                    pdip_whole, riccati_bwd)
+
+    return {"kte_step": kte_step.launches,
+            "kte_core": kte_core.launches,
+            "pdip_whole": pdip_whole.launches,
+            **{f"chol_lanes.{k}": v for k, v in chol_lanes.launches.items()},
+            **{f"riccati_bwd.{k}": v for k, v in riccati_bwd.launches.items()}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2664,27 +3136,67 @@ def main():
     import reak_tpu_torch
     from reak_tpu_torch.ops import _build
 
-    # the build has the machine's cores to itself: the CPU reference starts
-    # after it
-    t0 = time.perf_counter()
-    _build.build_all(kernel_libraries())
-    build_seconds = time.perf_counter() - t0
+    # ---- phase 1: device -------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    dev = torch.device("cuda", 0)
+    reak_tpu_torch.enable_full_precision()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "count": torch.cuda.device_count()})
+
+    # the build, and beside it (nvcc below this process's priority) the
+    # card's work of what launches no kernel: three phases, the stiff suite
+    # of arms_ik_integrators and the filters and prediction of estimation;
+    # the CPU reference starts after the build
+    rank = {name: i for i, name in enumerate(BUILD_LONGEST_FIRST)}
+    libraries = sorted(kernel_libraries(),
+                       key=lambda n: rank.get(n, len(rank)))
+    building = _build.start(libraries, jobs=max(os.cpu_count() - 1, 1),
+                            niceness=NVCC_NICENESS)
+    try:
+        reset_counts()
+        t_early = time.perf_counter()
+        early = {"optimizers_geometry": optimizers_geometry(card, dev),
+                 "interp_spaces_io": interp_spaces_io(card, dev),
+                 "planning": planning(card, dev, counts),
+                 "stiff_suite": stiff_suite(dev),
+                 "estimation_filters": estimation_filters(card, dev)}
+        early_seconds = time.perf_counter() - t_early
+        check(not any(counts().values()), "a phase run beside the build "
+              f"launched a kernel: {counts()}")
+        _build.finish(building)
+    finally:
+        _build.stop(building)
+    build = {"seconds": max(building["seconds"].values(), default=0.0),
+             "jobs": max(os.cpu_count() - 1, 1),
+             "library_seconds": building["seconds"],
+             "beside_it": list(early), "beside_it_seconds": early_seconds}
     ref_path = _build.BUILD_DIR / "cpu_reference.npz"
     if ref_path.exists():
         ref_path.unlink()
-    with open(_build.BUILD_DIR / "cpu_reference.log", "w") as log:
-        child = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cpu-reference",
-             str(ref_path)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    ops_path = _build.BUILD_DIR / "op_counts.npz"
+    children = {}
+    for key, path in (("cpu_reference", ref_path), ("op_counts", ops_path)):
+        if path.exists():
+            path.unlink()
+        with open(_build.BUILD_DIR / f"{key}.log", "w") as log:
+            children[key] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 f"--{key.replace('_', '-')}", str(path)], cwd=ROOT,
+                stdout=log, stderr=subprocess.STDOUT)
     try:
-        return smoke(reak_tpu_torch, child, ref_path, build_seconds)
+        return smoke(children, ref_path, ops_path, card, dev, build, early)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
 
 
-def smoke(reak_tpu_torch, child, ref_path, build_seconds):
+def smoke(children, ref_path, ops_path, card, dev, build, early):
     from reak_tpu_torch.ctrl import (belief, invariant, manifold_lanes, mpc,
                                      mpc_manifold, riccati_soa, ss_systems,
                                      systems)
@@ -2692,40 +3204,27 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     from reak_tpu_torch.ops import (_build, _tile, chol_lanes, kte_core,
                                     kte_step, pdip_whole, riccati_bwd)
 
-    def cpu_references():
-        """The child's results, and how long this process waited for it."""
+    def child_result(key, path):
+        """The results of the child ``key``, and how long this process
+        waited for it."""
         t_wait = time.perf_counter()
-        rc = child.wait(timeout=900)
-        log = (_build.BUILD_DIR / "cpu_reference.log").read_text()
-        check(rc == 0, f"the CPU reference process failed:\n{log[-4000:]}")
-        return np.load(ref_path), time.perf_counter() - t_wait
+        rc = children[key].wait(timeout=900)
+        log = (_build.BUILD_DIR / f"{key}.log").read_text()
+        check(rc == 0, f"the {key} process failed:\n{log[-4000:]}")
+        return np.load(path), time.perf_counter() - t_wait
 
-    def reset_counts():
-        kte_step.launches = 0
-        kte_core.launches = 0
-        pdip_whole.launches = 0
-        for per_entry in (chol_lanes.launches, riccati_bwd.launches):
-            for key in per_entry:
-                per_entry[key] = 0
+    def cpu_references():
+        return child_result("cpu_reference", ref_path)
 
-    def counts():
-        return {"kte_step": kte_step.launches,
-                "kte_core": kte_core.launches,
-                "pdip_whole": pdip_whole.launches,
-                **{f"chol_lanes.{k}": v for k, v in chol_lanes.launches.items()},
-                **{f"riccati_bwd.{k}": v
-                   for k, v in riccati_bwd.launches.items()}}
+    op_count = {}
 
-    # ---- phase 1: device -------------------------------------------------
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0].strip()
-    reak_tpu_torch.enable_full_precision()
-    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
-          "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "count": torch.cuda.device_count()})
+    def plain_ops(key):
+        """Operations per scenario of a plain version, from ``op_counts``
+        (the CPU process ``--op-counts``)."""
+        if not op_count:
+            op_count["npz"], op_count["waited_s"] = child_result(
+                "op_counts", ops_path)
+        return float(op_count["npz"][key])
 
     # ---- phase 2: build (done before the CPU reference started) ----------
     f64, f32 = torch.float64, torch.float32
@@ -2790,7 +3289,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                     s.replace("ptxas info    :", "").strip()
                     for s in lines[i + 2:i + 4])
     check(len(ptxas) == len(wanted), "a kernel instance missing from ptxas")
-    emit({"phase": "build", "seconds": build_seconds,
+    emit({"phase": "build", **build,
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
           "kte_blocks_per_sm": occupancy})
 
@@ -3308,11 +3807,13 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                                              for g, w in zip(got, want)])
         return out
 
-    def f32_passes(p, label):
-        """K2 (u and xs) and K4a-c on the float32 copy of ``synthetic``'s
-        f64 problem ``p``, each output against the plain f64 result and
-        held to twice the plain float32 path's error against it (K4b and
-        K4c on the plain f64 pass's K and G, rounded)."""
+    def f32_passes(p, label, iters=ITERS, k2_ref=None):
+        """K2 (u and xs, at ``iters`` iterations) and K4a-c on the float32
+        copy of ``synthetic``'s f64 problem ``p``, each output against the
+        plain f64 result and held to twice the plain float32 path's error
+        against it (K4b and K4c on the plain f64 pass's K and G,
+        rounded).  ``k2_ref``: the plain f64 K2's (u, xs) on ``p``, where
+        the caller has it."""
         q = {k: v.float() for k, v in p.items()}
         K_, G_ = riccati_soa.fused_backward_plain(*[
             p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN",
@@ -3329,14 +3830,15 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
 
         a64, a32 = args(p, K_, G_), args(q, K_.float(), G_.float())
         kern = {"k2": lambda *a: riccati_soa.solve_box_mpc_riccati_soa_fused(
-                    *a, iters=ITERS, use_kernels="whole"),
+                    *a, iters=iters, use_kernels="whole"),
                 **{e: getattr(riccati_bwd, e) for e in plain_pass}}
-        plain = {"k2": lambda *a: riccati_soa._fused_scan(*a, iters=ITERS),
+        plain = {"k2": lambda *a: riccati_soa._fused_scan(*a, iters=iters),
                  **plain_pass}
         out = {}
         for key in kern:
-            ref, got, pl = (plain[key](*a64[key]), kern[key](*a32[key]),
-                            plain[key](*a32[key]))
+            ref = (k2_ref if key == "k2" and k2_ref is not None
+                   else plain[key](*a64[key]))
+            got, pl = kern[key](*a32[key]), plain[key](*a32[key])
             ref, got, pl = (((ref,), (got,), (pl,)) if torch.is_tensor(ref)
                             else (ref, got, pl))
             out[f"{key}_f32_abs"] = [abs_err(a, r) for a, r in zip(got, ref)]
@@ -3849,14 +4351,16 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             waited["refs"], waited["s"] = cpu_references()
         return waited["refs"]
 
-    og_finish = optimizers_geometry(card, dev)
-    isi_finish = interp_spaces_io(card, dev)
+    og_finish = early["optimizers_geometry"]
+    isi_finish = early["interp_spaces_io"]
+    pl_finish = early["planning"]
     clik_share = arms_ik_integrators(card, dev, cpu_refs, reset_counts,
-                                     counts, main_runs)
+                                     counts, main_runs, early["stiff_suite"])
     og_finish(cpu_refs(), clik_share)
     isi_finish(cpu_refs())
+    pl_finish(cpu_refs())
     estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
-               counts, main_runs)
+               counts, main_runs, early["estimation_filters"])
     refs, ref_wait = cpu_refs(), waited["s"]
     err2 = np.abs(us2[:N_REF].double().cpu().numpy()
                   - refs["flagship_sqp_us"]).max(axis=(1, 2))
@@ -4171,14 +4675,16 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     # H = 12, K3a/K3b at n = 32, 48 and 64 (one and n right-hand sides)
     wide["per_launch_f64"] = {}
 
-    def wide_row(key, fn, args, plain, reps, moved=None):
+    def wide_row(key, fn, args, plain, reps, moved=None, ops=None):
         """``moved``: the bytes the function must move, where that is not
-        its inputs and outputs whole"""
+        its inputs and outputs whole; ``ops``: the plain version's
+        operations per scenario, where they are not counted here"""
         outs = fn(*args)
         outs = (outs,) if torch.is_tensor(outs) else outs
-        bound_ms, bound_by = bound(
-            moved or nbytes(*args, *outs), B * ops_per_scenario(
-                plain, lambda nb: cpu_args(args, B, nb)), PEAK_F64_S)
+        if ops is None:
+            ops = ops_per_scenario(plain, lambda nb: cpu_args(args, B, nb))
+        bound_ms, bound_by = bound(moved or nbytes(*args, *outs), B * ops,
+                                   PEAK_F64_S)
         wide["per_launch_f64"][key] = {
             "ms": cuda_ms(lambda: fn(*args), reps=reps),
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -4196,8 +4702,8 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                                      "lb", "ub"))
     wide_row("pdip_whole@32x16",
              lambda *a: riccati_soa.solve_box_mpc_riccati_soa_fused(
-                 *a, iters=ITERS, use_kernels="whole"), k2w_args,
-             lambda *a: riccati_soa._fused_scan(*a, iters=ITERS), 2)
+                 *a, iters=ITERS, use_kernels="whole"), k2w_args, None, 2,
+             ops=plain_ops("k2@32x16,H12"))
     pa = tuple(pw[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R"))
     K_w, G_w = riccati_soa.fused_backward_plain(*pa)[1:3]
     for e, a in (("fused_backward", pa),
@@ -4252,22 +4758,24 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     ptc = {"phase": "past_the_caps", "dtype": "float64", "k1_k5": {},
            "tile": {}}
 
-    def per_launch(fn, args, plain, batch, reps=3):
+    def per_launch(fn, args, plain, batch, reps=3, ops=None):
         """ms per launch by CUDA events beside the f64 bound of the call;
-        the plain version's operations are counted on the card (at these
-        widths a count on the host takes tens of seconds)."""
+        the plain version's operations per scenario are ``ops`` where
+        given, else counted on the card (at these widths a count on the
+        host takes tens of seconds)."""
         outs = fn(*args)
         outs = (outs,) if torch.is_tensor(outs) else outs
         first = lambda nb: tuple(
             t[..., :nb].contiguous() if t.dim() > 1 and t.shape[-1] == batch
             else t for t in args)
-        bound_ms, bound_by = bound(
-            nbytes(*args, *outs), batch * ops_per_scenario(plain, first),
-            PEAK_F64_S)
+        if ops is None:
+            ops = ops_per_scenario(plain, first)
+        bound_ms, bound_by = bound(nbytes(*args, *outs), batch * ops,
+                                   PEAK_F64_S)
         return {"ms": cuda_ms(lambda: fn(*args), reps=reps),
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
-    for segs in (17, 24):
+    for segs in OP_COUNT_BEAMS:
         chain = models.flexible_beam(segs)
         nvc = chain.nv
         xb_np = np.concatenate([rng.uniform(-0.05, 0.05, (nvc, 77)),
@@ -4300,8 +4808,10 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
                     abs_err(a, r) for a, r in zip(got1, want1)])
                 k5_max_abs = max([k5_max_abs] + [
                     abs_err(a, r) for a, r in zip(got5, want5)])
-                case["k1_per_launch"] = per_launch(k1, (xc, uc), p1, 77)
-                case["k5_per_launch"] = per_launch(k5, (xc, uc), p5, 77)
+                case["k1_per_launch"] = per_launch(
+                    k1, (xc, uc), p1, 77, ops=plain_ops(f"k1@beam{segs}"))
+                case["k5_per_launch"] = per_launch(
+                    k5, (xc, uc), p5, 77, ops=plain_ops(f"k5@beam{segs}"))
             else:
                 q1, q5 = p1(xc, uc), p5(xc, uc)
                 for key, got, plain32, want in (("k1", got1, q1, want1),
@@ -4344,17 +4854,20 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
             check(e <= 1e-9, f"K2 {n_, m_} f64 {o}")
         k2_max_abs = max(k2_max_abs, abs_err(u_k, u_p), abs_err(x_k, x_p))
         case.update(edge_passes(p))
-        case["k2_per_launch"] = per_launch(whole, k2a, plain_k2, batch, 2)
+        case["k2_per_launch"] = per_launch(
+            whole, k2a, plain_k2, batch, 2,
+            ops=plain_ops(f"k2@{n_}x{m_},H4"))
         pa = [p[k] for k in ("A", "Bm", "q", "u_eff", "D", "Q", "QN", "R")]
         K_, G_ = riccati_soa.fused_backward_plain(*pa)[1:3]
         for e, a in (("fused_backward", pa),
                      ("vector_backward", [p["A"], p["Bm"], p["rhs"], K_,
                                           G_]),
                      ("forward", [p["A"], p["Bm"], K_, p["k"], p["dx0"]])):
-            case[f"{e}_per_launch"] = per_launch(getattr(riccati_bwd, e), a,
-                                                 plain_pass[e], batch)
+            case[f"{e}_per_launch"] = per_launch(
+                getattr(riccati_bwd, e), a, plain_pass[e], batch,
+                ops=plain_ops(f"{e}@{n_}x{m_},H4"))
         if f32_too:
-            case.update(f32_passes(p, (n_, m_)))
+            case.update(f32_passes(p, (n_, m_), k2_ref=(u_p, x_p)))
         return case
 
     for n_, m_, batch in ((33, 17, 77), (48, 24, 77), (62, 31, 33)):
@@ -4363,12 +4876,17 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     check(ptc["tile"]["n=62,m=31,B=33"]["branch"] == "device"
           and ptc["tile"]["n=48,m=24,B=77"]["branch"] == "shared",
           "the tile cases did not take both branches of the runtime tile")
-    # the f32 device-memory branch, where the mirror puts its first width
+    # the f32 device-memory branch, where the mirror puts its first width;
+    # K2 at PTC_F32_DEVICE_ITERS iterations (each runs the same code): at
+    # this width its plain version, run at f64 and f32, is the longest
+    # part of the phase
     f32_dev = next((2 * m_, m_) for m_ in range(16, 256)
                    if _tile.tile_config(2 * m_, m_, f32).branch == "device")
     ptc["tile"][f"n={f32_dev[0]},m={f32_dev[1]},B=33,f32"] = {
         "branch": _tile.tile_config(*f32_dev, f32).branch,
-        **f32_passes(synthetic(*f32_dev, 33, horizon=4), f32_dev)}
+        "k2_iters": PTC_F32_DEVICE_ITERS,
+        **f32_passes(synthetic(*f32_dev, 33, horizon=4), f32_dev,
+                     iters=PTC_F32_DEVICE_ITERS)}
     # the 24-segment beam through make_kte_mpc: K1 and K2 at run-time widths
     beam24 = models.flexible_beam(24)
     nv24, dt24 = beam24.nv, 4e-7
@@ -4500,13 +5018,9 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     k2_long_args = (*seqs32[:3], prob_L[f32].Q, prob_L[f32].QN,
                     prob_L[f32].R, x0_L[f32].T.contiguous(),
                     prob_L[f32].u_min, prob_L[f32].u_max)
-    # every iteration does the same operations, so those of ITERS follow
-    # from a count of one and of two
-    o1, o2 = (ops_per_scenario(
-        lambda *a: riccati_soa._fused_scan(*a, iters=it),
-        lambda nb: cpu_args(k2_long_args, B, nb)) for it in (1, 2))
     lh["pdip_whole_bound_ms"], lh["pdip_whole_bound_by"] = bound(
-        nbytes(*k2_long_args, u_L, xs_L), B * (o1 + (ITERS - 1) * (o2 - o1)))
+        nbytes(*k2_long_args, u_L, xs_L),
+        B * plain_ops(f"k2@{N}x{M},H{HL}"))
     lh["pdip_whole_design_floor_ms"] = (k2_design_bytes(HL, N, M, B, ITERS, 4)
                                         / PEAK_BYTES_S * 1e3)
     del k2_long_args
@@ -4597,9 +5111,7 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
     k2_args = (A32, B32, c32, prob32.Q, prob32.QN, prob32.R, x0T32,
                prob32.u_min, prob32.u_max)
     k2_moved = nbytes(*k2_args, *pdip("whole"))
-    k2_ops = B * ops_per_scenario(
-        lambda *a: riccati_soa._fused_scan(*a, iters=ITERS),
-        lambda nb: cpu_args(k2_args, B, nb))
+    k2_ops = B * plain_ops(f"k2@{N}x{M},H{H}")
     k5_moved = nbytes(x32, u32, *core_k(x32, u32))
     k5_ops = B * ops_per_scenario(core_p, lambda nb: cpu_args((x32, u32), B,
                                                               nb))
@@ -4609,7 +5121,9 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
           "plain_rollout_ms": t_roll_p, "plain_pdip_ms": t_pdip_p,
           "kte_step_launch_ms": t_step, "plain_step_ms": t_step_p,
           "pdip_design_floor_ms": k2_design_bytes(H, N, M, B, ITERS, 4)
-          / PEAK_BYTES_S * 1e3})
+          / PEAK_BYTES_S * 1e3,
+          "op_counts_seconds": float(op_count["npz"]["seconds"]),
+          "waited_for_op_counts_seconds": op_count["waited_s"]})
     # the free-base and two-pass solves, each timed on its checked run
     emit({"phase": "times_slice2", "card": card, "dtype": "float32",
           "flagship_sqp2_ms": t_sqp2, "flagship_sqp2_solves_per_s":
@@ -4690,4 +5204,6 @@ def smoke(reak_tpu_torch, child, ref_path, build_seconds):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-reference"]:
         sys.exit(cpu_reference(sys.argv[2]))
+    if sys.argv[1:2] == ["--op-counts"]:
+        sys.exit(op_count_process(sys.argv[2]))
     sys.exit(main())

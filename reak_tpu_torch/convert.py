@@ -5,8 +5,9 @@ Each function duck-types its argument: anything with the fields of
 ``AirshipParams``, ``QuadrotorParams``, ``TSOSBelief``,
 ``PredictedBeliefTrajectory``, the shape sets ``ShapeSet`` and
 ``ShapeSet2D``, the proximity models ``ProxyModel`` and ``ProxyModel2D``,
-the interpolators' ``Trajectory`` or the scenario bundles
-``NavigationScenario`` and ``ChaserTargetScenario`` as numbers, tuples,
+the interpolators' ``Trajectory``, the scenario bundles
+``NavigationScenario`` and ``ChaserTargetScenario``, the box spaces or the
+planning workspaces as numbers, tuples,
 numpy arrays or arrays that ``numpy.asarray`` reads: a JAX object, or one
 that ``io.serialization.load_scene`` returned.  Nothing here imports JAX.
 """
@@ -196,3 +197,62 @@ def chaser_target_scenario_from(obj, device, dtype) -> ChaserTargetScenario:
         target_shapes=shapes_from(obj.target_shapes, device, dtype),
         env=proxy_from(obj.env, device, dtype), start=t(obj.start),
         target_state=t(obj.target_state))
+
+
+def box_space_from(obj, device, dtype):
+    """The port's ``NdofSpace`` (``HyperboxSpace`` when ``obj`` is not an
+    ``NdofSpace``) with the bounds and weights of ``obj``."""
+    from reak_tpu_torch.spaces.vector import HyperboxSpace, NdofSpace
+
+    cls = NdofSpace if type(obj).__name__ == "NdofSpace" else HyperboxSpace
+    w = getattr(obj, "weights", None)
+    t = lambda a: None if a is None else torch.as_tensor(
+        np.array(a), dtype=dtype, device=device)
+    return cls(t(obj.lower), t(obj.upper), t(w))
+
+
+def workspace_from(obj, device, dtype):
+    """The port's workspace of ``obj``: a ``NoObstacleWorkspace``, a
+    ``ChainWorkspace`` or ``PlanarChainWorkspace`` (chain through
+    ``spec_from``, shapes and environment through ``shapes_from`` /
+    ``proxy_from`` or their 2-D forms, margin and edge checks kept), a
+    ``TemporalChainWorkspace`` whose moving bodies carry
+    ``rigid_traj_tabulated`` trajectories (their tables are read from the
+    trajectory's closure), or the ``Workspace`` that ``bitmap_workspace``
+    returns (its grid and bounds, likewise).  The space goes through
+    ``box_space_from``."""
+    import inspect
+
+    from reak_tpu_torch.planning import workspace as ws
+
+    space = box_space_from(obj.space, device, dtype)
+    kind = type(obj).__name__
+    if kind == "NoObstacleWorkspace":
+        return ws.NoObstacleWorkspace(space)
+    if kind in ("ChainWorkspace", "TemporalChainWorkspace"):
+        args = (space, spec_from(obj.spec),
+                shapes_from(obj.robot_shapes, device, dtype),
+                proxy_from(obj.env, device, dtype))
+        kw = dict(margin=float(obj.margin), n_checks=int(obj.n_checks))
+        if kind == "ChainWorkspace":
+            return ws.ChainWorkspace(*args, **kw)
+        moving = []
+        for shapes, traj in obj.moving:
+            tab = inspect.getclosurevars(traj).nonlocals
+            moving.append((shapes_from(shapes, device, dtype),
+                           ws.rigid_traj_tabulated(
+                               np.asarray(tab["ts"]), np.asarray(tab["poss"]),
+                               np.asarray(tab["quats"]), device=device,
+                               dtype=dtype)))
+        return ws.TemporalChainWorkspace(*args, moving=moving, **kw)
+    if kind == "PlanarChainWorkspace":
+        return ws.PlanarChainWorkspace(
+            space, spec_from(obj.spec),
+            shapes2d_from(obj.robot_shapes, device, dtype),
+            proxy2d_from(obj.env, device, dtype), margin=float(obj.margin),
+            n_checks=int(obj.n_checks))
+    tab = inspect.getclosurevars(obj._is_free).nonlocals
+    return ws.bitmap_workspace(space, np.asarray(tab["grid"]),
+                               np.asarray(tab["lower"]),
+                               np.asarray(tab["upper"]),
+                               n_checks=int(obj.n_checks))

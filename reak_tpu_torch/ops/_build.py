@@ -19,18 +19,18 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "reak_tpu_torch"
-# -split-compile=0: a library's instances are optimized on all the cores, so
-# the longest build (the (24, 12) whole-solve kernel in f64) speeds up once
-# the shorter ones have finished
+# one thread an nvcc: ``start`` runs as many at once as it is given jobs
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-              "-split-compile=0")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # {(library, function): the function, its argtypes declared}
@@ -95,33 +95,107 @@ def ptxas_report(name: str) -> str:
     return library_path(name).with_suffix(".ptxas.txt").read_text()
 
 
-def build_all(names) -> dict:
-    """Compile each library of ``names`` that is not built yet, one ``nvcc``
-    per library, all started together; returns {name: library}."""
+def start(names, jobs: int | None = None, niceness: int = 0) -> dict:
+    """Start one ``nvcc`` per library of ``names`` that is not built yet,
+    in that order, at most ``jobs`` at a time (all together if None), each
+    ``niceness`` below this process's priority; returns the build, for
+    ``finish`` and ``stop``, whose ``"seconds"`` gets each library's time
+    from the start as it ends.  ``jobs`` below the core count leaves this
+    process a core for what it runs meanwhile."""
     outs = {name: library_path(name) for name in names}
-    procs = {}
-    for name, out in outs.items():
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        source, defines = _source_and_defines(name)
-        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o",
-               str(tmp), str(source)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp)
+    todo = [name for name, out in outs.items() if not out.exists()]
+    build = {"outs": outs, "procs": {}, "seconds": {}, "stopped": False,
+             "lock": threading.Lock()}
+    slots = threading.Semaphore(jobs or max(len(todo), 1))
+    t0 = time.perf_counter()
+
+    def run(name, proc):
+        proc.wait()
+        build["seconds"][name] = time.perf_counter() - t0
+        slots.release()
+
+    def launch_all():
+        try:
+            launch_each()
+        except BaseException as e:  # finish raises it
+            build["error"] = e
+
+    def launch_each():
+        for name in todo:
+            slots.acquire()
+            out = outs[name]
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            source, defines = _source_and_defines(name)
+            cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o",
+                   str(tmp), str(source)]
+            with build["lock"]:
+                if build["stopped"]:
+                    return
+                with open(tmp.with_suffix(".err"), "w") as err:
+                    proc = subprocess.Popen(
+                        cmd, stdout=subprocess.DEVNULL, stderr=err,
+                        start_new_session=True,
+                        preexec_fn=((lambda: os.nice(niceness)) if niceness
+                                    else None))
+                waiter = threading.Thread(target=run, args=(name, proc),
+                                          daemon=True)
+                build["procs"][name] = (proc, tmp, waiter)
+            waiter.start()
+
+    build["launcher"] = threading.Thread(target=launch_all, daemon=True)
+    build["launcher"].start()
+    return build
+
+
+def finish(build: dict) -> dict:
+    """Wait for the ``nvcc`` processes of ``start``; raise if one failed,
+    else put each library in place beside its ``ptxas -v`` report and
+    return {name: library}."""
+    build["launcher"].join()
+    if "error" in build:
+        raise build["error"]
     failed = []
-    for name, (proc, tmp) in procs.items():
-        _, err = proc.communicate()
+    for name, (proc, tmp, waiter) in build["procs"].items():
+        waiter.join()
+        err_path = tmp.with_suffix(".err")
+        err = err_path.read_text()
+        err_path.unlink()
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}:\n{err}")
             continue
-        outs[name].with_suffix(".ptxas.txt").write_text(err)
-        os.replace(tmp, outs[name])
+        build["outs"][name].with_suffix(".ptxas.txt").write_text(err)
+        os.replace(tmp, build["outs"][name])
     if failed:
         raise RuntimeError("\n".join(failed))
-    return outs
+    return build["outs"]
+
+
+def stop(build: dict) -> None:
+    """Start no more ``nvcc`` and kill whatever still runs, with the
+    compilers it started."""
+    with build["lock"]:
+        build["stopped"] = True
+        running = list(build["procs"].values())
+    for proc, _, _ in running:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    for _, _, waiter in running:
+        waiter.join()
+    build["launcher"].join()
+
+
+def build_all(names) -> dict:
+    """Compile each library of ``names`` that is not built yet, one ``nvcc``
+    per library, all started together; returns {name: library}."""
+    build = start(names)
+    try:
+        return finish(build)
+    finally:
+        stop(build)
 
 
 def build(name: str) -> Path:

@@ -100,7 +100,7 @@ def test_actuated_map_matches_jax(rng):
     step_t, ltv_t = lanes.make_kte_manifold_lanes(
         convert.spec_from(spec_j), 0.05, actuated=act)
     _assert_rel(step_t(torch.as_tensor(x), torch.as_tensor(u)),
-                step_j(jnp.asarray(x), jnp.asarray(u)), 1e-11)
+                jax.jit(step_j)(jnp.asarray(x), jnp.asarray(u)), 1e-11)
     for g, w in zip(ltv_t(torch.as_tensor(x), torch.as_tensor(u)),
                     jax.jit(ltv_j)(jnp.asarray(x), jnp.asarray(u))):
         _assert_rel(g, w, 1e-9)

@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_host import host_manifold_lanes
 from reak_tpu.ctrl import manifold_lanes as jml, mpc as jmpc, ss_systems as jss
-from reak_tpu.kte import lanes as jlanes, models as jmodels
+from reak_tpu.kte import models as jmodels
 from reak_tpu_torch import convert
 from reak_tpu_torch.ctrl import manifold_lanes as ml, ss_systems
 from reak_tpu_torch.kte import lanes
@@ -112,16 +113,17 @@ def test_quat_local_lanes_matches_jax(rng):
 @pytest.fixture(scope="module")
 def sat_case():
     """The small satellite problem (B=4, H=5, numpy seed 42) and the JAX
-    package's solve of it on its scan (``use_kernels="never"``), run once
-    for the tests that share it."""
+    package's solve of it on its scan (``use_kernels="never"``), jitted
+    (one compile takes less time than the op-by-op run) and run once for
+    the tests that share it."""
     rng = np.random.default_rng(42)
     B, H = 4, 5
     x0, u0 = _sat_states(rng, B), rng.uniform(-1.0, 1.0, (B, H, 6))
     x_ref = np.array(jss.default_state().at[0:3].set(
         jnp.asarray([1.0, 0.5, -0.3])))
     p_j, prob_j = _sat_params(), _sat_problem(H)
-    us_j, xs_j = jml.make_sat_scenario_mpc_lanes(
-        p_j, prob_j, 0.1, qp_iters=8, sqp_iters=2, use_kernels="never")(
+    us_j, xs_j = jax.jit(jml.make_sat_scenario_mpc_lanes(
+        p_j, prob_j, 0.1, qp_iters=8, sqp_iters=2, use_kernels="never"))(
         jnp.asarray(x0), jnp.asarray(x_ref), jnp.asarray(u0))
     return dict(x0=x0, u0=u0, x_ref=x_ref, params=p_j, prob=prob_j,
                 us=np.asarray(us_j), xs=np.asarray(xs_j))
@@ -152,25 +154,7 @@ def _small_floating_arm():
 def _jax_host_chain(dt):
     """The JAX package's step and LTV of the small floating arm, each jitted
     once and reached from the solver through a host callback."""
-    spec = _small_floating_arm()
-    step, ltv = jlanes.make_kte_manifold_lanes(spec, dt)
-    step_c, ltv_c = jax.jit(step), jax.jit(ltv)
-    d, nu = 2 * spec.nv, spec.nv
-
-    def host(fn):
-        return lambda *a: jax.tree.map(np.asarray, fn(*a))
-
-    def step_cb(x, u):
-        return jax.pure_callback(host(step_c),
-                                 jax.ShapeDtypeStruct(x.shape, x.dtype), x, u)
-
-    def ltv_cb(x, u):
-        B = x.shape[1:]
-        shapes = tuple(jax.ShapeDtypeStruct(s + B, x.dtype)
-                       for s in ((d, d), (d, nu), (d,)))
-        return jax.pure_callback(host(ltv_c), shapes, x, u)
-
-    return step_cb, ltv_cb
+    return host_manifold_lanes(_small_floating_arm(), dt)
 
 
 @pytest.mark.parametrize("linesearch", [False, True],

@@ -10,8 +10,11 @@ same seed gives the same states, and 20,000 tangent draws have the
 belief's mean and covariance within 4σ.  The satellite's JAX references run
 under ``jax.jit`` (one compile takes less time than the op-by-op run); so
 do both branches of ``make_kte_scenario_mpc`` on their small chains (run
-eagerly, each rollout compiled its scan again); the other chains' run op
-by op (a jitted KTE rollout of the 6-DoF arm compiles for minutes)."""
+eagerly, each rollout compiled its scan again), the free base's chain step
+and LTV reached through host callbacks into their own jitted JAX functions
+(inlined in the solver, they more than double its compile); the other
+chains' run op by op (a jitted KTE rollout of the 6-DoF arm compiles for
+minutes)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +22,8 @@ import torch
 
 from reak_tpu.ctrl import (belief as jbel, mpc as jmpc, mpc_manifold as jmm,
                            ss_systems as jss)
-from reak_tpu.kte import models as jmodels
+from _jax_host import host_manifold_lanes
+from reak_tpu.kte import lanes as jlanes, models as jmodels
 from reak_tpu_torch import convert
 from reak_tpu_torch.ctrl import belief as bel, mpc, mpc_manifold as mm, \
     ss_systems as ss
@@ -126,10 +130,12 @@ def test_make_scenario_mpc_is_batch_first(monkeypatch):
     assert sum(not one for _, one in batches) == sqp * it * H
 
 
-def test_make_kte_scenario_mpc_both_branches():
+def test_make_kte_scenario_mpc_both_branches(monkeypatch):
     """A fixed base (planar_2link) routes to ``make_kte_mpc`` tracking
     x_ref, a free base (free_floating_3d) to the lanes error-state SQP;
     each against the JAX package's dispatcher."""
+    monkeypatch.setattr(jlanes, "make_kte_manifold_lanes",
+                        host_manifold_lanes)
     H = 3
     rng = np.random.default_rng(3)
     for name, m, sqp, dt in (("planar_2link", 2, 1, 0.02),

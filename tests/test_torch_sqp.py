@@ -42,8 +42,10 @@ def _states(rng, B=B):
 
 
 def test_rk4_rollout_matches_jax(rng):
+    """The JAX rollout compiled here is the one the line-search passes
+    below reuse."""
     x0, ul = _states(rng), rng.uniform(-2.0, 2.0, (H, 6, B))
-    want = jlanes.make_rollout_lanes(jmodels.manip_3r3r(), 0.01)(
+    want = _jitted(jlanes.make_rollout_lanes, _SPEC_J, 0.01)(
         jnp.asarray(x0), jnp.asarray(ul))
     before = dict(chol_lanes.launches)
     got = lanes.make_rollout_lanes(models.manip_3r3r(), 0.01)(
