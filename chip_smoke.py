@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from ``reak_tpu_torch/csrc`` (one ``nvcc``
 per library, as many at once as the host has cores but one; beside the
 build runs the card's work of what launches no kernel: the phases
-``optimizers_geometry``, ``interp_spaces_io`` and ``planning``, the stiff
-suite and the filters), holds each kernel against its plain torch version
-on the card, and drives the port's main paths through the kernels:
+``optimizers_geometry``, ``interp_spaces_io``, ``planning`` and
+``spaces_meaqr_examples``, the stiff suite and the filters), holds each
+kernel against its plain torch version on the card, and drives the port's
+main paths through the kernels:
 
 - the flagship batched KTE-MPC solve ``ctrl.mpc.make_kte_mpc`` (6-DoF
   CRS-A465 arm, n=12, m=6, H=50, 8 Mehrotra iterations, f32, B=8192), one
@@ -96,6 +97,27 @@ on the card, and drives the port's main paths through the kernels:
   and iterations equal, costs and paths ≤1e-12); and the
   ``vlist_engine`` dump of the example's rewired RRT* tree, whose costs
   must be the edge sums (F1 fixed in the port);
+- the last spaces, the MEAQR planners and the last two examples (phase
+  ``spaces_meaqr_examples``, f64): the SE(2) and SE(3) spaces of every
+  order and ``FlatSE2Space`` on 8192 pairs (distance, difference, clamp,
+  interpolation at 64 fractions; F21's headings ±π and ±3π wrap to +π),
+  the Gaussian belief space at n = 12 on 8192 beliefs (round trip,
+  interpolated covariances positive definite, a covariance that is not NaN
+  in its own row), the kinematics topomaps of the CRS arm at 8192
+  configurations (direct map, lift, the closed-form inverse's round trip,
+  the CLIK fallback), an RRT on ``FlatSE2Space`` through a wall's gap and
+  one over beliefs, ``examples/x8_planner.py``'s main with RRT* and SBA*
+  at its defaults on the MEAQR topology of the quadrotor's hover LTI (and
+  each planner again from host draws, held to a third CPU child,
+  ``--spaces-reference``, with the first 256 rows of every batch), and
+  ``examples/crs_dynexec.py``'s main at its defaults (40 rows over a
+  loopback TCP stream, the IEKF, the prediction, the IK table, the
+  interception among the moving target body, the plan recorded);
+- the flagship one-pass solve through ``parallel.mesh`` (phase
+  ``mesh_flagship``): a one-process NCCL group, ``sharded_map`` with
+  ``pmean_scalar`` of mean(us²), bit for bit the unsharded solve, exactly
+  50 K1 and 1 K2 launches (one rank shows the code path and the
+  collective, not scaling);
 - the floating-arm scenario MPC (free base + 6-DoF arm, tangent n=24,
   m=12, H=16, B=2048) through ``kte.lanes.make_kte_manifold_lanes``;
 - the flagship chain at a long horizon (H=256, B=8192, f32) on the rollout
@@ -148,7 +170,9 @@ the child also solves the satellite's generic route on states it draws
 itself, and the card solves the same states, and runs the Monte-Carlo
 filters' first runs and ``dlqr`` on the plain step's linearization.  A
 second child (``--op-counts``) counts the plain versions' operations that
-the bounds of the wide and long calls need (``op_counts``).
+the bounds of the wide and long calls need (``op_counts``), and a third
+(``--spaces-reference``) makes phase ``spaces_meaqr_examples``'
+references.
 Each phase prints one JSON line; the card's name and power limit follow as
 ``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
 with its launches on the main paths, its time per launch beside its plain
@@ -3010,6 +3034,531 @@ def _pl_finish(ph, card_cmp, refs):
           f"planning: F1 cost-to-come off the edge sums: {ph['f1']}")
 
 
+# phase spaces_meaqr_examples (slice 15), f64 unless said: (a) the SE(2)
+# spaces (orders 0-2 of tests/test_tangent_spaces.py:164-215 and the gap
+# world's FlatSE2Space, tests/test_topomaps_se2plan.py:84) and the SE(3)
+# orders (tests/test_tangent_spaces.py:121-160) on SME_B pairs drawn with
+# numpy seed SME_SEED: distance, difference, clamp, and interpolation at
+# SME_FRACS fractions, F21's headings ±π and ±3π in the first pairs and
+# points; (b) the Gaussian belief space at n = SME_BELIEF_N on SME_B
+# beliefs: the pack/unpack round trip, every covariance interpolated at
+# SME_BELIEF_T positive definite, one covariance that is not (row
+# SME_NONPD_ROW) NaN in its own row only (F9); (c) the topomaps on
+# manip_3r3r at SME_B configurations q ~ U(±2.8)⁶: the direct map, the
+# lift, the closed-form inverse's round trip (≤ SME_ROUND_TRIP_BAR), the
+# CLIK fallback from q + U(±0.05) (≥ 99 % below SME_CLIK_BAR, PR 11's
+# bar); (d) the planners over the new spaces: the RRT through the gap world
+# of tests/test_topomaps_se2plan.py:80-106 and the belief RRT of
+# tests/test_belief_space.py:52-70; (e) examples/x8_planner.py's main at
+# its CLI defaults with both planners, and each planner again from
+# HostDraws(SME_SEED); (f) examples/crs_dynexec.py's main at its defaults.
+# The first SME_REF of each batch and (e)'s host-drawn runs are held to the
+# CPU child (--spaces-reference): values ≤ SME_REL_BAR relative (the CLIK
+# fallback's joints ≤ SME_CLIK_REL_BAR: 50 Gauss-Newton steps), the
+# planners' success, vertices and iterations equal, costs ≤ SME_REL_BAR.
+SME_B, SME_REF, SME_FRACS, SME_SEED = 8192, 256, 64, 0
+SME_SE2 = {
+    "se2_0": dict(pos_lower=[-1.0, -1.0], pos_upper=[1.0, 1.0]),
+    "se2_1": dict(pos_lower=[-5.0, -5.0], pos_upper=[5.0, 5.0], order=1,
+                  max_speed=2.0, max_ang_speed=1.0, max_acc=4.0,
+                  max_ang_acc=2.0),
+    "se2_2": dict(pos_lower=[0.0, 0.0], pos_upper=[1.0, 1.0], order=2,
+                  max_speed=1.0, max_ang_speed=1.0, max_acc=3.0,
+                  max_ang_acc=2.0),
+    "flat_se2": dict(pos_lower=[0.0, 0.0], pos_upper=[1.0, 1.0],
+                     rot_weight=0.1),
+}
+SME_SE3 = {
+    "se3_0": dict(pos_lower=[-1.0] * 3, pos_upper=[1.0] * 3),
+    "se3_1": dict(pos_lower=[-1.0] * 3, pos_upper=[1.0] * 3, order=1,
+                  max_speed=2.0, max_ang_speed=1.0),
+    "se3_2": dict(pos_lower=[0.0] * 3, pos_upper=[1.0] * 3, order=2,
+                  max_speed=1.0, max_ang_speed=1.0, max_acc=3.0,
+                  max_ang_acc=2.0),
+}
+SME_F21 = np.pi * np.array([1.0, -1.0, 3.0, -3.0])
+SME_BELIEF_N, SME_BELIEF_T, SME_NONPD_ROW = 12, (0.0, 0.25, 0.5, 0.75,
+                                                 1.0), 5
+SME_ROUND_TRIP_BAR, SME_CLIK_BAR, SME_CLIK_SHARE = 1e-9, 1e-6, 0.99
+# unpack adds 1e-9 to the square-root factor's diagonal (and pack 1e-12 to
+# the covariance's), so the belief round trip moves the diagonal by ~1e-9
+SME_BELIEF_ROUND_TRIP_BAR = 2e-9
+SME_REL_BAR, SME_CLIK_REL_BAR = 1e-12, 1e-9
+SME_X8 = ("rrt_star", "sbastar")
+# residuals at rounding level, checked against their bars, not the CPU's
+SME_RESIDUALS = ("topo_round_trip0", "topo_clik_err0")
+
+
+def sme_ref_path():
+    """Where the --spaces-reference child saves its references."""
+    from reak_tpu_torch.ops import _build
+
+    return _build.BUILD_DIR / "spaces_reference.npz"
+
+
+def sme_draws(batch=SME_B):
+    """Phase spaces_meaqr_examples' inputs, numpy seed SME_SEED: per space
+    the fields of the pairs' ends a, b and of the points p that clamp
+    takes (positions in and around the bounds, headings in (−3π, 3π),
+    rates up to 1.5 times their limits; F21's headings in the first four
+    a's, b = 0 there, and the first four p's); the beliefs (means in and
+    past [0, 10]¹², SPD covariances) and the arm's configurations, rates
+    and CLIK starts."""
+    rng = np.random.default_rng(SME_SEED)
+    d = {}
+    for name, cfg in {**SME_SE2, **SME_SE3}.items():
+        lo, hi = np.asarray(cfg["pos_lower"]), np.asarray(cfg["pos_upper"])
+        order = cfg.get("order", 0)
+        for end in ("a", "b", "p"):
+            pos = lo + rng.uniform(-0.2, 1.2, (batch, lo.size)) * (hi - lo)
+            fields = [pos]
+            if name.startswith(("se2", "flat")):
+                theta = np.pi * rng.uniform(-3.0, 3.0, batch)
+                theta[:4] = 0.0 if end == "b" else SME_F21
+                fields.append(theta)
+                lim = (("max_speed", 2), ("max_ang_speed", ()),
+                       ("max_acc", 2), ("max_ang_acc", ()))
+            else:
+                fields.append(rng.standard_normal((batch, 4)))
+                lim = (("max_speed", 3), ("max_ang_speed", 3),
+                       ("max_acc", 3), ("max_ang_acc", 3))
+            for key, shape in lim[:2 * order]:
+                shape = (batch,) + ((shape,) if shape else ())
+                fields.append(1.5 * cfg[key] * rng.uniform(-1.0, 1.0, shape))
+            if name.startswith("se3") and end != "p":
+                fields[1] /= np.linalg.norm(fields[1], axis=1, keepdims=True)
+            for i, f in enumerate(fields):
+                d[f"{name}_{end}{i}"] = f
+    n = SME_BELIEF_N
+    for end in ("a", "b"):
+        d[f"belief_mean_{end}"] = rng.uniform(-1.0, 11.0, (batch, n))
+        g = 0.3 * rng.standard_normal((batch, n, n))
+        d[f"belief_cov_{end}"] = g @ np.swapaxes(g, -1, -2) + 0.05 * np.eye(n)
+    d["topo_q"] = rng.uniform(-2.8, 2.8, (batch, 6))
+    d["topo_qd"] = rng.uniform(-1.0, 1.0, (batch, 6))
+    d["topo_seed"] = d["topo_q"] + 0.05 * rng.uniform(-1.0, 1.0, (batch, 6))
+    return d
+
+
+def sme_space(name, device):
+    from reak_tpu_torch import spaces
+
+    kw = dict({**SME_SE2, **SME_SE3}[name], device=device)
+    lo, hi = kw.pop("pos_lower"), kw.pop("pos_upper")
+    if name == "flat_se2":
+        return spaces.FlatSE2Space(lo, hi, **kw)
+    make = spaces.make_se2_space if name.startswith("se2") \
+        else spaces.make_se3_space
+    return make(lo, hi, **kw)
+
+
+def sme_point(name, d, end, device, n):
+    """The point record (or FlatSE2 tensor) of ``end`` from the draws, its
+    first ``n`` rows, as float64 on ``device``."""
+    from reak_tpu_torch.spaces import se2, se3
+
+    fields = []
+    while f"{name}_{end}{len(fields)}" in d:
+        fields.append(torch.as_tensor(d[f"{name}_{end}{len(fields)}"][:n],
+                                      dtype=torch.float64, device=device))
+    if name == "flat_se2":
+        return torch.cat([fields[0], fields[1][:, None]], dim=1)
+    order = {**SME_SE2, **SME_SE3}[name].get("order", 0)
+    kind = (se2, "SE2Point") if name.startswith("se2") else (se3, "SE3Point")
+    return getattr(kind[0], kind[1] + ("", "1", "2")[order])(*fields)
+
+
+def sme_outputs(d, device, n=None):
+    """(a)-(c) on the first ``n`` draws (all by default): {key: tensor}
+    and, for the card, each part's ms."""
+    from reak_tpu_torch import spaces
+    from reak_tpu_torch.ctrl.belief import GaussianBelief
+    from reak_tpu_torch.kte import ik, models
+
+    n = n or SME_B
+    on = lambda a: torch.as_tensor(a[:n], dtype=torch.float64,
+                                   device=device)
+    fracs = torch.as_tensor(np.linspace(0.0, 1.0, SME_FRACS),
+                            dtype=torch.float64, device=device)[:, None]
+    out, ms = {}, {}
+
+    def put(key, value):
+        for i, v in enumerate(value if isinstance(value, tuple)
+                              else (value,)):
+            out[f"{key}{i}"] = v
+
+    for name in {**SME_SE2, **SME_SE3}:
+        sp = sme_space(name, device)
+        a, b, p = (sme_point(name, d, e, device, n) for e in ("a", "b", "p"))
+        t0 = time.perf_counter()
+        put(f"{name}_distance", sp.distance(a, b))
+        put(f"{name}_difference", sp.difference(a, b))
+        put(f"{name}_clamp", sp.clamp(p))
+        put(f"{name}_interp", sp.interpolate(a, b, fracs))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    bel = spaces.GaussianBeliefSpace(np.zeros(SME_BELIEF_N),
+                                     np.full(SME_BELIEF_N, 10.0),
+                                     sigma_range=(0.1, 1.0), device=device)
+    t0 = time.perf_counter()
+    xa, xb = (bel.pack(GaussianBelief(on(d[f"belief_mean_{e}"]),
+                                      on(d[f"belief_cov_{e}"])))
+              for e in ("a", "b"))
+    ua = bel.unpack(xa)
+    put("belief_pack", (xa, xb))
+    put("belief_unpack", (ua.mean, ua.cov))
+    put("belief_distance", bel.distance(xa, xb))
+    put("belief_clamp", bel.clamp(xa))
+    for i, t in enumerate(SME_BELIEF_T):
+        put(f"belief_interp_pd_{i}", torch.linalg.cholesky_ex(
+            bel.unpack(bel.interpolate(xa, xb, t)).cov)[1] == 0)
+    put("belief_round_trip", bel.pack(ua))
+    cov = on(d["belief_cov_a"]).clone()
+    cov[SME_NONPD_ROW] -= 2.0 * torch.eye(SME_BELIEF_N, dtype=cov.dtype,
+                                          device=device)
+    put("belief_nonpd", bel.pack(GaussianBelief(on(d["belief_mean_a"]), cov)))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms["belief"] = (time.perf_counter() - t0) * 1e3
+    spec = models.manip_3r3r()
+    dk = spaces.DirectKinTopoMap(spec, device=device)
+    t0 = time.perf_counter()
+    pose = dk(on(d["topo_q"]))
+    put("topo_direct", tuple(pose))
+    put("topo_lift", tuple(dk.lift(on(d["topo_q"]), on(d["topo_qd"]))))
+    q_cf = spaces.InverseKinTopoMap(spec, solver=ik.ik_3r3r, device=device,
+                                    shoulder=1.0, elbow=1.0, wrist=1.0)(pose)
+    put("topo_inverse", q_cf)
+    back = dk(q_cf)
+    quat_err = torch.minimum((back.quat - pose.quat).norm(dim=-1),
+                             (back.quat + pose.quat).norm(dim=-1))
+    put("topo_round_trip", torch.maximum(
+        (back.pos - pose.pos).norm(dim=-1), quat_err))
+    q_clik = spaces.InverseKinTopoMap(spec, device=device)(
+        pose, q0=on(d["topo_seed"]))
+    put("topo_clik", q_clik)
+    put("topo_clik_err", torch.func.vmap(
+        lambda q, p, qt: ik.pose_error(spec, q, p, qt))(
+            q_clik, pose.pos, pose.quat).norm(dim=-1))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms["topomaps"] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def sme_x8_runs(device):
+    """(e)'s planners from HostDraws(SME_SEED) at the example's defaults:
+    per planner [success, vertices, iterations, cost] and its path."""
+    from reak_tpu_torch.examples import x8_planner as x8
+    from reak_tpu_torch.planning import draws
+
+    out = {}
+    for planner in SME_X8:
+        cfg = dict(x8.DEFAULTS, planner=planner, device=str(device),
+                   seed=draws.HostDraws(SME_SEED))
+        r = x8.plan(cfg)[2]
+        out[f"x8_{planner}_stats"] = np.array(
+            [r.success, r.n_vertices, r.n_iterations, r.cost], np.float64)
+        out[f"x8_{planner}_path"] = np.zeros((0, 0)) if r.path is None \
+            else np.asarray(r.path, np.float64)
+    return out
+
+
+def spaces_meaqr_references(path):
+    """``--spaces-reference``: phase spaces_meaqr_examples' references on
+    CPU tensors, one thread, beside the other children: (a)-(c) on the
+    first SME_REF draws and (e)'s host-drawn planners.  Saved to
+    ``path``."""
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out, _ = sme_outputs(sme_draws(), "cpu", SME_REF)
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, **{f"sme_{k}": v.numpy() for k, v in out.items()},
+             **sme_x8_runs("cpu"), seconds=time.perf_counter() - t0)
+    os.replace(tmp, path)
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sme_planners(dev):
+    """(d): the RRT through the gap world on FlatSE2Space and the belief
+    RRT, each from a CUDA generator seeded SME_SEED, at the JAX tests'
+    settings; per run its success, vertices, checks and ms."""
+    from reak_tpu_torch import planning, spaces
+    from reak_tpu_torch.ctrl.belief import GaussianBelief
+    from reak_tpu_torch.planning.queries import PlanningQuery
+
+    grid = np.ones((64, 64), bool)
+    grid[30:34, :] = False          # wall across x ≈ 0.5 ...
+    grid[30:34, 24:40] = True       # ... with a gap around y ≈ 0.5
+    flat = spaces.FlatSE2Space(np.zeros(2), np.ones(2), rot_weight=0.1,
+                               device=dev)
+    ws = planning.bitmap_workspace(flat, grid, np.zeros(2), np.ones(2))
+    q = PlanningQuery(np.array([0.1, 0.5, 3.0]), np.array([0.9, 0.5, -3.0]),
+                      goal_tolerance=0.08)
+    gen = torch.Generator(dev).manual_seed(SME_SEED)
+    r, t_ms = timed(lambda: planning.rrt_plan(ws, q, max_iters=150,
+                                              step_size=0.12, seed=gen))
+    out = {"flat_se2_rrt": {"success": r.success, "vertices": r.n_vertices,
+                            "waves": r.n_iterations, "ms": t_ms}}
+    if r.success:
+        path = np.asarray(r.path)
+        dth = np.abs(((path[1:, 2] - path[:-1, 2]) + np.pi) % (2 * np.pi)
+                     - np.pi)
+        out["flat_se2_rrt"].update(
+            path_free=bool(ws.is_free_batch(torch.as_tensor(
+                path, device=dev)).all()),
+            headings_wrapped=bool(np.all(np.abs(path[:, 2]) <= np.pi)),
+            heading_travel=float(dth.sum()))
+    bel = spaces.GaussianBeliefSpace(np.zeros(2), np.full(2, 10.0),
+                                     sigma_range=(0.1, 1.0), device=dev)
+    free = lambda x: torch.diagonal(bel.unpack(x).cov, dim1=-2,
+                                    dim2=-1).sum(-1) < 1.5
+    ws_b = planning.Workspace(bel, free, n_checks=8)
+    eye = torch.eye(2, dtype=torch.float64, device=dev)
+    start, goal = (bel.pack(GaussianBelief(torch.tensor(
+        m, dtype=torch.float64, device=dev), 0.04 * eye)).cpu().numpy()
+        for m in ([1.0, 1.0], [9.0, 9.0]))
+    gen = torch.Generator(dev).manual_seed(SME_SEED)
+    r, t_ms = timed(lambda: planning.rrt_plan(
+        ws_b, PlanningQuery(start, goal, goal_tolerance=2.0), max_iters=40,
+        step_size=3.0, seed=gen))
+    out["belief_rrt"] = {"success": r.success, "vertices": r.n_vertices,
+                         "waves": r.n_iterations, "ms": t_ms}
+    if r.success:
+        out["belief_rrt"]["path_free"] = bool(free(torch.as_tensor(
+            np.asarray(r.path), device=dev)).all())
+    return out
+
+
+def sme_examples(dev):
+    """(e) and (f) on the card: x8_planner.main at its CLI defaults per
+    planner (its printed JSON), crs_dynexec.main at its defaults on a free
+    port, its output written under the build directory (its printed
+    lines and the recorded rows)."""
+    import contextlib
+    import io
+
+    from reak_tpu_torch.examples import crs_dynexec, x8_planner
+    from reak_tpu_torch.ops import _build
+
+    out = {}
+    for planner in SME_X8:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = x8_planner.main([f"--planner={planner}"])
+        out[f"x8_{planner}"] = {"rc": rc, **json.loads(
+            buf.getvalue().strip().splitlines()[-1]),
+            "seconds": time.perf_counter() - t0}
+    plan_csv = _build.BUILD_DIR / "crs_dynexec_plan.csv"
+    if plan_csv.exists():
+        plan_csv.unlink()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = crs_dynexec.main([f"--port={_free_port()}",
+                               f"--output={plan_csv}"])
+    text = buf.getvalue()
+    rows = plan_csv.read_text().strip().splitlines() if plan_csv.exists() \
+        else []
+    out["crs_dynexec"] = {
+        "rc": rc, "seconds": time.perf_counter() - t0,
+        "lines": text.strip().splitlines(),
+        "rows_streamed": "40 rows streamed" in text,
+        "intercept_planned": "intercept planned" in text,
+        "all_clear": "all clear of the moving target body: True" in text,
+        "recorded_rows": max(len(rows) - 1, 0)}
+    return out
+
+
+def spaces_meaqr_examples(card, dev):
+    """Phase spaces_meaqr_examples, on the card (slice 15): (a)-(f) above.
+    It launches no kernel, so it runs beside the build.  Returns
+    ``finish(refs)``, which holds the first SME_REF rows and (e)'s
+    host-drawn planners to the CPU child's ``spaces_meaqr_references``,
+    prints the phase and checks it."""
+    t_phase = time.perf_counter()
+    ph = {"phase": "spaces_meaqr_examples", "card": card, "B": SME_B,
+          "fracs": SME_FRACS, "dtype": "float64"}
+    d = sme_draws()
+    out, ph["ms"] = sme_outputs(d, dev)
+    # F21: ±π and ±3π (the first four a's and p's, b's heading 0) wrap to
+    # π in the clamp and the difference
+    f21 = {}
+    for name in SME_SE2:
+        heading = out["flat_se2_clamp0"][:4, 2] if name == "flat_se2" \
+            else out[f"{name}_clamp1"][:4]
+        diff = out[f"{name}_difference0"][:4, 2]
+        f21[name] = [float(heading.min()), float(diff.min()),
+                     float(heading.max()), float(diff.max())]
+    ph["f21_min_max"] = f21
+    ph["belief"] = {
+        "round_trip_max_abs": abs_err(out["belief_round_trip0"],
+                                      out["belief_pack0"]),
+        "interpolations_pd": [bool(out[f"belief_interp_pd_{i}0"].all())
+                              for i in range(len(SME_BELIEF_T))],
+        "nonpd_row_nan": bool(torch.isnan(
+            out["belief_nonpd0"][SME_NONPD_ROW, SME_BELIEF_N:]).all()),
+        "other_rows_equal": bool(torch.equal(
+            torch.cat([out["belief_nonpd0"][:SME_NONPD_ROW],
+                       out["belief_nonpd0"][SME_NONPD_ROW + 1:]]),
+            torch.cat([out["belief_pack0"][:SME_NONPD_ROW],
+                       out["belief_pack0"][SME_NONPD_ROW + 1:]])))}
+    err = out["topo_clik_err0"]
+    ph["topomaps"] = {
+        "round_trip_max": float(out["topo_round_trip0"].max()),
+        "clik_share_below": float((err < SME_CLIK_BAR).double().mean()),
+        "clik_max_err": float(err.max()),
+        "finite": all(bool(torch.isfinite(out[k]).all()) for k in out
+                      if k.startswith("topo_"))}
+    ph["planners"] = sme_planners(dev)
+    card_x8 = sme_x8_runs(dev)
+    ph["examples"] = sme_examples(dev)
+    ph["seconds"] = time.perf_counter() - t_phase
+    card_out = {k: (v[:, :SME_REF] if k.endswith(tuple(
+        f"_interp{i}" for i in range(6))) else v[:SME_REF]).cpu()
+        for k, v in out.items() if not k.startswith(("belief_interp_pd",
+                                                    "belief_nonpd"))}
+    return lambda refs: _sme_finish(ph, card_out, card_x8, refs)
+
+
+def _sme_finish(ph, card_out, card_x8, refs):
+    """spaces_meaqr_examples' comparisons with the CPU child, its line and
+    its checks."""
+    rel = {}
+    for k, v in card_out.items():
+        if k in SME_RESIDUALS:
+            continue
+        ref = torch.as_tensor(refs[f"sme_{k}"])
+        if v.dtype == torch.bool:
+            rel[k] = float(not torch.equal(v, ref))
+        elif float(ref.abs().max()) == 0.0:
+            rel[k] = float(v.abs().max())
+        else:
+            rel[k] = rel_err(v, ref)
+    ph["worst_rel_vs_cpu"] = dict(sorted(
+        ((k, v) for k, v in rel.items() if k != "topo_clik0"),
+        key=lambda kv: -kv[1])[:4])
+    ph["clik_rel_vs_cpu"] = rel["topo_clik0"]
+    x8_cmp = {}
+    for planner in SME_X8:
+        got, want = (r[f"x8_{planner}_stats"] for r in (card_x8, refs))
+        p_got, p_want = (r[f"x8_{planner}_path"] for r in (card_x8, refs))
+        x8_cmp[planner] = {
+            "success": bool(got[0]), "vertices": int(got[1]),
+            "iterations": int(got[2]), "cost": float(got[3]),
+            "counts_equal": bool(np.array_equal(got[:3], want[:3])
+                                 and p_got.shape == p_want.shape),
+            "cost_rel": float(abs(got[3] - want[3]) / abs(want[3]))
+            if np.isfinite(want[3]) else float(got[3] != want[3]),
+            "path_rel": float(np.abs(p_got - p_want).max()
+                              / np.abs(p_want).max())
+            if p_got.shape == p_want.shape and p_want.size else 0.0}
+    ph["x8_host_draws_vs_cpu"] = x8_cmp
+    ph["cpu_reference_seconds"] = float(refs["seconds"])
+    emit(ph)
+    for k, e in rel.items():
+        bar = SME_CLIK_REL_BAR if k == "topo_clik0" else SME_REL_BAR
+        check(e <= bar, f"spaces_meaqr_examples {k} against the CPU: {e}")
+    for name, (h_lo, d_lo, h_hi, d_hi) in ph["f21_min_max"].items():
+        check(min(h_lo, d_lo) > 0.0 and abs(h_lo - np.pi) <= 1e-12
+              and abs(d_lo - np.pi) <= 1e-12,
+              f"F21: {name}'s headings at ±π, ±3π: {ph['f21_min_max']}")
+    b = ph["belief"]
+    check(b["round_trip_max_abs"] <= SME_BELIEF_ROUND_TRIP_BAR
+          and all(b["interpolations_pd"])
+          and b["nonpd_row_nan"] and b["other_rows_equal"],
+          f"spaces_meaqr_examples belief space: {b}")
+    t = ph["topomaps"]
+    check(t["finite"] and t["round_trip_max"] <= SME_ROUND_TRIP_BAR
+          and t["clik_share_below"] >= SME_CLIK_SHARE,
+          f"spaces_meaqr_examples topomaps: {t}")
+    fr, br = ph["planners"]["flat_se2_rrt"], ph["planners"]["belief_rrt"]
+    check(fr["success"] and fr["path_free"] and fr["headings_wrapped"]
+          and fr["heading_travel"] < 2.0, f"the FlatSE2 RRT: {fr}")
+    check(br["success"] and br["path_free"], f"the belief RRT: {br}")
+    for planner, c in x8_cmp.items():
+        check(c["counts_equal"] and c["cost_rel"] <= SME_REL_BAR
+              and c["path_rel"] <= SME_REL_BAR,
+              f"x8 {planner} from host draws differs from the CPU's: {c}")
+    ex = ph["examples"]
+    for planner in SME_X8:
+        check(ex[f"x8_{planner}"]["rc"] == 0
+              and ex[f"x8_{planner}"]["success"],
+              f"x8_planner --planner={planner}: {ex[f'x8_{planner}']}")
+    dx = ex["crs_dynexec"]
+    check(dx["rc"] == 0 and dx["rows_streamed"] and dx["intercept_planned"]
+          and dx["all_clear"] and dx["recorded_rows"] >= 2,
+          f"crs_dynexec: {dx}")
+
+
+def mesh_flagship(card, dev, solve, x0, u0, main_runs):
+    """Phase mesh_flagship (slice 15): phase times' flagship solve through
+    ``parallel.mesh`` on a one-process NCCL group — ``sharded_map`` of the
+    solve with ``pmean_scalar`` of mean(us²) (the JAX package's
+    ``local_step``, tests/test_mesh_equivalence.py:36-56) — against the
+    unsharded solve of the same x0: controls bit for bit, the scalar
+    equal, exactly H K1 and one K2 launches; each timed.  One rank shows
+    the code path and the collective, not scaling."""
+    import torch.distributed as dist
+
+    from reak_tpu_torch import parallel
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    check(parallel.distribute_init(f"127.0.0.1:{_free_port()}", 1, 0),
+          "distribute_init returned False with a coordinator")
+    try:
+        mesh = parallel.make_mesh()
+
+        def local_step(x0s, u0s):
+            us, _ = solve(x0s, u0s)
+            return us, torch.mean(us ** 2)
+
+        step = parallel.pmean_scalar(local_step, mesh)
+        xd, ud = parallel.shard_batch((x0, u0), mesh)
+        step(xd, ud)  # the group's first collective sets up its communicator
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        (us_d, mean_d), t_sharded = timed(lambda: step(xd, ud))
+        launches = counts()
+        main_runs["mesh_flagship"] = launches
+        (us, _), t_local = timed(lambda: solve(x0, u0))
+        mean_local = torch.mean(us ** 2)
+        row = {"phase": "mesh_flagship", "card": card, "B": B, "H": H,
+               "iters": ITERS, "dtype": "float32", "ranks": mesh.size(),
+               "backend": dist.get_backend(),
+               "note": "one rank: the code path and the collective, not "
+                       "scaling",
+               "launches": launches, "setup_s": setup_s,
+               "sharded_ms": t_sharded, "unsharded_ms": t_local,
+               "sharded_warm_ms": cuda_ms(lambda: step(xd, ud), reps=3),
+               "unsharded_warm_ms": cuda_ms(lambda: solve(x0, u0), reps=3),
+               "local_shape": list(us_d.to_local().shape),
+               "controls_bitwise": torch.equal(us_d.to_local(), us),
+               "mean_us2": float(mean_d.to_local()),
+               "mean_us2_bitwise": torch.equal(mean_d.to_local(),
+                                               mean_local)}
+    finally:
+        dist.destroy_process_group()
+    emit(row)
+    check(launches["kte_step"] == H and launches["pdip_whole"] == 1
+          and sum(launches.values()) == H + 1,
+          f"the sharded flagship's launches: {launches}")
+    check(row["controls_bitwise"] and row["mean_us2_bitwise"],
+          f"the sharded flagship differs from the unsharded solve: {row}")
+
+
 def trace_flagship(card, solve, x0, u0):
     """Part (c) of phase optimizers_geometry: io/profiling.device_trace
     around one warm flagship one-pass solve (phase times' configuration);
@@ -3162,6 +3711,7 @@ def main():
         early = {"optimizers_geometry": optimizers_geometry(card, dev),
                  "interp_spaces_io": interp_spaces_io(card, dev),
                  "planning": planning(card, dev, counts),
+                 "spaces_meaqr_examples": spaces_meaqr_examples(card, dev),
                  "stiff_suite": stiff_suite(dev),
                  "estimation_filters": estimation_filters(card, dev)}
         early_seconds = time.perf_counter() - t_early
@@ -3179,7 +3729,8 @@ def main():
         ref_path.unlink()
     ops_path = _build.BUILD_DIR / "op_counts.npz"
     children = {}
-    for key, path in (("cpu_reference", ref_path), ("op_counts", ops_path)):
+    for key, path in (("cpu_reference", ref_path), ("op_counts", ops_path),
+                      ("spaces_reference", sme_ref_path())):
         if path.exists():
             path.unlink()
         with open(_build.BUILD_DIR / f"{key}.log", "w") as log:
@@ -4354,11 +4905,13 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
     og_finish = early["optimizers_geometry"]
     isi_finish = early["interp_spaces_io"]
     pl_finish = early["planning"]
+    sme_finish = early["spaces_meaqr_examples"]
     clik_share = arms_ik_integrators(card, dev, cpu_refs, reset_counts,
                                      counts, main_runs, early["stiff_suite"])
     og_finish(cpu_refs(), clik_share)
     isi_finish(cpu_refs())
     pl_finish(cpu_refs())
+    sme_finish(child_result("spaces_reference", sme_ref_path())[0])
     estimation(card, dev, cpu_refs, step_k, k64, x_np, u_np, reset_counts,
                counts, main_runs, early["estimation_filters"])
     refs, ref_wait = cpu_refs(), waited["s"]
@@ -5147,6 +5700,7 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
           "k2_wide_ms": k2w["ms"], "k2_wide_plain_ms": k2w["plain_ms"]})
 
     trace_flagship(card, solve, x0_32, u0_32)
+    mesh_flagship(card, dev, solve, x0_32, u0_32, main_runs)
 
     # launches over the main-path runs (flagship one and two passes,
     # satellite on K2 and on the passes, floating arm, the long-horizon
@@ -5206,4 +5760,6 @@ if __name__ == "__main__":
         sys.exit(cpu_reference(sys.argv[2]))
     if sys.argv[1:2] == ["--op-counts"]:
         sys.exit(op_count_process(sys.argv[2]))
+    if sys.argv[1:2] == ["--spaces-reference"]:
+        sys.exit(spaces_meaqr_references(sys.argv[2]))
     sys.exit(main())

@@ -19,12 +19,11 @@ The Gramians and transition matrices are tabulated on a fixed time grid at
 construction, so distance and interpolation are table lookups and small
 batched products, on the device of the matrices given: the device of ``A``
 where it is a tensor, else ``device`` (the card unless the caller asks for
-the CPU, as the JAX classes land on the default accelerator).
-
-Not yet ported: the planners over a MEAQR space
-(``meaqr_rrt_star_plan``, ``meaqr_sbastar_plan``,
-``reak_tpu/ctrl/aqr_space.py:246-257``) wait for the port's planning
-stack.
+the CPU, as the JAX classes land on the default accelerator).  The
+planners over a MEAQR space (``meaqr_rrt_star_plan``,
+``meaqr_sbastar_plan``; ref: misc/MEAQR_rrtstar_planner.hpp:78,
+misc/MEAQR_sbastar_planner.hpp:85) are the port's ``planning`` planners on
+an ``AQRWorkspace``.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ import numpy as np
 import torch
 
 from reak_tpu_torch.math.are import solve_care
-from reak_tpu_torch.math.linalg import _inv, _solve
+from reak_tpu_torch.math.linalg import _inv, _lu_factor, _lu_solve, _solve
 
 
 def _matrix(A, device):
@@ -123,22 +122,22 @@ class MEAQRSpace(_BoxSpace):
         # regularize the Gramian at tiny T (G(0) = 0 is singular)
         self.Gs_reg = self.Gs + 1e-9 * torch.eye(n, dtype=A.dtype,
                                                  device=A.device)
+        self._G_lu = _lu_factor(self.Gs_reg)
 
     # -- MEAQR cost --------------------------------------------------------
     def _costs_over_grid(self, a, b):
         """Cost (n_grid+1, ...) of every horizon T on the grid (index 0 =
-        ∞): one batched solve over the grid and the points."""
-        lead = (1,) * (a.ndim - 1)
-        xbar = (torch.einsum("tij,...j->t...i", self.Phis, a)
-                + self.ds.reshape((self.ds.shape[0],) + lead + (-1,)))
-        e = b[None] - xbar                                  # (T, ..., n)
-        G = self.Gs_reg.reshape((self.Gs_reg.shape[0],) + lead
-                                + self.Gs_reg.shape[1:])
-        Ge = _solve(G, e[..., None])[..., 0]
-        energy = torch.einsum("t...i,t...i->t...", e, Ge)
-        cost = energy + self.time_weight * self.times.reshape(
-            (self.times.shape[0],) + lead)
-        return torch.cat([torch.full_like(cost[:1], float("inf")), cost[1:]])
+        ∞).  The pairs are the columns of one (n, pairs) matrix, so each
+        grid point is one product and one solve with the pairs as its
+        right-hand sides, on the Gramian's factor made at construction."""
+        lead = a.shape[:-1]
+        n = a.shape[-1]
+        e = (b.reshape(-1, n).T - self.Phis @ a.reshape(-1, n).T
+             - self.ds[..., None])                          # (T, n, pairs)
+        energy = torch.sum(e * _lu_solve(*self._G_lu, e), dim=1)
+        cost = energy + self.time_weight * self.times[:, None]
+        cost = torch.cat([torch.full_like(cost[:1], float("inf")), cost[1:]])
+        return cost.reshape((cost.shape[0],) + lead)
 
     def distance(self, a, b):
         """Minimum-energy quasi-metric, broadcast over leading axes of a and
@@ -223,9 +222,30 @@ class AQRWorkspace:
         return self._is_free(pts)
 
     def edge_free_batch(self, a, b):
-        ts = torch.linspace(0.0, 1.0, self.n_checks, dtype=a.dtype,
-                            device=a.device)
+        """Each edge free at ``n_checks`` points of its system trajectory,
+        at numpy's ``linspace`` fractions (``jnp.linspace``'s bits: the
+        interpolation floors ``t`` times a grid index)."""
+        from reak_tpu_torch.planning.workspace import fractions
+
+        ts = fractions(self.n_checks, a)
         pts = torch.stack([self.space.interpolate(a, b, t.expand(a.shape[0]))
                            for t in ts], dim=1)          # (K, C, n)
         free = self._is_free(pts.reshape(-1, pts.shape[-1]))
         return torch.all(free.reshape(a.shape[0], self.n_checks), dim=-1)
+
+
+def meaqr_rrt_star_plan(space: MEAQRSpace, is_free_fn, query, **kw):
+    """RRT* over a MEAQR topology (ref: MEAQR_rrtstar_planner.hpp:78);
+    ``kw`` goes to ``planning.rrt_star.rrt_star_plan`` (``seed``, a draw
+    object or an int, ``max_iters``, ``capacity``, ...)."""
+    from reak_tpu_torch.planning.rrt_star import rrt_star_plan
+
+    return rrt_star_plan(AQRWorkspace(space, is_free_fn), query, **kw)
+
+
+def meaqr_sbastar_plan(space: MEAQRSpace, is_free_fn, query, **kw):
+    """SBA* over a MEAQR topology (ref: MEAQR_sbastar_planner.hpp:85);
+    ``kw`` goes to ``planning.sbastar.sbastar_plan``."""
+    from reak_tpu_torch.planning.sbastar import sbastar_plan
+
+    return sbastar_plan(AQRWorkspace(space, is_free_fn), query, **kw)

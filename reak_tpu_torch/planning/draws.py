@@ -24,15 +24,16 @@ import torch
 
 def space_like(space):
     """(device, dtype) of a space's bounds: the first tensor among its
-    ``lower``, ``center``, ``base`` or ``spaces``; the CPU in float64 for a
-    space that holds none."""
-    for name in ("lower", "center"):
+    ``lower``, ``center``, ``mean_lower``, ``base``, ``pos_space`` or
+    ``spaces``; the CPU in float64 for a space that holds none."""
+    for name in ("lower", "center", "mean_lower"):
         x = getattr(space, name, None)
         if isinstance(x, torch.Tensor):
             return x.device, x.dtype
-    base = getattr(space, "base", None)
-    if base is not None:
-        return space_like(base)
+    for name in ("base", "pos_space"):
+        inner = getattr(space, name, None)
+        if inner is not None:
+            return space_like(inner)
     for s in getattr(space, "spaces", ()):
         return space_like(s)
     return torch.device("cpu"), torch.float64

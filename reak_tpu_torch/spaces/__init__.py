@@ -1,5 +1,5 @@
 """Metric spaces / topologies for sampling-based planning and interpolation
-(port of ``reak_tpu/spaces``, seven of its eleven files).
+(port of ``reak_tpu/spaces``).
 
 A re-design of the reference's configuration-space library
 (ref: ctrl/topologies/* — metric_space_concept.hpp, differentiable_space.hpp:220,
@@ -17,14 +17,18 @@ A space is a small value object exposing functions over tensor "points":
 Points are plain tensors (leading batch axes everywhere), so planners batch
 thousands of distance/steer evaluations per call.  ``sample`` takes a
 ``torch.Generator`` where the JAX package takes a PRNG key.
-
-Not ported yet (they wait for the planners of a later slice, their only
-consumers): ``spaces/se2``, ``se3``, ``belief`` and ``topomaps``.
 """
 from reak_tpu_torch.spaces.base import Space, ProductSpace
 from reak_tpu_torch.spaces.vector import (HyperboxSpace, HyperballSpace,
                                           NdofSpace, LineSpace)
 from reak_tpu_torch.spaces.so3 import SO3Space
+from reak_tpu_torch.spaces.se3 import (SE3Space, SE31stOrderSpace,
+                                       SE32ndOrderSpace, make_se3_space)
+from reak_tpu_torch.spaces.se2 import (SE2Space, SE21stOrderSpace,
+                                       SE22ndOrderSpace, FlatSE2Space,
+                                       make_se2_space)
+from reak_tpu_torch.spaces.topomaps import DirectKinTopoMap, InverseKinTopoMap
+from reak_tpu_torch.spaces.belief import GaussianBeliefSpace
 from reak_tpu_torch.spaces.temporal import TemporalSpace
 from reak_tpu_torch.spaces.rate_limited import (RateLimitedNdofSpace,
                                                 joint_limits_mapping)
@@ -48,6 +52,18 @@ __all__ = [
     "NdofSpace",
     "LineSpace",
     "SO3Space",
+    "SE3Space",
+    "SE31stOrderSpace",
+    "SE32ndOrderSpace",
+    "make_se3_space",
+    "SE2Space",
+    "SE21stOrderSpace",
+    "SE22ndOrderSpace",
+    "FlatSE2Space",
+    "make_se2_space",
+    "DirectKinTopoMap",
+    "InverseKinTopoMap",
+    "GaussianBeliefSpace",
     "TemporalSpace",
     "RateLimitedNdofSpace",
     "joint_limits_mapping",
