@@ -173,6 +173,10 @@ second child (``--op-counts``) counts the plain versions' operations that
 the bounds of the wide and long calls need (``op_counts``), and a third
 (``--spaces-reference``) makes phase ``spaces_meaqr_examples``'
 references.
+Line ``k2_phases`` times the whole-solve PDIP (its TMA pipeline) at the
+flagship's shape at 0, 1, 2 and 8 iterations: the fit's slope is one
+iteration, its intercept the two rollouts (``python3 -m
+reak_tpu_torch.ops.k2_phases`` splits an iteration by phase).
 Each phase prints one JSON line; the card's name and power limit follow as
 ``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
 with its launches on the main paths, its time per launch beside its plain
@@ -217,6 +221,9 @@ BUILD_LONGEST_FIRST = (
     "kte_step@6x6_f64")
 # K2's iterations in phase past_the_caps' f32 device-memory case
 PTC_F32_DEVICE_ITERS = 2
+# the iteration counts of the k2_phases line: K2 at the flagship's shape
+# at each, the fit's slope one iteration and its intercept the rollouts
+K2_PHASE_ITERS = (0, 1, 2, 8)
 # the 16-segment flexible beam (kte/models.flexible_beam): n=32, m=16; its
 # fastest mode is overdamped at |λ| ≈ 5.1e5 /s, and the order-4 series is
 # stable for |λ| dt ≤ 2.78
@@ -555,15 +562,24 @@ def chol_rows_plain(G, rhs):
 
 
 def k2_design_bytes(horizon, n, m, batch, iters, itemsize):
-    """The device-memory traffic of the whole-solve kernel as designed, which
-    keeps its working set in a scratch buffer: per iteration, scenario and
-    stage it reads A and B four times (fused reverse, affine forward,
-    corrector reverse, corrector forward), writes K once and reads it three
-    times, writes and reads the packed factor once, and sweeps the (H, n)
-    trajectory arrays 6 times and the (H, m) iterate arrays 48 times over
-    its six phases.  The bound of the kernels line counts inputs and
+    """The device-memory traffic of the whole-solve kernel as designed (the
+    TMA pipeline of csrc/pdip_whole.cu), which keeps its working set in a
+    scratch buffer: per iteration, scenario and stage it streams A and B
+    four times (fused reverse, affine forward, corrector reverse, corrector
+    forward), writes K once and streams it three times, writes the packed
+    factor's lower triangle and streams its m × m box once; of the (H, m)
+    iterate arrays the reverse pass streams seven (u, the slacks and duals,
+    the step before) and writes seven (the updated five, the gradient,
+    k_aff), the affine forward pass streams five and writes one, the μ_aff
+    sweep reads five, the corrector reverse pass streams six and writes
+    one, and the corrector forward pass streams six and writes one (39 in
+    all, 48 before the sweeps were folded into the passes); of the (H, n)
+    trajectory arrays the reverse pass streams xs and dx and writes xs and
+    the corrector forward pass writes dx (4, 6 before).  The two rollouts
+    are not counted.  The bound of the kernels line counts inputs and
     outputs only; this is the floor of the design."""
-    values = (4 * (n * n + n * m) + 4 * m * n + m * (m + 1) + 6 * n + 48 * m)
+    values = (4 * (n * n + n * m) + 4 * m * n + m * (m + 1) // 2 + m * m
+              + 4 * n + 39 * m)
     return iters * horizon * batch * values * itemsize
 
 
@@ -3596,7 +3612,7 @@ def trace_flagship(card, solve, x0, u0):
            "device_events": len(on_device), "kernel_events": len(kernels),
            "k1_kernel_events": sum("kte_step_kernel" in e["name"]
                                    for e in kernels),
-           "k2_kernel_events": sum("pdip_whole_kernel" in e["name"]
+           "k2_kernel_events": sum("pdip_pipe_kernel" in e["name"]
                                    for e in kernels),
            "window_ms": (end - start) / 1e3, "device_busy_ms": busy / 1e3,
            "device_busy_share": busy / (end - start),
@@ -3792,7 +3808,7 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
             k4_lib = _build.instance_library("riccati_bwd", bd, suffix)
             for (nb, mb), exact in ((_tile.EXACT[bd], 1), (bd, 0)):
                 w = f"I{t}Li{nb}ELi{mb}ELb{exact}E"
-                wanted[f"pdip_whole<{w}>"] = (k2_lib, f"pdip_whole_kernel{w}")
+                wanted[f"pdip_whole<{w}>"] = (k2_lib, f"pdip_pipe_kernel{w}")
                 for e in riccati_bwd.launches:
                     wanted[f"riccati_bwd.{e}<{w}>"] = (k4_lib,
                                                        f"{e}_kernel{w}")
@@ -4418,7 +4434,11 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
                 *args, iters=ITERS, use_kernels=uk, **kw)
             for uk in ("whole", "never"))
         torch.cuda.synchronize()
+        k2_tile = _tile.k2_config(n_, m_, f64)
         case = {"exact_instance": tile.exact, "tile_scenarios": tile.scenarios,
+                "k2_tile_scenarios": k2_tile.scenarios,
+                "k2_batch": -(-batch // k2_tile.batch_quantum)
+                * k2_tile.batch_quantum,
                 "modes": list(keys) or ["regulator"],
                 "k2_f64_rel": {"u": rel_err(u_k, u_p), "xs": rel_err(x_k,
                                                                      x_p)},
@@ -5645,6 +5665,18 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
         A32, B32, c32, prob32.Q, prob32.QN, prob32.R, x0T32, prob32.u_min,
         prob32.u_max, iters=ITERS, use_kernels=uk)
     t_pdip = cuda_ms(lambda: pdip("whole"), reps=5)
+    # K2's time over its iterations: at 0 the two rollouts alone, the
+    # slope one iteration (the shipped kernel, CUDA events)
+    def k2_at(iters):
+        return riccati_soa.solve_box_mpc_riccati_soa_fused(
+            A32, B32, c32, prob32.Q, prob32.QN, prob32.R, x0T32,
+            prob32.u_min, prob32.u_max, iters=iters, use_kernels="whole")
+
+    k2_iters = {it: cuda_ms(lambda: k2_at(it), reps=5)
+                for it in K2_PHASE_ITERS}
+    k2_slope, k2_intercept = np.polyfit(K2_PHASE_ITERS,
+                                        [k2_iters[it] for it in
+                                         K2_PHASE_ITERS], 1)
     # the plain rollout (host-bound, ~40 s) was timed on phase 5's run
     t_pdip_p = cuda_ms(lambda: pdip("never"), reps=2)
     xk, uk = x0_32.T.contiguous(), u0_32[:, 0].T.contiguous()
@@ -5677,6 +5709,11 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
           / PEAK_BYTES_S * 1e3,
           "op_counts_seconds": float(op_count["npz"]["seconds"]),
           "waited_for_op_counts_seconds": op_count["waited_s"]})
+    emit({"phase": "k2_phases", "card": card, "B": B, "H": H, "n": N,
+          "m": M, "dtype": "float32", "ms_by_iters": k2_iters,
+          "iteration_ms": float(k2_slope), "rollouts_ms": float(k2_intercept),
+          "iteration_design_floor_ms": k2_design_bytes(H, N, M, B, 1, 4)
+          / PEAK_BYTES_S * 1e3})
     # the free-base and two-pass solves, each timed on its checked run
     emit({"phase": "times_slice2", "card": card, "dtype": "float32",
           "flagship_sqp2_ms": t_sqp2, "flagship_sqp2_solves_per_s":

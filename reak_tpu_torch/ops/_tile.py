@@ -1,6 +1,10 @@
 """The launch shapes of the tile kernels: the whole-solve PDIP
 (``csrc/pdip_whole.cu``) and the per-pass kernels (K4a–c of
-``csrc/riccati_bwd.cu``), all on ``csrc/riccati_tile.cuh``.
+``csrc/riccati_bwd.cu``).  ``pipe_config`` mirrors the whole-solve
+kernel's TMA pipeline on the compile-time widths (``pdip_whole.cu::Pipe``);
+``tile_config`` the tile of ``csrc/riccati_tile.cuh``, which the per-pass
+kernels run at every width and the whole-solve kernel past (32, 16);
+``k2_config`` picks the whole-solve kernel's.
 
 A block takes TS neighbouring scenarios × NB matrix columns.  ``tile_config``
 mirrors ``riccati_tile.cuh::Tile`` and, past the widest bound,
@@ -142,3 +146,100 @@ def tile_config(n: int, m: int, dtype,
     return TileConfig(bound=bound, widths=(nb, mb), exact=exact,
                       scenarios=ts, threads=ts * nb,
                       shared_bytes=size * (rows * ts + consts))
+
+
+# pdip_whole.cu::Pipe: stage slots in the ring, bytes of the mbarriers at
+# the head of shared memory, the SM's registers and shared memory
+RING = 3
+BAR_BYTES = 1024
+SM_REGISTERS = 65536
+SM_SHARED_BYTES = 233472
+
+
+@dataclass(frozen=True)
+class PipeConfig:
+    """One compile-time instance of the whole-solve kernel's TMA pipeline
+    for one type (``pdip_whole.cu::Pipe``)."""
+    bound: tuple     # the entry point's (NMAX, MMAX)
+    widths: tuple    # the instance's (NB, MB)
+    exact: bool
+    scenarios: int   # TS
+    consumers: int   # TS × NB threads
+    threads: int     # the consumers and the producer (a warp, or a
+                     # warpgroup where setmaxnreg moves its registers)
+    shared_bytes: int
+    realloc: bool    # setmaxnreg moves the producer's registers
+    size: int        # bytes a value
+    ring: int = RING
+    runtime: bool = False
+
+    def padded_batch(self, B: int) -> int:
+        """B rounded up to whole tiles: the scenario stride of the
+        scratch."""
+        return -(-B // self.scenarios) * self.scenarios
+
+    def blocks(self, B: int) -> int:
+        return -(-B // self.scenarios)
+
+    @property
+    def batch_quantum(self) -> int:
+        """The scenarios of 16 B: TMA takes a scenario-last array only where
+        its row of B values is a whole number of 16 B."""
+        return 16 // self.size
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds by shared memory (the SM's 228 KB, 1 KB of it
+        a block's reserve)."""
+        return SM_SHARED_BYTES // (self.shared_bytes + 1024)
+
+
+def _pipe_rows(nb: int, mb: int):
+    """Rows of TS values of the pipeline's regions: the work area, the
+    block's vectors and one ring slot; and the constants Q, QN, R."""
+    slot = nb * nb + 2 * nb * mb + mb * mb + 3 * nb + 8 * mb
+    work = nb * nb + 2 * nb * mb + mb * mb
+    return work, 5 * nb + 2 * mb, slot, 2 * nb * nb + mb * mb
+
+
+def pipe_config(n: int, m: int, dtype, ring: int = RING,
+                row_bytes: int = 128) -> PipeConfig:
+    """The pipeline instance of widths (n, m) within (32, 16) in ``dtype``
+    (``pdip_whole.cu::Pipe``): TS from 128 B rows up to NB = 12 and 64 B
+    above, halved while the mbarriers, Q, QN, R (rounded to 128 B), the
+    work area, the vectors and RING slots do not fit a block; TS × NB
+    consumers and one producer warp, or, where the consumers are whole
+    warpgroups and they and a warp at 255 registers would not fit the SM,
+    a producer warpgroup whose registers setmaxnreg gives the consumers
+    (each warpgroup enters with an equal share of the SM's registers).
+    ``ring`` other than ``RING`` and ``row_bytes`` (up to NB = 12) other
+    than 128 are for ``ops/tile_shapes.py``'s patched copies."""
+    size = {"f32": 4, "f64": 8}[type_suffix(dtype)]
+    bound = instance_for(n, m)
+    if bound is None:
+        raise ValueError(f"({n}, {m}) is past the widest compile-time "
+                         f"instance {INSTANCES[-1]}")
+    exact = (n, m) == EXACT[bound]
+    nb, mb = (n, m) if exact else bound
+    work, vec, slot, consts = _pipe_rows(nb, mb)
+    const_bytes = -(-consts * size // 128) * 128
+    rows = work + vec + ring * slot
+    ts = (row_bytes if nb <= 12 else 64) // size
+    while BAR_BYTES + const_bytes + rows * ts * size > MAX_SHARED_BYTES:
+        ts //= 2
+    consumers = ts * nb
+    realloc = (consumers % 128 == 0
+               and (consumers + 32) * 255 > SM_REGISTERS)
+    return PipeConfig(bound=bound, widths=(nb, mb), exact=exact,
+                      scenarios=ts, consumers=consumers,
+                      threads=consumers + (128 if realloc else 32),
+                      shared_bytes=BAR_BYTES + const_bytes + rows * ts * size,
+                      realloc=realloc, size=size, ring=ring)
+
+
+def k2_config(n: int, m: int, dtype):
+    """The whole-solve kernel's launch shape: the pipeline within
+    (32, 16), the runtime-width tile past it."""
+    if instance_for(n, m) is None:
+        return tile_config(n, m, dtype)
+    return pipe_config(n, m, dtype)

@@ -10,20 +10,26 @@ constrained LTV-MPC QP in one launch — the Hopper port of the Pallas kernel
 ``solve_plain`` (the scan path of ``ctrl/riccati_soa``).
 
 What bounds it on the H100 is the traffic of its own design: each of the
-eight iterations reads A and B four times and writes and re-reads the gains,
-the factors and the vectors through a device-memory scratch (~20 GB a solve
-at H=50, B=8192 in f32), because the TPU kernel's residency of the whole
-horizon in on-chip memory does not fit an SM.  So the kernel has no horizon
-cap, and it goes after latency instead: a tile of scenarios per block, a
-warp per matrix column, widths at compile time, every stage copied into
-shared memory a stage ahead of its use (``csrc/riccati_tile.cuh``).  The
-launch shape and the scratch size come from ``ops/_tile.tile_config``: the
-widths (12, 6), (24, 12) and (32, 16) run instances of their own, every
-other width within (32, 16) a padded one, and every wider (n, m) the
-runtime-width instance (the same passes on ``csrc/riccati_tile.cuh``'s
-runtime policy: the widths as arguments, the columns' values and, where a
-scenario's rows do not fit a block's shared memory, the rows too in a
-device-memory work area that the wrapper allocates); any B ≥ 1 is taken.
+eight iterations streams A and B four times with the gains, the factors and
+the iterate through a device-memory scratch (``chip_smoke.k2_design_bytes``),
+because the TPU kernel's residency of the whole horizon in on-chip memory
+does not fit an SM.  So the kernel has no horizon cap, and it goes after
+latency instead: a tile of scenarios per block, a warp per matrix column,
+widths at compile time.  On those widths a producer warp streams every stage
+(A, B, the gains, the factor and the iterate's slacks and duals) by TMA into
+a ring of three shared-memory slots ahead of their use, and the
+interior-point sweeps are folded into the passes (``csrc/pdip_whole.cu``).
+The launch shape and the scratch size come from ``ops/_tile.k2_config``:
+the widths (12, 6), (24, 12) and (32, 16) run instances of their own, every
+other width within (32, 16) a padded one (``pipe_config``), and every wider
+(n, m) the runtime-width instance (the passes of ``csrc/riccati_tile.cuh``
+on its runtime policy, ``tile_config``: the widths as arguments, the
+columns' values and, where a scenario's rows do not fit a block's shared
+memory, the rows too in a device-memory work area that the wrapper
+allocates).  Any B ≥ 1 is taken: TMA describes a scenario-last array only
+where its row of B values is a whole number of 16 B from a 16 B aligned
+base, so the wrapper copies a batch that is not into one padded with zero
+scenarios (B = 77 in f32 runs as 80) and hands back the first B.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch
 
 from reak_tpu_torch.ctrl.riccati_soa import _fused_scan as solve_plain
 from reak_tpu_torch.ops import _build
-from reak_tpu_torch.ops._tile import (INSTANCES, instance_for, tile_config,
+from reak_tpu_torch.ops._tile import (INSTANCES, instance_for, k2_config,
                                       type_suffix)
 
 # launches of the kernel since the count was last set to 0
@@ -81,6 +87,29 @@ SIGNATURES = {fn: args for lib in LIBRARIES.values()
               for fn, args in lib.items()}
 
 
+def _tma_batch(tile, A, Bm, c, x0, refs):
+    """The scenario-last inputs as the pipeline's tensor maps take them:
+    as they are where every row of B values is a whole number of 16 B from
+    a 16 B aligned base, else copied (x0 too, which the kernel reads at
+    the same batch) into a batch padded with zero scenarios to the next
+    multiple of ``tile.batch_quantum``; and that batch."""
+    B = A.shape[-1]
+    q = tile.batch_quantum
+    Bq = -(-B // q) * q
+    mapped = [A, Bm, c, *(r for r in refs if r is not None)]
+    if Bq == B and all(t.data_ptr() % 16 == 0 for t in mapped):
+        return A, Bm, c, x0, refs, B
+
+    def pad(t):
+        if t is None:
+            return None
+        out = t.new_zeros(*t.shape[:-1], Bq)
+        out[..., :B] = t
+        return out
+
+    return pad(A), pad(Bm), pad(c), pad(x0), [pad(r) for r in refs], Bq
+
+
 def make_whole_pdip(H: int, n: int, m: int, iters: int,
                     with_xref: bool = False, with_uref: bool = False):
     """The complete box-constrained LTV-MPC solve in one launch (see
@@ -125,9 +154,12 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
                 raise ValueError(f"{name} is {ref.dtype} on {ref.device}: "
                                  f"expected {dtype} on {device}")
             refs.append(ref.expand(shape).contiguous())
+        tile = k2_config(n, m, dtype)
+        B_out = B
+        if not tile.runtime:
+            A, Bm, c, x0, refs, B = _tma_batch(tile, A, Bm, c, x0, refs)
         u = torch.empty(H, m, B, dtype=dtype, device=device)
         xs = torch.empty(H, n, B, dtype=dtype, device=device)
-        tile = tile_config(n, m, dtype)
         # scenario last over the batch padded to whole tiles
         scratch = torch.empty(scratch_values(H, n, m) * tile.padded_batch(B),
                               dtype=dtype, device=device)
@@ -149,6 +181,8 @@ def make_whole_pdip(H: int, n: int, m: int, iters: int,
                         _build.stream_ptr(device))
         _build.check(name, rc, "pdip_whole kernel")
         launches += 1
+        if B != B_out:
+            return u[..., :B_out].contiguous(), xs[..., :B_out].contiguous()
         return u, xs
 
     return fn

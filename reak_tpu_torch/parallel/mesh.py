@@ -36,12 +36,29 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "scenarios",
                       mesh_dim_names=(axis_name,))
 
 
+def _check_divides(x, mesh):
+    """Raise ``ValueError`` unless the leading axis of every tensor of the
+    pytree ``x`` divides by the mesh's size (the JAX package's
+    ``device_put`` and ``shard_map`` refuse such a batch)."""
+
+    def check(a):
+        if isinstance(a, torch.Tensor) and (a.ndim == 0
+                                            or a.shape[0] % mesh.size()):
+            raise ValueError(
+                f"a batch of shape {tuple(a.shape)}: its leading axis is "
+                f"not evenly divisible by the mesh's {mesh.size()} ranks")
+        return a
+
+    tree_map(check, x)
+
+
 def shard_batch(x, mesh: DeviceMesh, axis_name: str = "scenarios"):
     """Place a batch pytree with the leading axis sharded over the mesh:
     each tensor becomes a ``DTensor`` of placement ``Shard(0)``.  Every rank
-    passes the same global batch; the leading axis must divide by the
-    mesh's size.  ``axis_name`` names the mesh's one axis, as in the JAX
-    package."""
+    passes the same global batch; a leading axis that does not divide by
+    the mesh's size raises ``ValueError``.  ``axis_name`` names the mesh's
+    one axis, as in the JAX package."""
+    _check_divides(x, mesh)
     return tree_map(lambda a: distribute_tensor(a, mesh, [Shard(0)]), x)
 
 
@@ -56,6 +73,7 @@ def _local(x, mesh):
 
 
 def _map_local(fn, mesh, args):
+    _check_divides(args, mesh)
     return fn(*tree_map(lambda a: _local(a, mesh), args))
 
 
@@ -70,8 +88,9 @@ def sharded_map(fn: Callable, mesh: DeviceMesh,
     axis.
 
     ``fn`` receives the *local* shard of each input (leading axis divided by
-    the mesh's size) and must be batched internally; its tensors come back
-    as ``Shard(0)`` DTensors.  Collectives over the mesh
+    the mesh's size; an axis that does not divide raises ``ValueError``)
+    and must be batched internally; its tensors come back as ``Shard(0)``
+    DTensors.  Collectives over the mesh
     (``dist.all_reduce(..., group=mesh.get_group())``) are available
     inside.
     """

@@ -120,6 +120,143 @@ EmuLaunch<K> emu_launch(K k, G g, B b, S smem, St) {
 """
 
 
+# csrc/hopper.cuh on host threads: a tensor map holds its array's layout and
+# a load copies its box at once (zeros outside the array), counting its
+# bytes on the mbarrier; an mbarrier completes a phase after its arrivals
+# and the bytes it expects, as on the card
+HOPPER_H = r"""
+#pragma once
+#include <condition_variable>
+#include <map>
+#include <mutex>
+namespace reak {
+struct TmaMap {
+  const unsigned char* base;
+  int rank, esize;
+  uint64_t dims[5], strides[5];
+  uint32_t box[5];
+};
+inline int tma_encode(TmaMap* m, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box, int esize) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (box[0] * esize) % 16)
+    return cudaErrorInvalidValue;
+  m->base = static_cast<const unsigned char*>(base);
+  m->rank = rank;
+  m->esize = esize;
+  m->strides[0] = esize;
+  for (int i = 0; i < rank; ++i) {
+    if (box[i] < 1 || box[i] > 256) return cudaErrorInvalidValue;
+    m->dims[i] = dims[i];
+    m->box[i] = box[i];
+    if (i > 0) {
+      if (strides[i - 1] % 16) return cudaErrorInvalidValue;
+      m->strides[i] = strides[i - 1];
+    }
+  }
+  return 0;
+}
+struct EmuMbar {
+  int count, pending;
+  long long tx;
+  unsigned phase;
+};
+inline std::mutex emu_mbar_mu;
+inline std::map<const void*, EmuMbar> emu_mbars;
+inline void emu_complete(EmuMbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1u;
+    b.pending = b.count;
+  }
+}
+inline void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  emu_mbars[bar] = {count, count, 0, 0};
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  EmuMbar& b = emu_mbars.at(bar);
+  --b.pending;
+  emu_complete(b);
+}
+inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  EmuMbar& b = emu_mbars.at(bar);
+  b.tx += bytes;
+  --b.pending;
+  emu_complete(b);
+}
+inline bool mbar_test(uint64_t* bar, uint32_t parity) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  return emu_mbars.at(bar).phase != parity;
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_test(bar, parity)) std::this_thread::yield();
+}
+inline void emu_tma(void* dst, const TmaMap* m, uint64_t* bar,
+                    const long long* c) {
+  unsigned char* out = static_cast<unsigned char*>(dst);
+  long long idx[5] = {0, 0, 0, 0, 0};
+  long long total = 1;
+  for (int i = 0; i < m->rank; ++i) total *= m->box[i];
+  for (long long e = 0; e < total; ++e) {
+    long long r = e, off = 0;
+    bool in = true;
+    for (int i = 0; i < m->rank; ++i) {
+      idx[i] = r % m->box[i];
+      r /= m->box[i];
+      const long long g = c[i] + idx[i];
+      in = in && g >= 0 && g < static_cast<long long>(m->dims[i]);
+      off += g * static_cast<long long>(m->strides[i]);
+    }
+    if (in)
+      std::memcpy(out + e * m->esize, m->base + off, m->esize);
+    else
+      std::memset(out + e * m->esize, 0, m->esize);
+  }
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  EmuMbar& b = emu_mbars.at(bar);
+  b.tx -= total * m->esize;
+  emu_complete(b);
+}
+inline void tma_load(void* dst, const TmaMap* m, uint64_t* bar, int c0,
+                     int c1, int c2) {
+  const long long c[5] = {c0, c1, c2, 0, 0};
+  emu_tma(dst, m, bar, c);
+}
+inline void tma_load(void* dst, const TmaMap* m, uint64_t* bar, int c0,
+                     int c1, int c2, int c3) {
+  const long long c[5] = {c0, c1, c2, c3, 0};
+  emu_tma(dst, m, bar, c);
+}
+struct EmuNamed {
+  std::mutex mu;
+  std::condition_variable cv;
+  int arrived = 0;
+  unsigned gen = 0;
+};
+inline EmuNamed emu_named[16];
+inline void named_sync(int id, int threads) {
+  EmuNamed& b = emu_named[id];
+  std::unique_lock<std::mutex> l(b.mu);
+  const unsigned g = b.gen;
+  if (++b.arrived == threads) {
+    b.arrived = 0;
+    ++b.gen;
+    b.cv.notify_all();
+  } else {
+    b.cv.wait(l, [&] { return b.gen != g; });
+  }
+}
+inline void fence_proxy_async_global() {}
+template <int R>
+inline void regs_dec() {}
+template <int R>
+inline void regs_inc() {}
+}  // namespace reak
+"""
+
 def _emulated_sources(dst):
     """The sources with the launches, the dynamic shared memory and the
     cp.async instructions rewritten for the host."""
@@ -127,7 +264,7 @@ def _emulated_sources(dst):
         s = src.read_text()
         s = re.sub(r"([\w:]+(?:<[^<>]*>)?)\s*<<<(.*?)>>>\s*\(",
                    r"emu_launch(\1, \2)(", s, flags=re.S)
-        s = re.sub(r"extern __shared__ __align__\(16\) unsigned char "
+        s = re.sub(r"extern __shared__ __align__\(\d+\) unsigned char "
                    r"(\w+)\[\];", r"unsigned char* \1 = emu_smem();", s)
         s = re.sub(r"(void cp_async_16\(void\* dst, const void\* src, "
                    r"int src_bytes\) )\{.*?\n\}",
@@ -140,6 +277,7 @@ def _emulated_sources(dst):
         s = re.sub(r"asm volatile\(.*?\);", "", s, flags=re.S)
         (dst / src.name).write_text(s)
     (dst / "cuda_runtime.h").write_text(RUNTIME_H)
+    (dst / "hopper.cuh").write_text(HOPPER_H)
 
 
 @pytest.fixture(scope="module")
@@ -178,12 +316,18 @@ def _nan(*shape, dtype):
     return torch.full(shape, float("nan"), dtype=dtype)
 
 
-def _k2(emulated, p, iters=8):
-    """K2 on the problem ``p`` through its C entry point."""
+def _k2(emulated, p, iters=8, refs=(None, None)):
+    """K2 on the problem ``p`` through its C entry point, the batch padded
+    as the wrapper pads it for the pipeline's tensor maps; ``refs`` are
+    x_ref (H, n, B) and u_ref (H, m, B) or None."""
     A = p["A"]
-    H, n, _, B = A.shape
+    H, n, _, B_out = A.shape
     m, dtype = p["Bm"].shape[2], A.dtype
-    tile = _tile.tile_config(n, m, dtype)
+    tile = _tile.k2_config(n, m, dtype)
+    ins = [p[k] for k in ("A", "Bm", "c", "x0")]
+    refs, B = list(refs), B_out
+    if not tile.runtime:
+        *ins, refs, B = pdip_whole._tma_batch(tile, *ins, refs)
     name = pdip_whole.library(tile.bound, dtype)
     f = _fn(emulated(name), pdip_whole.entry_point(tile.bound, dtype),
             pdip_whole.LIBRARIES[name][pdip_whole.entry_point(tile.bound,
@@ -191,8 +335,8 @@ def _k2(emulated, p, iters=8):
     u, xs = _nan(H, m, B, dtype=dtype), _nan(H, n, B, dtype=dtype)
     scratch = _nan(pdip_whole.scratch_values(H, n, m)
                    * tile.padded_batch(B), dtype=dtype)
-    args = [_p(p[k]) for k in ("A", "Bm", "c")] + [None, None] + [
-        _p(p[k]) for k in ("x0", "Q", "QN", "R", "lb", "ub")] + [
+    args = [_p(t) for t in ins[:3]] + [_p(r) for r in refs] + [
+        _p(ins[3])] + [_p(p[k]) for k in ("Q", "QN", "R", "lb", "ub")] + [
         _p(u), _p(xs), _p(scratch), scratch.numel()]
     if tile.runtime:
         work = _nan(tile.work_values(B), dtype=dtype)
@@ -201,7 +345,7 @@ def _k2(emulated, p, iters=8):
     else:
         rc = f(*args, H, n, m, B, iters, tile.shared_bytes, None)
     assert rc == 0
-    return u, xs
+    return u[..., :B_out], xs[..., :B_out]
 
 
 def _k4(emulated, entry, ins, outs):
@@ -343,3 +487,49 @@ def test_step_kernel_matches_the_plain_step(emulated, spec, dt,
     want5 = kte_core.make_core_plain(spec)(x, u)
     for g, w in list(zip(k1, want1)) + list(zip(k5, want5)):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("nm,dtype,mode,batch,horizon,iters", [
+    ((12, 6), torch.float64, "regulator", 5, 3, 8),
+    ((12, 6), torch.float64, "x_ref+u_ref", 5, 3, 8),
+    ((12, 6), torch.float64, "x_ref", 3, 2, 0),
+    ((12, 6), torch.float32, "x_ref", 7, 3, 8),
+    ((24, 12), torch.float64, "x_ref", 3, 2, 8)])
+def test_whole_solve_pipeline_matches_the_plain_scan(emulated, nm, dtype,
+                                                     mode, batch, horizon,
+                                                     iters):
+    """K2's TMA pipeline on its exact instances, in its three modes and at
+    0 iterations: f64 within 1e-9 relative of the plain scan, f32 within
+    twice the plain f32 scan's error against the plain f64 one.  The
+    batches leave the last tile part empty, and in f32 (7 scenarios, 28 B a
+    row) the wrapper's padding to whole 16 B rows runs first."""
+    p = _problem(*nm, batch, horizon, seed=batch + horizon)
+    rng = np.random.default_rng(horizon)
+    refs = {"x_ref": torch.as_tensor(
+        0.1 * rng.standard_normal((horizon, nm[0], batch))),
+        "u_ref": torch.as_tensor(
+            0.1 * rng.standard_normal((horizon, nm[1], batch)))}
+    keys = ("x_ref", "u_ref") if mode == "x_ref+u_ref" else (
+        ("x_ref",) if mode == "x_ref" else ())
+    want = riccati_soa._fused_scan(
+        *[p[k] for k in ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb", "ub")],
+        iters=iters, **{k: refs[k] for k in keys})
+    cast = lambda d: {k: v.to(dtype) for k, v in d.items()}
+    q, r = cast(p), cast(refs)
+    got = _k2(emulated, q, iters=iters,
+              refs=[r[k] if k in keys else None for k in ("x_ref", "u_ref")])
+    assert _tile.k2_config(*nm, dtype).exact
+    if dtype == torch.float64:
+        # relative to the larger of the reference's scale and 1: at 0
+        # iterations u is the box's middle, 0
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()
+                         / max(float(w.abs().max()), 1.0)) <= 1e-9
+    else:
+        plain = riccati_soa._fused_scan(
+            *[q[k] for k in ("A", "Bm", "c", "Q", "QN", "R", "x0", "lb",
+                             "ub")], iters=iters, **{k: r[k] for k in keys})
+        for g, pl, w in zip(got, plain, want):
+            assert torch.isfinite(g).all()
+            assert (g.double() - w).abs().max() <= 2 * (
+                pl.double() - w).abs().max()

@@ -94,6 +94,36 @@ _WORKER = _FLAGSHIP + textwrap.dedent("""
 """)
 
 
+_UNEVEN = textwrap.dedent("""
+    import os
+    import torch
+    import torch.distributed as dist
+    from reak_tpu_torch.parallel import (distribute_init, make_mesh,
+                                         pmean_scalar, shard_batch,
+                                         sharded_map)
+
+    pid = int(os.environ["PROC_ID"])
+    assert distribute_init(os.environ["COORD"], 2, pid, backend="gloo")
+    mesh = make_mesh(device_type="cpu")
+    x = torch.arange(3.0, dtype=torch.float64)
+    calls = {"shard_batch": lambda: shard_batch(x, mesh),
+             "sharded_map": lambda: sharded_map(lambda a: a, mesh)(x),
+             "pmean_scalar": lambda: pmean_scalar(
+                 lambda a: (a, a.sum()), mesh)(x)}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            assert "not evenly divisible" in str(e), e
+            print(f"proc{pid} {name} ValueError", flush=True)
+    even = sharded_map(lambda a: 2.0 * a, mesh)(
+        shard_batch(torch.arange(4.0, dtype=torch.float64), mesh))
+    assert even.full_tensor().tolist() == [0.0, 2.0, 4.0, 6.0]
+    print(f"proc{pid} even ok", flush=True)
+    dist.destroy_process_group()
+""")
+
+
 def _free_port():
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -150,3 +180,29 @@ def test_two_process_gloo_mesh_flagship(tmp_path):
         assert got["mean_cost"] == ((shards[0] + shards[1]) / 2).numpy()
         np.testing.assert_allclose(got["mean_cost"],
                                    torch.mean(us_one ** 2).numpy(), rtol=1e-6)
+
+
+def test_two_process_gloo_mesh_refuses_an_uneven_batch(tmp_path):
+    """F23: at B = 3 on two ranks ``shard_batch``, ``sharded_map`` and
+    ``pmean_scalar`` raise ``ValueError``, as the JAX package's
+    ``device_put`` and ``shard_map`` do; a batch of 4 still shards."""
+    script = tmp_path / "uneven.py"
+    script.write_text(_UNEVEN)
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], cwd=REPO,
+        env=dict(os.environ, COORD=coord, PROC_ID=str(pid), PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            pytest.fail(f"mesh worker hung:\n{p.communicate()[0]}")
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"proc{pid} failed:\n{out}"
+        for name in ("shard_batch", "sharded_map", "pmean_scalar"):
+            assert f"proc{pid} {name} ValueError" in out, out
+        assert f"proc{pid} even ok" in out, out

@@ -345,19 +345,32 @@ def test_instance_libraries_select_one_bound_and_type():
 
 
 def test_both_kernels_include_the_shared_stage_code():
-    """The reverse, vector and forward stages live once, in
-    ``riccati_tile.cuh``, and every PDIP kernel runs on them, at
-    compile-time and at run-time widths (the width policy ``wd``): the
-    one-thread-per-scenario design, its header and a second copy of the
-    passes for run-time widths are gone."""
+    """The reverse, vector and forward stages of the tile live once, in
+    ``riccati_tile.cuh``: the per-pass kernels run them at compile-time and
+    at run-time widths (the width policy ``wd``), the whole-solve kernel at
+    run-time widths; its compile-time instances run the TMA pipeline of
+    ``pdip_whole.cu`` on the primitives of ``hopper.cuh`` (the tile's
+    factor and substitutions, no cp.async).  The one-thread-per-scenario
+    design, its header and a second copy of the passes for run-time widths
+    are gone."""
     for source in ("pdip_whole", "riccati_bwd"):
         text = (_build.CSRC / f"{source}.cu").read_text()
         assert '#include "riccati_tile.cuh"' in text
         assert "reverse_pass(wd," in text
         assert "__launch_bounds__" in text
         assert "vector_pass<" in text and "forward_pass(wd," in text
-        assert "const AnyWidths<T> wd" in text and "const TL wd{}" in text
+        assert "const AnyWidths<T> wd" in text
         assert "lanes.cuh" not in text and "tile_any" not in text
+    assert "const TL wd{}" in (_build.CSRC / "riccati_bwd.cu").read_text()
+    k2 = (_build.CSRC / "pdip_whole.cu").read_text()
+    assert '#include "hopper.cuh"' in k2 and "pdip_pipe_kernel" in k2
+    for call in ("tma_load(", "mbar_wait(", "mbar_arrive_expect_tx(",
+                 "named_sync(", "regs_inc<", "regs_dec<",
+                 "fence_proxy_async_global()", "tile_chol_factor(pol,",
+                 "tile_chol_apply(", "__grid_constant__"):
+        assert call in k2, call
+    pipe = k2[k2.index("struct Pipe {"):]
+    assert "cp_async" not in pipe and "__syncthreads();\n  // the roles" in pipe
     k4 = (_build.CSRC / "riccati_bwd.cu").read_text()
     assert "vector_pass<TL, true>" in k4 and "chol_factor(" not in k4
     assert not (_build.CSRC / "lanes.cuh").exists()
@@ -453,3 +466,197 @@ def test_plain_fused_backward_at_ragged_batches_matches_jax(rng, B):
     for g, want in zip(got, (grad, Ks, Gs, ks)):
         assert g.shape == want.shape
         assert np.max(np.abs(g.numpy() - want)) <= 1e-10
+
+
+def _pipe_constants(nb, mb, size):
+    """The constants of ``pdip_whole.cu::Pipe`` at (NB, MB) and a type of
+    ``size`` bytes, evaluated as Python."""
+    text = (_build.CSRC / "pdip_whole.cu").read_text()
+    body = text[text.index("struct Pipe {"):]
+    body = body[:body.index("\n};")]
+    env = {**_cuh_env(), "NB": nb, "MB": mb, "size": size}
+    for name in ("SIZE", "RING", "BAR_BYTES", "SLOT_VEC", "SLOT_ROWS",
+                 "WORK_ROWS", "VEC_ROWS", "CONSTS", "CONST_BYTES", "ROWS",
+                 "TS", "ROW", "NC", "SMEM", "REALLOC", "PRODUCER", "NT",
+                 "ENTRY_REGS", "PRODUCER_REGS", "CONSUMER_REGS"):
+        m = re.search(rf"static constexpr (?:int|bool) {name} =\s*([^;]+);",
+                      body)
+        assert m, name
+        expr = _cuh_python(m.group(1)).replace("&&", " and ")
+        env[name] = eval(expr, {}, dict(env))
+    return env
+
+
+PIPE_WIDTHS = [(12, 6), (24, 12), (32, 16), (14, 7), (6, 3), (13, 7),
+               (26, 13)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nm", PIPE_WIDTHS)
+def test_pipe_config_mirrors_the_source(nm, dtype):
+    """``_tile.pipe_config`` (what the wrapper hands the C entry point,
+    which refuses a launch whose shared memory differs) is
+    ``pdip_whole.cu::Pipe`` of the same instance: scenarios, threads with
+    the producer, shared bytes, the ring and whether setmaxnreg runs."""
+    cfg = _tile.pipe_config(*nm, dtype)
+    env = _pipe_constants(*cfg.widths, 4 if dtype == torch.float32 else 8)
+    assert env["RING"] == cfg.ring == _tile.RING
+    assert env["BAR_BYTES"] == _tile.BAR_BYTES
+    assert (env["TS"], env["NC"], env["NT"], env["SMEM"]) == (
+        cfg.scenarios, cfg.consumers, cfg.threads, cfg.shared_bytes)
+    assert bool(env["REALLOC"]) == cfg.realloc
+    assert _tile.k2_config(*nm, dtype) == cfg
+
+
+@pytest.mark.parametrize("dtype,nm,shape", [
+    (torch.float32, (12, 6), (32, 512, 209792, True, 160)),
+    (torch.float64, (12, 6), (16, 224, 211072, False, 248)),
+    (torch.float32, (14, 7), (16, 384, 178432, True, 240)),
+    (torch.float64, (14, 7), (8, 160, 180736, False, 248)),
+    (torch.float32, (24, 12), (8, 224, 192896, False, 248)),
+    (torch.float64, (24, 12), (4, 128, 198016, False, 248)),
+    (torch.float32, (32, 16), (4, 160, 171520, False, 248)),
+    (torch.float64, (32, 16), (2, 96, 180736, False, 248))])
+def test_pipe_launch_shapes(dtype, nm, shape):
+    """The pipeline's instances: a ring of three slots, TS × NB consumers in
+    whole warps and a producer, one block an SM within an H100 block's
+    shared memory, rows of whole 16 B for TMA.  The flagship's (12, 6) in
+    f32 keeps the tile's 32 scenarios; its block of 512 threads enters
+    with 128 registers a thread (ptxas shares the SM's among whole
+    warpgroups), and the producer warpgroup's 104 a thread given up buy
+    the consumers 160; setmaxnreg needs the consumers to be whole
+    warpgroups, and elsewhere a producer warp and 255 a thread fit."""
+    cfg = _tile.pipe_config(*nm, dtype)
+    env = _pipe_constants(*cfg.widths, cfg.size)
+    assert (cfg.scenarios, cfg.threads, cfg.shared_bytes, cfg.realloc,
+            env["CONSUMER_REGS"]) == shape
+    assert cfg.ring >= 3
+    assert cfg.threads == cfg.consumers + (128 if cfg.realloc else 32)
+    assert cfg.consumers % 32 == 0 and cfg.threads <= _tile.MAX_THREADS
+    assert cfg.shared_bytes <= _tile.MAX_SHARED_BYTES
+    assert cfg.blocks_per_sm == 1
+    assert (cfg.scenarios * cfg.size) % 16 == 0
+    if cfg.realloc:
+        # the producer warpgroup gives up what the consumers take, and the
+        # SM keeps 1,024 of its 65,536 spare
+        assert cfg.consumers % 128 == 0 and cfg.threads % 128 == 0
+        entry, prod = env["ENTRY_REGS"], env["PRODUCER_REGS"]
+        given = 128 * (entry - prod)
+        taken = cfg.consumers * (env["CONSUMER_REGS"] - entry)
+        assert 0 < taken <= given
+        assert (cfg.consumers * env["CONSUMER_REGS"] + 128 * prod + 1024
+                <= _tile.SM_REGISTERS)
+    else:
+        assert (cfg.consumers + 32) * 255 <= _tile.SM_REGISTERS or \
+            cfg.consumers % 128 != 0
+
+
+def _tma_boxes():
+    """{map: (rank, its box as C expressions)} of the tensor maps the
+    whole-solve kernel's launch encodes (``pdip_whole.cu::launch``)."""
+    text = (_build.CSRC / "pdip_whole.cu").read_text()
+    text = text[text.index("int launch(const void* A"):]
+    found = re.findall(r"map\(&a\.(\w+), [^,]+, (\d), \{[^}]*\},\s*"
+                       r"\{([^}]*)\}\);", text)
+    return {name: (int(rank), [e.strip() for e in box.split(",")])
+            for name, rank, box in found}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nm", [(12, 6), (24, 12), (32, 16), (14, 7)])
+def test_tma_boxes_take_a_stage_in_one_load(nm, dtype):
+    """Each stage's array is one TMA box: the launch's maps are 3- or 4-D
+    over the scenario-last arrays ((B, n, n, H) for A), so no box dimension
+    passes TMA's 256 even at (24, 12) and (32, 16), where a 2-D (n·n, B)
+    map would need 576 and 1,024 rows, i.e. several boxes a stage; the
+    inner dimension is TS scenarios of whole 16 B; every box but the
+    unused refs' is loaded into a slot of its rows (``SlotRows``)."""
+    cfg = _tile.pipe_config(*nm, dtype)
+    nb, mb = cfg.widths
+    env = {"TS": cfg.scenarios, "NB": nb, "MB": mb}
+    boxes = {name: (rank, [eval(e, {}, env) for e in box])
+             for name, (rank, box) in _tma_boxes().items()}
+    assert set(boxes) == {"A", "Bm", "c", "xr", "ur", "K", "L", "it", "xs",
+                          "dx"}
+    for name, (rank, box) in boxes.items():
+        assert len(box) == rank in (3, 4), name
+        assert all(1 <= d <= 256 for d in box), name
+        assert box[0] == cfg.scenarios and (box[0] * cfg.size) % 16 == 0
+    rows = {name: int(np.prod(box)) // cfg.scenarios
+            for name, (_, box) in boxes.items()}
+    assert rows["A"] == nb * nb and rows["Bm"] == nb * mb
+    assert rows["K"] == mb * nb and rows["L"] == mb * mb
+    assert rows["it"] == rows["ur"] == mb
+    assert rows["xs"] == rows["dx"] == rows["c"] == rows["xr"] == nb
+    if nm in ((24, 12), (32, 16)):
+        assert nb * nb > 256  # a 2-D map's rows: past one box
+
+
+@pytest.mark.parametrize("dtype,B,padded", [
+    (torch.float32, 1, 4), (torch.float32, 77, 80), (torch.float32, 1001, 1004),
+    (torch.float32, 8192, 8192), (torch.float64, 1, 2), (torch.float64, 77, 78),
+    (torch.float64, 100, 100), (torch.float64, 1001, 1002)])
+def test_tma_batch_pads_rows_to_whole_16_bytes(dtype, B, padded):
+    """TMA describes a scenario-last array only where a row of B values is
+    a whole number of 16 B: the wrapper copies a batch that is not into
+    one padded with zero scenarios (4 a quantum in f32, 2 in f64) and
+    passes one that is as it is."""
+    cfg = _tile.pipe_config(12, 6, dtype)
+    assert cfg.batch_quantum == (4 if dtype == torch.float32 else 2)
+    g = torch.Generator().manual_seed(B)
+    A = torch.randn(3, 12, 12, B, generator=g, dtype=dtype)
+    Bm = torch.randn(3, 12, 6, B, generator=g, dtype=dtype)
+    c = torch.randn(3, 12, B, generator=g, dtype=dtype)
+    x0 = torch.randn(12, B, generator=g, dtype=dtype)
+    ur = torch.randn(3, 6, B, generator=g, dtype=dtype)
+    out = pdip_whole._tma_batch(cfg, A, Bm, c, x0, [None, ur])
+    *arrays, refs, Bq = out
+    assert Bq == padded and refs[0] is None
+    for got, want in zip([*arrays, refs[1]], [A, Bm, c, x0, ur]):
+        assert got.shape[-1] == padded and got.is_contiguous()
+        assert torch.equal(got[..., :B], want)
+        assert not got[..., B:].any()
+        assert (got is want) == (padded == B)
+
+
+def test_tma_batch_copies_a_misaligned_base():
+    """A contiguous input whose base is not 16 B aligned (a view at an
+    offset) is copied, at the same batch."""
+    cfg = _tile.pipe_config(12, 6, torch.float32)
+    big = torch.zeros(3 * 12 * 12 * 8 + 1)
+    A = big[1:].view(3, 12, 12, 8)
+    assert A.is_contiguous() and A.data_ptr() % 16 != 0
+    others = [torch.zeros(3, 12, 6, 8), torch.zeros(3, 12, 8),
+              torch.zeros(12, 8)]
+    *arrays, _, Bq = pdip_whole._tma_batch(cfg, A, *others, [None, None])
+    assert Bq == 8 and arrays[0] is not A and torch.equal(arrays[0], A)
+    assert arrays[0].data_ptr() % 16 == 0
+
+
+def test_phase_stamps_fit_the_source(tmp_path):
+    """``ops/k2_phases.py`` builds K2 with its stamps: the source calls
+    only the hooks the stamps define, empty unless they are inserted, each
+    phase slot of a solve once in its order, the spans in their slots, and
+    the stamped copy defines the hooks before the source's first
+    include."""
+    from reak_tpu_torch.ops import k2_phases
+
+    text = (_build.CSRC / "pdip_whole.cu").read_text()
+    hooks = set(re.findall(r"\b(REAK_K2_\w+)\(", text))
+    assert hooks == {"REAK_K2_BEGIN", "REAK_K2_STAMP", "REAK_K2_SPAN_BEGIN",
+                     "REAK_K2_SPAN_END", "REAK_K2_END"}
+    for hook in hooks:
+        assert f"#define {hook}(" in text and f"#define {hook}(" in \
+            k2_phases.STAMPS
+    stamps = [int(s) for s in re.findall(r"REAK_K2_STAMP\((\d+)\);", text)]
+    assert stamps == list(range(len(k2_phases.SLOTS)))
+    spans = {int(s) for s in re.findall(r"REAK_K2_SPAN_END\([^,]+, (\d+)\)",
+                                        text)}
+    first = len(k2_phases.SLOTS)
+    assert spans == set(range(first, first + len(k2_phases.SPANS)))
+    assert first + len(k2_phases.SPANS) <= k2_phases.N_SLOTS
+    k2_phases.stamped_source(_build.CSRC, tmp_path / "csrc")
+    stamped = (tmp_path / "csrc" / "pdip_whole.cu").read_text()
+    at = stamped.index("#define REAK_K2_STAMPS 1")
+    assert at < stamped.index('#include "hopper.cuh"')
+    assert stamped.count("reak_k2_cycles_read") == 1
