@@ -176,7 +176,14 @@ references.
 Line ``k2_phases`` times the whole-solve PDIP (its TMA pipeline) at the
 flagship's shape at 0, 1, 2 and 8 iterations: the fit's slope is one
 iteration, its intercept the two rollouts (``python3 -m
-reak_tpu_torch.ops.k2_phases`` splits an iteration by phase).
+reak_tpu_torch.ops.k2_phases`` splits an iteration by phase).  Line
+``k1_split`` times K1 and K5 at (6, 6) and (7, 7) f32, B = 8192 and one
+block an SM, a wrapper's call by CUDA events and the kernel alone by the
+profiler, beside ptxas' registers, stack and spills (``python3 -m
+reak_tpu_torch.ops.k1_phases`` splits a launch by phase); the kernels
+line's K1 and K5 ``ms`` is the wrapper's call by CUDA events, as for
+every kernel, and their ``device_ms`` the kernel alone by the profiler,
+as for K3.
 Each phase prints one JSON line; the card's name and power limit follow as
 ``nvidia-smi`` prints them, then one JSON line of the eight kernels (each
 with its launches on the main paths, its time per launch beside its plain
@@ -189,6 +196,7 @@ once.  Imports no JAX.
 import functools
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -305,22 +313,27 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, name):
+def device_ms(fn, reps, name, tries=3):
     """Device time per launch of the kernels whose name holds ``name``, from
     torch.profiler's CUDA activity over ``reps`` calls of fn() after a
-    warm-up; None where the profiler records no device time."""
+    warm-up; a profile that records none of them is taken again, up to
+    ``tries`` profiles; None where none does."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in events)
-    total_us = sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0.0) for e in events)
-    return total_us / count / 1e3 if count and total_us else None
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in events)
+        total_us = sum(getattr(e, "device_time_total", None)
+                       or getattr(e, "cuda_time_total", 0.0)
+                       for e in events)
+        if count and total_us:
+            return total_us / count / 1e3
+    return None
 
 
 def wall_ms(fn, reps):
@@ -3625,6 +3638,78 @@ def trace_flagship(card, solve, x0, u0):
           f"K1, {row['k2_kernel_events']} K2")
 
 
+def k1_split(card, dev, step_k, core_k, x_np, u_np):
+    """K1 and K5 of the shipped (6, 6) and (7, 7) f32 libraries at B = 64,
+    at one block an SM (B = SMs × TS) and at B = 8192, each in the mode
+    the wrapper takes there (a wrapper's call by CUDA events and the
+    kernel's device time by the profiler; the flagship's states, and the
+    SSRMS's as ``arm_states`` draws them), beside ptxas' registers, stack
+    and spills of each kernel; no patched build (``ops/k1_phases.py``
+    splits the phases)."""
+    from reak_tpu_torch.kte import models
+    from reak_tpu_torch.ops import _build, kte_core, kte_step
+
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    on = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=f32,
+                                   device=dev)
+    ssrms = models.manip_ssrms()
+    x7 = arm_states(B).T
+    u7 = np.random.default_rng(7).uniform(-5.0, 5.0, (7, B))
+    row = {"phase": "k1_split", "card": card, "sms": sms, "dtype": "float32",
+           "chains": {}}
+    for label, spec, k1, k5, xs, us in (
+            ("6x6", models.manip_3r3r(), step_k, core_k, x_np, u_np),
+            ("7x7", ssrms, kte_step.make_step_lanes(ssrms, DT),
+             kte_core.make_core_lanes(ssrms), x7, u7)):
+        widths = kte_step.instance_for(spec)
+        shape = kte_step.launch_shape(*widths, f32)
+        res = {"tile_scenarios": shape.scenarios, "threads": shape.threads,
+               "primal_slot": shape.primal_slot,
+               "blocks_per_sm": shape.blocks_per_sm,
+               "registers_cap": shape.registers,
+               "outer_shared": shape.outer_shared,
+               "shared_bytes": shape.shared_bytes, "ptxas": {}}
+        lines = _build.ptxas_report(kte_step.library(widths, f32)).splitlines()
+        for mode in ("step", "split"):
+            for core in (0, 1):
+                frag = (f"kte_{mode}_kernelIfLi{widths[0]}ELi{widths[1]}"
+                        f"ELb{core}E")
+                for i, line in enumerate(lines):
+                    if "Compiling entry" in line and frag in line:
+                        text = " ".join(lines[i + 1:i + 4])
+                        num = {k: re.search(p, text) for k, p in (
+                            ("registers", r"Used (\d+) registers"),
+                            ("stack_bytes", r"(\d+) bytes stack frame"),
+                            ("spill_stores", r"(\d+) bytes spill stores"),
+                            ("spill_loads", r"(\d+) bytes spill loads"))}
+                        res["ptxas"][("k5" if core else "k1") + (
+                            "_split" if mode == "split" else "")] = {
+                            k: int(m.group(1)) if m else None
+                            for k, m in num.items()}
+        for batch in (64, sms * shape.scenarios, B):
+            x, u = on(xs[:, :batch]), on(us[:, :batch])
+            split = kte_step.split_mode(*widths, f32, batch, x.device)
+            name = (f"kte_{'split' if split else 'step'}_kernel<float, "
+                    f"{widths[0]}, {widths[1]}")
+            res[f"split_mode_B{batch}"] = split
+            # a wrapper's call by CUDA events (host-bound where the host's
+            # time a call passes the kernel's), the kernel alone by the
+            # profiler (null where three profiles saw none of it)
+            res[f"k1_ms_B{batch}"] = cuda_ms(lambda: k1(x, u), reps=20)
+            res[f"k5_ms_B{batch}"] = cuda_ms(lambda: k5(x, u), reps=20)
+            res[f"k1_device_ms_B{batch}"] = device_ms(
+                lambda: k1(x, u), 20, f"{name}, false>")
+            res[f"k5_device_ms_B{batch}"] = device_ms(
+                lambda: k5(x, u), 20, f"{name}, true>")
+        row["chains"][label] = res
+    emit(row)
+    for label, res in row["chains"].items():
+        check(len(res["ptxas"]) == 4, f"ptxas lines of K1/K5 {label} f32")
+        check(res["split_mode_B64"] and not res[f"split_mode_B{B}"],
+              f"the split mode at B = 64 and not at {B}, {label}")
+
+
 def kte_instances():
     """(chain, widths, type) of every K1/K5 library the run drives: the
     flagship arm in f32 and f64, planar_2link, the mixed chain and the
@@ -3835,9 +3920,21 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
         t = "f" if dt == f32 else "d"
         for i, key in enumerate(("kte_step", "kte_core")):
             k = f"{key}<{t}{w[0]}x{w[1]}>"
-            wanted[k] = (kte_step.library(w, dt),
-                         f"kte_step_kernelI{t}Li{w[0]}ELi{w[1]}ELb{i}E")
+            for mode in ("step", "split"):
+                wanted[k + ("" if mode == "step" else ",split")] = (
+                    kte_step.library(w, dt),
+                    f"kte_{mode}_kernelI{t}Li{w[0]}ELi{w[1]}ELb{i}E")
             occupancy[k] = kte_step.occupancy(w, dt, core=bool(i))
+            # the wrapper's mirror of the launch shape, in both modes, is
+            # the library's own
+            for split in (False, True):
+                mirror = kte_step.launch_shape(*w, dt, core=bool(i),
+                                               split=split)
+                built = kte_step.built_shape(w, dt, core=bool(i),
+                                             split=split)
+                check(all(getattr(mirror, f) == v
+                          for f, v in built.items()),
+                      f"launch_shape of {k} {vars(mirror)} against {built}")
     for dt in (f32, f64):
         t = "f" if dt == f32 else "d"
         for i, key in enumerate(("kte_step", "kte_core")):
@@ -5687,6 +5784,14 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
     for key, call in k3_profiled.items():
         k3_cases[key]["device_ms"] = device_ms(call, 50, "chol_lanes_kernel")
     del k3_profiled
+    # K1's and K5's kernels alone: their wrappers' host time a call can pass
+    # the kernels' own (the kernels line gives both)
+    k1_device = device_ms(lambda: step_k(xk, uk), 50,
+                          "kte_step_kernel<float, 6, 6, false>")
+    k5_device = device_ms(lambda: core_k(x32, u32), 50,
+                          "kte_step_kernel<float, 6, 6, true>")
+    check(k1_device is not None and k5_device is not None,
+          "the profiler saw K1's and K5's (6, 6) f32 kernels")
     # what each timed launch must move and compute, for its bound: inputs
     # and outputs of the call; operations of its plain version per scenario
     # (the K3 rows were filled in their phase, the K4 rows above)
@@ -5704,7 +5809,8 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
           "dtype": "float32", "full_ms": t_full, "solves_per_s": B / t_full
           * 1e3, "rollout_ms": t_roll, "pdip_ms": t_pdip,
           "plain_rollout_ms": t_roll_p, "plain_pdip_ms": t_pdip_p,
-          "kte_step_launch_ms": t_step, "plain_step_ms": t_step_p,
+          "kte_step_launch_ms": t_step, "kte_step_device_ms": k1_device,
+          "kte_core_device_ms": k5_device, "plain_step_ms": t_step_p,
           "pdip_design_floor_ms": k2_design_bytes(H, N, M, B, ITERS, 4)
           / PEAK_BYTES_S * 1e3,
           "op_counts_seconds": float(op_count["npz"]["seconds"]),
@@ -5714,6 +5820,7 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
           "iteration_ms": float(k2_slope), "rollouts_ms": float(k2_intercept),
           "iteration_design_floor_ms": k2_design_bytes(H, N, M, B, 1, 4)
           / PEAK_BYTES_S * 1e3})
+    k1_split(card, dev, step_k, core_k, x_np, u_np)
     # the free-base and two-pass solves, each timed on its checked run
     emit({"phase": "times_slice2", "card": card, "dtype": "float32",
           "flagship_sqp2_ms": t_sqp2, "flagship_sqp2_solves_per_s":
@@ -5772,19 +5879,23 @@ def smoke(children, ref_path, ops_path, card, dev, build, early):
                for e, line in (("fused_backward", 79),
                                ("vector_backward", 182), ("forward", 236))]
     print(card, flush=True)
-    # each ms is one launch in f32: K1 and K5 at B=8192; K2 at the flagship
-    # shape (H=50); K3a at the line-search shape (6, 1, 8192), K3b at the
-    # floating-arm LTV shape (12, 36, 2048); K4a-c at H=256, B=8192
+    # each ms is one launch in f32 by CUDA events: K1 and K5 at B=8192
+    # (the kernel alone by the profiler beside it as device_ms, as K3's);
+    # K2 at the flagship shape (H=50); K3a at the line-search shape
+    # (6, 1, 8192), K3b at the floating-arm LTV shape (12, 36, 2048); K4a-c
+    # at H=256, B=8192
     emit({"kernels": [
-        row("kte_step", "kte_step.cu", "reak_tpu/ops/kte_core_pallas.py:215",
-            k1_max_abs, t_step, t_step_p, k1_moved, k1_ops),
+        {**row("kte_step", "kte_step.cu",
+               "reak_tpu/ops/kte_core_pallas.py:215", k1_max_abs, t_step,
+               t_step_p, k1_moved, k1_ops), "device_ms": k1_device},
         row("pdip_whole", "pdip_whole.cu",
             "reak_tpu/ops/pdip_whole_pallas.py:226", k2_max_abs, t_pdip,
             t_pdip_p, k2_moved, k2_ops),
         *k3_rows, *k4_rows,
-        row("kte_core.make_core_lanes", "kte_step.cu",
-            "reak_tpu/ops/kte_core_pallas.py:88", k5_max_abs, k5_ms,
-            k5_plain_ms, k5_moved, k5_ops, count="kte_core"),
+        {**row("kte_core.make_core_lanes", "kte_step.cu",
+               "reak_tpu/ops/kte_core_pallas.py:88", k5_max_abs, k5_ms,
+               k5_plain_ms, k5_moved, k5_ops, count="kte_core"),
+         "device_ms": k5_device},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,23 +15,22 @@
 // springs, dampers, full inertia tensors; up to 16 joints at compile-time
 // widths, past that on one runtime-width instance a type (at the end).
 //
-// What bounds it on the H100: registers and latency (fewer registers a
-// thread spill more, more cost warps: both measured slower), likely also
-// the instruction stream; not memory, and not the arithmetic units, which
-// would take a third of its time.  A scenario reads 3 nv values and
+// What bounds it on the H100: latency.  A scenario reads 3 nv values and
 // writes n² + n nv + 2n (K5: 18 in and 114 out at nv = 6), and evaluates the
-// chain's kinematics in hyper-dual numbers along each of its n directions.
-// The first port (one binary for every chain, widths known at run time) kept
-// that state in local memory: 96 registers and a 3,840 B stack frame in f32,
-// which spilled to device memory.  Unrolled at compile-time widths, the code
-// of one instance is long and serial, and a block's warps go through it
-// together.
+// chain's kinematics in hyper-dual numbers along each of its n directions:
+// a q direction's run is ~18,000 instructions at (6, 6) f32, which a warp
+// issues at ~9 cycles each while the schedulers stay ~80 % idle
+// (ops/k1_phases.py, PERF.md §6), so the time is that chain times
+// the waves it takes.  Not memory, and not the arithmetic units.  The first
+// port (one binary for every chain, widths known at run time) kept that
+// state in local memory: 96 registers and a 3,840 B stack frame in f32,
+// which spilled to device memory.
 //
 // Design.  The Pallas body takes its derivatives by jax.linearize/jax.jvp
 // over an (8, 128) tile in ~24 MB of VMEM; a CUDA kernel has no autodiff and
 // an SM has 227 KB.  So the kernel keeps the hyper-dual arithmetic
-// (hyperdual.cuh) and goes after per-thread state, redundancy and the launch
-// shape:
+// (hyperdual.cuh) and goes after per-thread state, redundancy, idle warps
+// and serial steps:
 // - Widths at compile time.  The kernel is a template on (NJ, NV), the
 //   joints and dofs of the chain; each (NJ, NV, type) is a library of its own
 //   (ops/_build.py, kte_step@6x6_f32), built at first use.  Every chain loop
@@ -44,38 +43,49 @@
 // - The body loop is fused into the kinematics: body i joins M and f as soon
 //   as its frame is known, so no COM or orientation of an earlier body is
 //   kept, only the anchors and axes of the joints up to it.
-// - A block is a tile of TS scenarios × n directions: TS = 32 in f32 (16 in
-//   f64), so a warp is 32 scenarios of one direction (two directions of 16
-//   in f64) and every load and store row is one 128 B line, up to the
-//   block of 384 threads that leaves a thread the 168 registers the (6, 6)
-//   f32 instance takes; a wider chain halves TS (nv = 16: 8 scenarios, four
-//   directions a warp).
+// - Pair slots.  A block is a tile of TS = 16 scenarios × NV slots, and the
+//   thread of slot j runs the q direction j, then the q̇ direction NV + j: a
+//   q̇ direction moves no position, so it runs in HDq numbers and skips M,
+//   and its run takes under half a q run.  Split over warps of their own,
+//   the q̇ warps idled half of each tile (PERF.md §6); as pairs,
+//   every warp carries the same work and runs one kind of direction at a
+//   time (two slots of 16 a warp).  A (6, 6) f32 block of 3 warps runs four
+//   to an SM at 168 registers, so B = 8192 is one wave, and each block's
+//   one-slot primal phase overlaps the others' runs.  No barrier separates
+//   the runs.
+// - The split mode.  A grid under one wave (the 16-segment beam's B = 64,
+//   a single scenario) is set by one block's latency, which pairs lengthen
+//   by the q̇ run: there the wrapper launches kte_split_kernel, whose
+//   block runs the q directions on the pair slots' warps and the q̇ ones
+//   on as many warps more, a thread one direction (a q̇ one takes the
+//   primal M's values on its run and factors it itself, so no barrier
+//   hands the factor over), at one block an SM's registers.
 // - The work every direction shares is done once per scenario.  A primal
-//   phase (the threads of the last direction, whose own run is the lightest)
-//   runs the forward kinematics in Dual numbers (value and inner tangent) and
-//   leaves those parts of every frame, axis, anchor and COM in shared memory,
-//   scenario innermost.  Each direction then runs the kinematics in
-//   hyper-dual numbers but takes v and e of those quantities back
-//   ("anchors"): what it computes of them itself is dead code, so it carries
-//   only the outer parts (δ, εδ) of the chain and of the joints' anchors and
-//   axes it keeps for later bodies.  Direction 0's run holds the primal M
-//   and f: its threads factor M and solve for q̈ once per scenario; after a
-//   barrier each direction solves for its column of ∂q̈/∂x (and for d < nv a
-//   column of M⁻¹) with the factor from shared memory.
-// - The q and the q̇ directions run code of their own: a q̇ direction moves
-//   no position, so its kinematics is in HDq numbers (no δ part) and it
-//   skips M.
+//   phase (one slot: a spare one where the warps leave one) runs the
+//   forward kinematics in Dual numbers (value and inner tangent) and leaves
+//   those parts of every frame, axis, anchor and COM in shared memory,
+//   scenario innermost; each direction takes v and e of them back
+//   ("anchors"), so it carries only the outer parts (δ, εδ).  The q run
+//   holds the primal M and f, so each thread factors M and solves for q̈ in
+//   its own registers, and its q̇ run's column takes the same factor.
+// - State.  Where they fit beside the rows, each thread's outer parts of the
+//   joints' anchors and world axes live in its own column of shared memory
+//   (12 values a joint) rather than in registers.
 // - The chain's constants (axes, offsets, COMs, masses, inertias, springs,
 //   dampers, gravity; ops/kte_step.py::chain_table packs them) are a kernel
 //   parameter passed by value (__grid_constant__): with the loops unrolled,
 //   every read is a constant-bank operand.
-// - K1's series stays on the tile: column d of S by direction d, then row d
-//   of Ad, Bd, cd and x_new, through shared memory.
-// Three alternatives were measured slower on the H100 and are not kept
-// (PERF.md §6): each direction computing the primal parts itself, one code
-// for both kinds of direction, and each direction starting at its own joint
-// (less arithmetic, but the warps of a block then go through the code out
-// of step).
+// - K1's series stays on the tile: the columns of ∂q̈/∂x and M⁻¹ into the
+//   rows the anchors leave, column d of S by direction d, then row d of Ad,
+//   Bd, cd and x_new, each step between block barriers with every thread
+//   working.
+// No setmaxnreg: every warp runs the same work, so no warpgroup has
+// registers to give another.  Alternatives measured slower on the H100 and
+// not kept (PERF.md §6): each direction computing the primal parts itself,
+// one code for both kinds of direction, each direction starting at its own
+// joint, and q and q̇ directions on warps of their own with a
+// persistent block walking tiles, the next tile's primal phase in the q̇
+// warps' slack (its loop over tiles cost the q chain spills and length).
 // No tensor cores: every product is per-scenario scalar hyper-dual
 // arithmetic with no operand shared across the batch, and TF32 would miss
 // the f32 bar.  No fast math: sincos stays precise.
@@ -87,8 +97,16 @@
 
 #include <cstring>
 #include <type_traits>
+#include <utility>
 
 #include "hyperdual.cuh"
+
+// ops/k1_phases.py times the phases of a stamped copy; here they are empty
+#ifndef REAK_K1_STAMPS
+#define REAK_K1_BEGIN(who)
+#define REAK_K1_STAMP(slot)
+#define REAK_K1_END()
+#endif
 
 namespace reak {
 namespace {
@@ -96,8 +114,12 @@ namespace {
 // joints (= bodies) of the widest compile-time instance; a wider chain runs
 // the runtime-width instance (REAK_RUNTIME, below)
 constexpr int UNROLLED_JOINTS = 16;
-// threads a block, at most: 65,536 registers an SM / 384 = 170 a thread
+// threads a block of the runtime-width instance, at most
 constexpr int STEP_THREADS = 384;
+// threads a block of a compile-time instance, at most
+constexpr int TILE_THREADS = 384;
+// shared memory a block, at most (an H100's 227 KB)
+constexpr int STEP_SHARED = 232448;
 // chain table: J_STRIDE values per joint, then gravity (3)
 constexpr int J_TYPE = 0, J_AXIS = 1, J_OFFP = 4, J_OFFQ = 7, J_COM = 11,
               J_MASS = 14, J_INER = 15, J_STIFF = 24, J_REST = 25,
@@ -112,30 +134,75 @@ constexpr int SLOTS = 21;
 constexpr int S_ANC = 0, S_QOFF = 3, S_AXIS = 7, S_SC = 10, S_PPRI = 11,
               S_QREV = 14, S_COM = 18;
 
-// The launch shape of one instance (ops/kte_step.py::launch_shape mirrors
-// it): shared memory in rows of TS values — the factor of M, 1/its
-// diagonal and q̈ in joint order, q̈ in dof order; then the primal phase's
-// anchors, whose rows K1's series (∂q̈/∂x, M⁻¹, S) reuses once every
-// direction is past the kinematics.  TS is a 128 B row (TS0), halved while
-// the block would pass STEP_THREADS.  TS0 and MIN_BLOCKS:
+// The launch shape of a compile-time instance (ops/kte_step.py::
+// launch_shape mirrors it).  A block is one tile of TS scenarios (a 64 B
+// row in f32, 128 B in f64).  Its threads are NV pair slots of TS threads
+// (whole warps; the slots past NV are spare): the thread of slot j runs the
+// q direction j, then the q̇ direction NV + j, for its scenario, so every
+// warp carries the same work and runs one kind of direction at a time.  The
+// first spare slot, or else the last slot, runs the primal kinematics
+// first.  A grid of at most one wave takes the split mode instead
+// (kSplit): a block's latency, not the SMs' throughput, sets its time, so
+// a thread runs one direction: the warps of the pair slots run the q
+// directions, as many warps after them the q̇ ones (slot QD_SLOT + j runs
+// q̇ direction NV + j, taking the primal M's values on its run and
+// factoring M itself), so no warp holds both kinds; with every register
+// its warps may take.
+constexpr int warps_of(int threads) { return (threads + 31) / 32; }
+// REG_WARPS_* (the warps an SM's registers are shared among: 12 gives 168
+// registers a thread, 8 gives 255), TILE_THREADS and StepShape's TS0:
 // ops/kte_variants.py re-measures them.
-constexpr int fit_threads(int ts, int n) {
-  return ts * n <= STEP_THREADS ? ts : fit_threads(ts / 2, n);
+constexpr int REG_WARPS_NARROW = 12;  // f32 chains of at most six joints
+constexpr int REG_WARPS_WIDE = 8;     // the others
+// shared rows of TS values a tile: the primal kinematics' anchors, whose
+// rows K1's ∂q̈/∂x, M⁻¹ and S reuse once every run is done
+constexpr int tile_rows(int nj, int nv, bool core) {
+  return core || 2 * SLOTS * nj >= 7 * nv * nv ? 2 * SLOTS * nj
+                                               : 7 * nv * nv;
+}
+// TS0 halved until the block's threads (`copies` of the pair slots'
+// warps) and rows fit
+constexpr int fit_tile(int ts, int nj, int nv, int copies, bool core,
+                       int size) {
+  return ts == 1 ||
+                 (copies * 32 * warps_of(ts * nv) <= TILE_THREADS &&
+                  tile_rows(nj, nv, core) * ts * size <= STEP_SHARED)
+             ? ts
+             : fit_tile(ts / 2, nj, nv, copies, core, size);
 }
 
-template <typename T, int NJ, int NV, bool kCoreOnly>
+template <typename T, int NJ, int NV, bool kCoreOnly, bool kSplit = false>
 struct StepShape {
   static constexpr int N = 2 * NV;
-  static constexpr int TS0 = int(sizeof(T)) == 4 ? 32 : 16;
-  static constexpr int TS = fit_threads(TS0, N);
-  static constexpr int NT = TS * N;
-  static constexpr int MIN_BLOCKS = 1;
-  static constexpr int CHOL_ROWS = NJ * NJ + 2 * NJ + NV;
-  static constexpr int FK_ROWS = 2 * SLOTS * NJ;
-  static constexpr int SERIES_ROWS = kCoreOnly ? 0 : NV * N + NV * NV + N * N;
-  static constexpr int ROWS =
-      CHOL_ROWS + (FK_ROWS > SERIES_ROWS ? FK_ROWS : SERIES_ROWS);
-  static constexpr int SMEM = ROWS * TS * int(sizeof(T));
+  // the pair slots' warps, and in the split mode as many for the q̇ slots
+  static constexpr int COPIES = kSplit ? 2 : 1;
+  static constexpr int TS0 = 16;
+  static constexpr int TS =
+      fit_tile(TS0, NJ, NV, COPIES, kCoreOnly, int(sizeof(T)));
+  static constexpr int Q_WARPS = warps_of(TS * NV);
+  static constexpr int NT = 32 * Q_WARPS * COPIES;
+  // the split mode's first q̇ slot (0 in the pair mode)
+  static constexpr int QD_SLOT = kSplit ? 32 * Q_WARPS / TS : 0;
+  // a spare slot of the q warps, or else the last direction slot
+  static constexpr int PRIMAL_SLOT =
+      32 * Q_WARPS / TS > NV ? NV : QD_SLOT + NV - 1;
+  static constexpr int ROWS = tile_rows(NJ, NV, kCoreOnly);
+  // the blocks an SM should hold: as many as the registers' warps allow;
+  // one in the split mode, whose grid fills at most one wave
+  static constexpr int REG_WARPS =
+      int(sizeof(T)) == 4 && NJ <= 6 ? REG_WARPS_NARROW : REG_WARPS_WIDE;
+  static constexpr int WANT_BLOCKS =
+      !kSplit && REG_WARPS / (NT / 32) > 1 ? REG_WARPS / (NT / 32) : 1;
+  // each thread's outer parts (δ, εδ) of the joints' anchors and world
+  // axes, 12 values a joint, in shared memory where they fit for all of
+  // those blocks
+  static constexpr bool OUTER_SHARED =
+      (ROWS * TS + 12 * NJ * NT) * int(sizeof(T)) * WANT_BLOCKS <=
+      STEP_SHARED;
+  static constexpr int SMEM =
+      (ROWS * TS + (OUTER_SHARED ? 12 * NJ * NT : 0)) * int(sizeof(T));
+  static constexpr int MIN_BLOCKS =
+      STEP_SHARED / SMEM < WANT_BLOCKS ? STEP_SHARED / SMEM : WANT_BLOCKS;
 };
 
 // the chain table by value
@@ -236,6 +303,9 @@ struct KeepPrimal {  // the primal phase, in Dual numbers
   }
 };
 
+template <class N, int NT>
+struct OuterRef;
+
 template <typename T, int TS>
 struct TakePrimal {  // a direction, in HD or HDq numbers
   const T* sm;
@@ -252,6 +322,76 @@ struct TakePrimal {  // a direction, in HD or HDq numbers
   template <class N>
   __device__ void sincos(const N& a, N& sn, N& cs, int slot) const {
     sincos_of(a, v(slot), e(slot), &sn, &cs);
+  }
+  // an element of OuterJoints reads v and e from these rows itself
+  template <class N, int NT>
+  __device__ void at(const OuterRef<N, NT>&, int) const {}
+};
+
+// ---- a direction's joint anchors and world axes, outer parts in shared
+// memory: element (k, c) keeps δ at o[0] and εδ at o[NT] (this thread's
+// column of rows NT values long, so a warp's threads touch neighbouring
+// words) and reads v and e from the primal phase's anchor rows, which hold
+// what every direction would compute of them ------------------------------
+template <typename T>
+__device__ inline HD<T> with_outer(T v, T e, const T* o, int nt, HD<T>*) {
+  return HD<T>(v, e, o[0], o[nt]);
+}
+template <typename T>
+__device__ inline HDq<T> with_outer(T v, T e, const T* o, int nt, HDq<T>*) {
+  return HDq<T>(v, e, o[nt]);
+}
+template <typename T>
+__device__ inline void keep_outer(T* o, int nt, const HD<T>& x) {
+  o[0] = x.d;
+  o[nt] = x.ed;
+}
+template <typename T>
+__device__ inline void keep_outer(T* o, int nt, const HDq<T>& x) {
+  o[nt] = x.ed;  // an HDq number has no δ part
+}
+
+// the scalar type of a number type N (Dual, HD or HDq)
+template <class N>
+using value_of = std::remove_cv_t<
+    std::remove_reference_t<decltype(std::declval<N&>().v)>>;
+
+template <class N, int NT>
+struct OuterRef {
+  using T = value_of<N>;
+  T* o;        // δ at o[0], εδ at o[NT]
+  const T* a;  // v at a[0], e at a[ts]
+  int ts;
+  __device__ operator N() const {
+    return with_outer(a[0], a[ts], o, NT, static_cast<N*>(nullptr));
+  }
+  __device__ const OuterRef& operator=(const N& x) const {
+    keep_outer(o, NT, x);
+    return *this;
+  }
+};
+
+template <class N, int NT>
+struct OuterJoints {
+  using T = value_of<N>;
+  T* o;           // this thread's word of the first row
+  const T* anc;   // the tile's anchor rows at this thread's scenario
+  int ts, which;  // which: 0 the anchors, 1 the world axes
+  template <class W>
+  __device__ OuterJoints(const W& w, int which_)
+      : o(w.outer + which_ * 6 * W::NJ_ * NT), anc(w.anchors), ts(w.ts),
+        which(which_) {}
+  struct Row {
+    T* o;
+    const T* a;
+    int ts;
+    __device__ OuterRef<N, NT> operator[](int c) const {
+      return {o + 2 * c * NT, a + 2 * c * ts, ts};
+    }
+  };
+  __device__ Row operator[](int k) const {
+    const int slot = k * SLOTS + (which == 0 ? S_ANC : S_AXIS);
+    return {o + 6 * k * NT, anc + 2 * slot * ts, ts};
   }
 };
 
@@ -275,11 +415,13 @@ struct AlongQ {  // the position direction of joint jd: q_jd moves
   __device__ Dual<T> seed_rate(int, T qd) const { return Dual<T>(qd); }
 };
 
-template <typename T>
+template <typename T, bool kPrimalM = false>
 struct AlongQd {  // the velocity direction of joint jd: q̇_jd moves
   using N = HDq<T>;
   using V = HD<T>;
-  static constexpr bool kM = false;  // M does not depend on q̇
+  // M does not depend on q̇: its tangent is 0, its values the primal M's,
+  // which a run takes only where it factors M itself (the split mode)
+  static constexpr bool kM = kPrimalM;
   int jd;
   __device__ N coord(int i, T q, T qd) const { return N(q, qd, T(i == jd)); }
   __device__ V rate(const N& J, int k, T qd) const {
@@ -322,9 +464,13 @@ __device__ inline void fk_joint(const C& ch, int i, const N& qi, N p[3],
   for (int k = 0; k < 4; ++k) an.at(Q[k], sl + S_QOFF + k);
   const int jt = static_cast<int>(c[J_TYPE]);
   if (jt == REVOLUTE || jt == PRISMATIC) {
-    qrot_nc(Q, c + J_AXIS, axg);
+    N ax[3];
+    qrot_nc(Q, c + J_AXIS, ax);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) an.at(axg[k], sl + S_AXIS + k);
+    for (int k = 0; k < 3; ++k) {
+      an.at(ax[k], sl + S_AXIS + k);
+      axg[k] = ax[k];
+    }
     if (jt == REVOLUTE) {
       N sn, cs, qa[4];
       an.sincos(T(0.5) * qi, sn, cs, sl + S_SC);
@@ -338,7 +484,7 @@ __device__ inline void fk_joint(const C& ch, int i, const N& qi, N p[3],
     } else {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        p[k] = p[k] + qi * axg[k];
+        p[k] = p[k] + qi * ax[k];
         an.at(p[k], sl + S_PPRI + k);
       }
     }
@@ -425,19 +571,28 @@ struct SlotUpper {
 };
 
 // One direction's arrays at compile-time widths: M (above its diagonal)
-// and f in Dual numbers, the factor of the primal M and q̈ (direction 0),
-// the solves' vectors and the series' three.  Joints3<X>: a per-joint
-// array of three, fresh for each run of the kinematics (the anchors and
-// world axes, the Jacobian columns).
-template <typename T, int NJ, int N>
+// and f in Dual numbers, the factor of the primal M (L, 1/diag) and q̈, the
+// solves' vectors and the series' three.  Joints3<X>: a per-joint array of
+// three, fresh for each run of the kinematics: the Jacobian columns in
+// registers; the anchors and world axes in registers (OUTER_NT = 0) or
+// their outer parts in rows of OUTER_NT values in shared memory
+// (OuterJoints: `outer` at this thread's word, `anchors` the tile's anchor
+// rows at its scenario, `ts` values a row).
+template <typename T, int NJ, int N, int OUTER_NT = 0>
 struct DirRegs {
+  static constexpr int NJ_ = NJ;
   template <typename X>
-  using Joints3 = Regs2<X, NJ, 3>;
+  using Joints3 =
+      std::conditional_t<OUTER_NT != 0 && !std::is_same_v<X, Dual<T>>,
+                         OuterJoints<X, OUTER_NT>, Regs2<X, NJ, 3>>;
   Regs2<Dual<T>, NJ, NJ> M;
   Regs1<Dual<T>, NJ> f;
   Regs2<T, NJ, NJ> L;
-  Regs1<T, NJ> qdd, rhs, y, col;
+  Regs1<T, NJ> qdd, rhs, y, invd;
   Regs1<T, N> Scol, term, tmp;
+  T* outer = nullptr;
+  const T* anchors = nullptr;
+  int ts = 0;
 };
 
 // (M, f) of the chain and their outer tangents along the direction `dir`,
@@ -491,12 +646,18 @@ __device__ inline void terms(const Ch& ch, int NJ, const Jt& jt, const Xs& xq,
             an.at(axg[k][c], k * SLOTS + S_AXIS + c);
           }
         }
+        N ak[3], gk[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          ak[c] = anc[k][c];
+          gk[c] = axg[k][c];
+        }
         if (jt[k] == REVOLUTE) {
           N r[3];
 #pragma unroll
-          for (int c = 0; c < 3; ++c) r[c] = com[c] - anc[k][c];
-          cross_nn(axg[k], r, Jv);
-          qrot_inv_nn<N, T>(Q, axg[k], Jw);
+          for (int c = 0; c < 3; ++c) r[c] = com[c] - ak[c];
+          cross_nn(gk, r, Jv);
+          qrot_inv_nn<N, T>(Q, gk, Jw);
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
             v[c] = v[c] + dir.rate(Jv[c], k, xqd[k]);
@@ -505,7 +666,7 @@ __device__ inline void terms(const Ch& ch, int NJ, const Jt& jt, const Xs& xq,
         } else {
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            Jv[c] = axg[k][c];
+            Jv[c] = gk[c];
             Jw[c] = N(T(0));
             v[c] = v[c] + dir.rate(Jv[c], k, xqd[k]);
           }
@@ -598,9 +759,10 @@ __device__ inline void primal_phase(const Ch& ch, int NJ, const Jt& jt,
   }
 }
 
-// The factor of the primal M and q̈ = M⁻¹(f + u), once per scenario (by
-// direction 0, whose run holds every body's share of the primal M and f),
-// into the scenario rows: L below the diagonal (row i·NJ + j), 1/diag at row
+// The runtime-width instance's factor of the primal M and q̈ = M⁻¹(f + u),
+// once per scenario (by direction 0, whose run holds every body's share of
+// the primal M and f; the compile-time kernel's threads each factor their
+// own, factor_own), into the scenario rows: L below the diagonal (row i·NJ + j), 1/diag at row
 // NJ·NJ + i, q̈ in joint order at NJ·NJ + NJ + i and in dof order at
 // NJ·NJ + 2NJ + dof.  A FIXED joint's row and column are the identity's.
 // K5 also stores q̈.
@@ -678,8 +840,9 @@ __device__ inline void chol_apply_shared(const T* chol, int s, int NJ, int TS,
 }
 
 // Direction d's column of ∂q̈/∂x = M⁻¹(∂f − ∂M q̈), and for d < nv a column
-// of M⁻¹, with the factor from the scenario rows: into K1's series rows, or
-// (K5) straight to device memory in the TPU kernel's layout.
+// of M⁻¹, with the factor from the scenario rows (the runtime-width
+// instance): into K1's series rows, or (K5) straight to device memory in
+// the TPU kernel's layout.
 template <bool kCoreOnly, typename T, class W, class Jt>
 __device__ inline void dqdd_column(int d, int NJ, int NV, int TS, W& dw,
                                    const Jt& jt, const Jt& dof, const T* chol,
@@ -803,8 +966,300 @@ __device__ inline void step_row(int d, int NV, int TS, const Xv& xv,
   }
 }
 
-// kCoreOnly (K5) reuses the output pointers: Ad ← ∂q̈/∂x (nv, n, B),
-// Bd ← M⁻¹ (nv, nv, B), cd ← q̈ (nv, B); xn, dt and order are not read.
+// ---- the compile-time kernel's own steps ----------------------------------
+// scenario b's q and q̇ by joint (0 for a FIXED joint)
+template <typename T, int NJ, int NV>
+__device__ inline void load_state(const T* x, int B, int b,
+                                  const int (&jt)[NJ], const int (&dof)[NJ],
+                                  T (&xq)[NJ], T (&xqd)[NJ]) {
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    xq[i] = jt[i] == FIXED ? T(0) : x[dof[i] * B + b];
+    xqd[i] = jt[i] == FIXED ? T(0) : x[(NV + dof[i]) * B + b];
+  }
+}
+
+// the joint whose q (d < NV) or q̇ direction d moves
+template <int NJ, int NV>
+__device__ inline int joint_of(const int (&dof)[NJ], int d) {
+  const int want = d < NV ? d : d - NV;
+  int jd = 0;
+#pragma unroll
+  for (int i = 0; i < NJ; ++i)
+    if (dof[i] == want) jd = i;
+  return jd;
+}
+
+// The factor of the primal M and q̈ = M⁻¹(f + u) in this thread's registers,
+// with factor_and_solve's arithmetic: a q direction's run holds the primal
+// M and f (their values), so each thread factors its own.  K5's q̈ is
+// stored by the thread of `store`.
+template <bool kCoreOnly, typename T, class W, class Jt>
+__device__ inline void factor_own(int NJ, W& dw, const Jt& jt, const Jt& dof,
+                                  const T* u, int B, int b, bool store,
+                                  T* qdd_out) {
+  auto& M = dw.M;
+  auto& f = dw.f;
+  auto& L = dw.L;
+  auto& rhs = dw.rhs;
+  auto& y = dw.y;
+  auto& qdd = dw.qdd;
+  auto& invd = dw.invd;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    T sj = jt[j] == FIXED ? T(1) : M[j][j].v;
+#pragma unroll
+    for (int k = 0; k < j; ++k) sj -= L[j][k] * L[j][k];
+    const T dj = T(1) / sqrt(sj);
+    invd[j] = dj;
+    L[j][j] = sj * dj;
+#pragma unroll
+    for (int i = j + 1; i < NJ; ++i) {
+      T t = M[j][i].v;
+#pragma unroll
+      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
+      L[i][j] = t * dj;
+    }
+    rhs[j] = jt[j] == FIXED ? T(0) : f[j].v + u[dof[j] * B + b];
+  }
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    T t = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) t -= L[i][k] * y[k];
+    y[i] = t * invd[i];
+  }
+#pragma unroll
+  for (int i = NJ - 1; i >= 0; --i) {
+    T t = y[i];
+#pragma unroll
+    for (int k = i + 1; k < NJ; ++k) t -= L[k][i] * qdd[k];
+    qdd[i] = t * invd[i];
+    if constexpr (kCoreOnly)
+      if (store && jt[i] != FIXED) qdd_out[dof[i] * B + b] = qdd[i];
+  }
+}
+
+// one right-hand side through this thread's factor
+template <class W, class R, class Y, class O>
+__device__ inline void chol_apply_own(int NJ, W& dw, R& rhs, Y& y, O& out) {
+  using T = std::remove_reference_t<decltype(dw.invd[0])>;
+  auto& L = dw.L;
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    T t = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) t -= L[i][k] * y[k];
+    y[i] = t * dw.invd[i];
+  }
+#pragma unroll
+  for (int i = NJ - 1; i >= 0; --i) {
+    T t = y[i];
+#pragma unroll
+    for (int k = i + 1; k < NJ; ++k) t -= L[k][i] * out[k];
+    out[i] = t * dw.invd[i];
+  }
+}
+
+// dqdd_column's arithmetic on this thread's factor and q̈: direction d's
+// columns into `dq` and (a q direction, kQ) `mi`, by joint
+template <bool kQ, typename T, class W, class Jt, class C>
+__device__ inline void columns_own(int d, int NJ, W& dw, const Jt& jt,
+                                   const Jt& dof, C& dq, C& mi) {
+  auto& M = dw.M;
+  auto& f = dw.f;
+  auto& rhs = dw.rhs;
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    T t = f[k].t;
+    if constexpr (kQ) {  // M moves only along q
+#pragma unroll
+      for (int l = 0; l < NJ; ++l)
+        t -= (k <= l ? M[k][l].t : M[l][k].t) * dw.qdd[l];
+    }
+    rhs[k] = jt[k] == FIXED ? T(0) : t;
+  }
+  chol_apply_own(NJ, dw, rhs, dw.y, dq);
+  if constexpr (kQ) {
+#pragma unroll
+    for (int k = 0; k < NJ; ++k) rhs[k] = T(dof[k] == d);
+    chol_apply_own(NJ, dw, rhs, dw.y, mi);
+  }
+}
+
+// Direction d's columns by joint to K1's series rows (∂q̈/∂x, and M⁻¹ for
+// d < NV) or K5's outputs in the TPU kernel's layout
+template <bool kCoreOnly, typename T, class Jt, class C>
+__device__ inline void store_columns(int d, int NJ, int NV, int TS,
+                                     const Jt& jt, const Jt& dof, C& dq,
+                                     C* mi, T* ser, T* Ad, T* Bd, int B,
+                                     int b, bool live, int s) {
+  const int N = 2 * NV, R_MINV = NV * N;
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    if (jt[k] == FIXED) continue;
+    if constexpr (kCoreOnly) {
+      if (live) {
+        Ad[(dof[k] * N + d) * B + b] = dq[k];
+        if (mi) Bd[(dof[k] * NV + d) * B + b] = (*mi)[k];
+      }
+    } else {
+      ser[(dof[k] * N + d) * TS + s] = dq[k];
+      if (mi) ser[(R_MINV + dof[k] * NV + d) * TS + s] = (*mi)[k];
+    }
+  }
+}
+
+// The compile-time kernel: one block a tile of TS scenarios.  After the
+// primal phase (one slot, once a tile), every thread runs, with no barrier
+// between them: its q direction's M, f and tangents, its own factor of M
+// and q̈, that direction's columns of ∂q̈/∂x and M⁻¹; then its q̇
+// direction's run and column (kSplit: a thread runs one of the two, a q̇
+// one taking the primal M on its run and factoring it).  K1 then writes
+// the columns to the rows the anchors leave (a barrier before and after),
+// takes its directions' columns of S, and their rows of Ad, Bd, cd and
+// x_new, each step with every thread working.  kCoreOnly (K5) reuses the
+// output pointers: Ad ← ∂q̈/∂x (nv, n, B), Bd ← M⁻¹ (nv, nv, B), cd ← q̈
+// (nv, B); xn, dt and order are not read; it stores its columns as the
+// runs end.
+template <typename T, int NJ, int NV, bool kCoreOnly, bool kSplit>
+__device__ __forceinline__ void step_tile(const T* __restrict__ x,
+                                          const T* __restrict__ u,
+                                          const Chain<T, NJ>& ch, double dt,
+                                          int order, T* __restrict__ Ad,
+                                          T* __restrict__ Bd,
+                                          T* __restrict__ cd,
+                                          T* __restrict__ xn, int B) {
+  using Shape = StepShape<T, NJ, NV, kCoreOnly, kSplit>;
+  constexpr int TS = Shape::TS, N = Shape::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const fk = reinterpret_cast<T*>(smem_raw);  // the anchors
+  T* const ser = fk;  // the series' rows, once the anchors are spent
+  T* const outer = fk + Shape::ROWS * TS;  // Shape::OUTER_SHARED only
+  const int t = threadIdx.x;
+  // pair slot j (q direction j, q̇ direction NV + j) or, kSplit, q
+  // direction slot j or q̇ direction slot QD_SLOT + j
+  const int slot = t / TS;
+  const int s = t % TS;
+  const bool in_qd = kSplit && slot >= Shape::QD_SLOT;
+  const int j = in_qd ? slot - Shape::QD_SLOT : slot;  // its dof
+  const bool has_dir = j < NV;
+  const bool run_q = has_dir && !in_qd;
+  const bool run_qd = has_dir && (in_qd || !kSplit);
+  const int b_raw = blockIdx.x * TS + s;
+  const bool live = b_raw < B;
+  const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
+  REAK_K1_BEGIN(s == 0 && (has_dir || slot == Shape::PRIMAL_SLOT) ? slot
+                                                                  : -1);
+
+  // joint types and the dof of each joint (uniform); the state by joint
+  int jt[NJ], dof[NJ];
+  {
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      jt[i] = static_cast<int>(ch.c[i * J_STRIDE + J_TYPE]);
+      dof[i] = jt[i] == FIXED ? -1 : k;
+      k += jt[i] == FIXED ? 0 : 1;
+    }
+  }
+  T xq[NJ], xqd[NJ];
+  load_state<T, NJ, NV>(x, B, b, jt, dof, xq, xqd);
+
+  // ---- the primal phase: the kinematics' value and inner tangent --------
+  if (slot == Shape::PRIMAL_SLOT) {
+    const KeepPrimal<T, TS> keep{fk, s};
+    primal_phase<T>(ch, NJ, jt, xq, xqd, keep);
+  }
+  REAK_K1_STAMP(0);
+  __syncthreads();
+  REAK_K1_STAMP(1);
+
+  // ---- the q run, the factor, its columns; the q̇ run, its column --------
+  DirRegs<T, NJ, N, Shape::OUTER_SHARED ? Shape::NT : 0> dw;
+  dw.outer = outer + t;
+  dw.anchors = fk + s;
+  dw.ts = TS;
+  const TakePrimal<T, TS> take{fk, s};
+  Regs1<T, NJ> dq_q, mi_q, dq_qd;
+  if (run_q) {
+    terms<T>(ch, NJ, jt, xq, xqd, AlongQ<T>{joint_of<NJ, NV>(dof, j)}, take,
+             dw);
+    REAK_K1_STAMP(2);
+    factor_own<kCoreOnly>(NJ, dw, jt, dof, u, B, b, live && slot == 0, cd);
+    REAK_K1_STAMP(3);
+    columns_own<true, T>(j, NJ, dw, jt, dof, dq_q, mi_q);
+    if constexpr (kCoreOnly)
+      store_columns<true, T>(j, NJ, NV, TS, jt, dof, dq_q, &mi_q, ser, Ad,
+                             Bd, B, b, live, s);
+    REAK_K1_STAMP(4);
+  }
+  if (run_qd) {
+    const int jd = joint_of<NJ, NV>(dof, NV + j);
+    if constexpr (kSplit) {
+      terms<T>(ch, NJ, jt, xq, xqd, AlongQd<T, true>{jd}, take, dw);
+      factor_own<kCoreOnly>(NJ, dw, jt, dof, u, B, b, false, cd);
+    } else {
+      terms<T>(ch, NJ, jt, xq, xqd, AlongQd<T>{jd}, take, dw);
+    }
+    REAK_K1_STAMP(5);
+    columns_own<false, T>(NV + j, NJ, dw, jt, dof, dq_qd, dq_qd);
+    if constexpr (kCoreOnly)
+      store_columns<true, T>(NV + j, NJ, NV, TS, jt, dof, dq_qd,
+                             static_cast<Regs1<T, NJ>*>(nullptr), ser,
+                             Ad, Bd, B, b, live, s);
+    REAK_K1_STAMP(6);
+  }
+  if constexpr (kCoreOnly) {
+    REAK_K1_END();
+    return;  // K5 ends here, no barrier follows
+  }
+  __syncthreads();  // every run is done with the anchors
+  REAK_K1_STAMP(7);
+  if (run_q)
+    store_columns<false, T>(j, NJ, NV, TS, jt, dof, dq_q, &mi_q, ser, Ad,
+                            Bd, B, b, live, s);
+  if (run_qd)
+    store_columns<false, T>(NV + j, NJ, NV, TS, jt, dof, dq_qd,
+                            static_cast<Regs1<T, NJ>*>(nullptr), ser,
+                            Ad, Bd, B, b, live, s);
+  REAK_K1_STAMP(8);
+  __syncthreads();
+  REAK_K1_STAMP(9);
+
+  // ---- its directions' columns of S -------------------------------------
+  if (run_q) series_column(j, NV, TS, dw, dt, order, ser, s);
+  if (run_qd) series_column(NV + j, NV, TS, dw, dt, order, ser, s);
+  REAK_K1_STAMP(10);
+  __syncthreads();
+  REAK_K1_STAMP(11);
+
+  // ---- its directions' rows of Ad, Bd, x_new, cd ------------------------
+  if (has_dir) {
+    T xv[N], uv[NV], f0[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) xv[k] = x[k * B + b];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      uv[k] = u[k * B + b];
+      f0[k] = xv[NV + k];
+      T q = T(0);  // q̈ of dof k, from this thread's q̈ by joint
+#pragma unroll
+      for (int i = 0; i < NJ; ++i)
+        if (dof[i] == k) q = dw.qdd[i];
+      f0[NV + k] = q;
+    }
+    if (run_q)
+      step_row(j, NV, TS, xv, uv, f0, x, ser, Ad, Bd, cd, xn, B, b, live, s);
+    if (run_qd)
+      step_row(NV + j, NV, TS, xv, uv, f0, x, ser, Ad, Bd, cd, xn, B, b,
+               live, s);
+  }
+  REAK_K1_STAMP(12);
+  REAK_K1_END();
+}
+
+// the kernels of the two modes, each with its own launch bounds
 template <typename T, int NJ, int NV, bool kCoreOnly>
 __global__ void __launch_bounds__(StepShape<T, NJ, NV, kCoreOnly>::NT,
                                   StepShape<T, NJ, NV, kCoreOnly>::MIN_BLOCKS)
@@ -812,78 +1267,20 @@ __global__ void __launch_bounds__(StepShape<T, NJ, NV, kCoreOnly>::NT,
                     const __grid_constant__ Chain<T, NJ> ch, double dt,
                     int order, T* __restrict__ Ad, T* __restrict__ Bd,
                     T* __restrict__ cd, T* __restrict__ xn, int B) {
-  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
-  constexpr int TS = Shape::TS, N = Shape::N;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* chol = reinterpret_cast<T*>(smem_raw);
-  T* fk = chol + Shape::CHOL_ROWS * TS;
-  T* ser = fk;  // the series' rows, once the anchors are spent
-  constexpr int R_QDOF = NJ * NJ + 2 * NJ;
-  const int s = threadIdx.x;
-  const int d = threadIdx.y;  // outer tangent direction, 0..n-1
-  const int b_raw = blockIdx.x * TS + s;
-  const bool live = b_raw < B;
-  const int b = live ? b_raw : B - 1;  // the ragged edge computes, never stores
+  step_tile<T, NJ, NV, kCoreOnly, false>(x, u, ch, dt, order, Ad, Bd, cd, xn,
+                                         B);
+}
 
-  // joint types and the dof of each joint (uniform); the state by joint;
-  // jd: the joint the direction moves
-  int jt[NJ], dof[NJ], jd = 0;
-  T xq[NJ], xqd[NJ];
-  {
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      jt[i] = static_cast<int>(ch.c[i * J_STRIDE + J_TYPE]);
-      dof[i] = jt[i] == FIXED ? -1 : k;
-      xq[i] = jt[i] == FIXED ? T(0) : x[k * B + b];
-      xqd[i] = jt[i] == FIXED ? T(0) : x[(NV + k) * B + b];
-      if (dof[i] == (d < NV ? d : d - NV)) jd = i;
-      k += jt[i] == FIXED ? 0 : 1;
-    }
-  }
-
-  // ---- M, f and their tangents along this direction; q̈ once a scenario --
-  DirRegs<T, NJ, N> dw;
-  // the primal phase, by the direction with the least work of its own (the
-  // last q̇): the kinematics' value and inner tangent into shared memory
-  if (d == N - 1) {
-    const KeepPrimal<T, TS> keep{fk, s};
-    primal_phase<T>(ch, NJ, jt, xq, xqd, keep);
-  }
-  __syncthreads();
-  const TakePrimal<T, TS> take{fk, s};
-  if (d < NV)
-    terms<T>(ch, NJ, jt, xq, xqd, AlongQ<T>{jd}, take, dw);
-  else
-    terms<T>(ch, NJ, jt, xq, xqd, AlongQd<T>{jd}, take, dw);
-  // direction 0 moves the first joint with a dof, so its run holds every
-  // body's share of the primal M and f: it factors M and solves for q̈
-  if (d == 0)
-    factor_and_solve<kCoreOnly>(NJ, TS, dw, jt, dof, u, B, b, live, chol, cd,
-                                s);
-  __syncthreads();
-
-  // ---- this direction's column of ∂q̈/∂x, and a column of M⁻¹ ------------
-  dqdd_column<kCoreOnly>(d, NJ, NV, TS, dw, jt, dof, chol, ser, Ad, Bd, B, b,
-                         live, s);
-  if constexpr (kCoreOnly) return;  // K5 ends here, no barrier follows
-  __syncthreads();
-
-  // ---- column d of S ------------------------------------------------------
-  series_column(d, NV, TS, dw, dt, order, ser, s);
-  __syncthreads();
-
-  // ---- row d of Ad = I + A S, Bd = S B, x_new = x + S f0, cd -------------
-  T xv[N], uv[NV], f0[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) xv[i] = x[i * B + b];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    uv[i] = u[i * B + b];
-    f0[i] = xv[NV + i];
-    f0[NV + i] = chol[(R_QDOF + i) * TS + s];
-  }
-  step_row(d, NV, TS, xv, uv, f0, x, ser, Ad, Bd, cd, xn, B, b, live, s);
+template <typename T, int NJ, int NV, bool kCoreOnly>
+__global__ void __launch_bounds__(
+    StepShape<T, NJ, NV, kCoreOnly, true>::NT,
+    StepShape<T, NJ, NV, kCoreOnly, true>::MIN_BLOCKS)
+    kte_split_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                     const __grid_constant__ Chain<T, NJ> ch, double dt,
+                     int order, T* __restrict__ Ad, T* __restrict__ Bd,
+                     T* __restrict__ cd, T* __restrict__ xn, int B) {
+  step_tile<T, NJ, NV, kCoreOnly, true>(x, u, ch, dt, order, Ad, Bd, cd, xn,
+                                        B);
 }
 
 // the table as the kernel parameter: chain_table's values, in order
@@ -894,23 +1291,23 @@ inline Chain<T, NJ> chain_of(const void* table) {
   return ch;
 }
 
-template <typename T, int NJ, int NV, bool kCoreOnly>
+template <typename T, int NJ, int NV, bool kCoreOnly, bool kSplit>
 int launch(const void* x, const void* u, const void* table, int nj, int nv,
            double dt, int order, void* Ad, void* Bd, void* cd, void* xn,
            int B, int smem_bytes, void* stream) {
-  using Shape = StepShape<T, NJ, NV, kCoreOnly>;
+  using Shape = StepShape<T, NJ, NV, kCoreOnly, kSplit>;
   // the wrapper's launch shape (ops/kte_step.py) must be this instance's
   if (nj != NJ || nv != NV || order < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem_bytes != Shape::SMEM)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = kte_step_kernel<T, NJ, NV, kCoreOnly>;
+  auto kernel = kSplit ? kte_split_kernel<T, NJ, NV, kCoreOnly>
+                       : kte_step_kernel<T, NJ, NV, kCoreOnly>;
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  dim3 block(Shape::TS, Shape::N);
-  dim3 grid((B + Shape::TS - 1) / Shape::TS);
-  kernel<<<grid, block, Shape::SMEM, static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (B + Shape::TS - 1) / Shape::TS;
+  kernel<<<grid, Shape::NT, Shape::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(u),
       chain_of<T, NJ>(table), dt, order, static_cast<T*>(Ad),
       static_cast<T*>(Bd), static_cast<T*>(cd), static_cast<T*>(xn), B);
@@ -927,6 +1324,18 @@ int occupancy(int* blocks) {
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, Shape::NT, Shape::SMEM));
+}
+
+// the launch shape this library was built with: TS, NT, SMEM, PRIMAL_SLOT,
+// OUTER_SHARED, MIN_BLOCKS (ops/kte_step.py::SHAPE_FIELDS)
+template <typename T, int NJ, int NV, bool kCoreOnly, bool kSplit>
+int shape_of(int* out) {
+  using Shape = StepShape<T, NJ, NV, kCoreOnly, kSplit>;
+  const int v[6] = {Shape::TS,          Shape::NT,
+                    Shape::SMEM,        Shape::PRIMAL_SLOT,
+                    Shape::OUTER_SHARED, Shape::MIN_BLOCKS};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 #ifdef REAK_RUNTIME
@@ -1254,28 +1663,52 @@ static_assert(REAK_NMAX >= 1 && REAK_NMAX <= reak::UNROLLED_JOINTS && REAK_MMAX 
 extern "C" {
 
 // The entry points of this library's chain width and type:
-// reak_kte_step_<NJ>x<NV>_<type> (K1), reak_kte_core_<NJ>x<NV>_<type> (K5)
-// and reak_kte_occupancy_<NJ>x<NV>_<type> (blocks an SM of either).
+// reak_kte_step_<NJ>x<NV>_<type> (K1), reak_kte_core_<NJ>x<NV>_<type> (K5),
+// their split modes reak_kte_step_split_… and reak_kte_core_split_…,
+// reak_kte_occupancy_<NJ>x<NV>_<type> (blocks an SM of K1 or K5) and
+// reak_kte_shape_<NJ>x<NV>_<type> (the launch shape of any of the four).
 #define REAK_KTE_ENTRY(NJ, NV, T, SUFFIX)                                    \
   int reak_kte_step_##NJ##x##NV##_##SUFFIX(                                  \
       const void* x, const void* u, const void* table, int nj, int nv,       \
       double dt, int order, void* Ad, void* Bd, void* cd, void* xn, int B,   \
       int smem_bytes, void* stream) {                                        \
-    return reak::launch<T, NJ, NV, false>(x, u, table, nj, nv, dt, order,    \
-                                          Ad, Bd, cd, xn, B, smem_bytes,     \
-                                          stream);                           \
+    return reak::launch<T, NJ, NV, false, false>(                            \
+        x, u, table, nj, nv, dt, order, Ad, Bd, cd, xn, B, smem_bytes,       \
+        stream);                                                             \
   }                                                                          \
   int reak_kte_core_##NJ##x##NV##_##SUFFIX(                                  \
       const void* x, const void* u, const void* table, int nj, int nv,       \
       void* qdd, void* dqdd, void* minv, int B, int smem_bytes,              \
       void* stream) {                                                        \
-    return reak::launch<T, NJ, NV, true>(x, u, table, nj, nv, 0.0, 1, dqdd,  \
-                                         minv, qdd, nullptr, B, smem_bytes,  \
-                                         stream);                            \
+    return reak::launch<T, NJ, NV, true, false>(x, u, table, nj, nv, 0.0, 1, \
+                                                dqdd, minv, qdd, nullptr, B, \
+                                                smem_bytes, stream);         \
+  }                                                                          \
+  int reak_kte_step_split_##NJ##x##NV##_##SUFFIX(                            \
+      const void* x, const void* u, const void* table, int nj, int nv,       \
+      double dt, int order, void* Ad, void* Bd, void* cd, void* xn, int B,   \
+      int smem_bytes, void* stream) {                                        \
+    return reak::launch<T, NJ, NV, false, true>(                             \
+        x, u, table, nj, nv, dt, order, Ad, Bd, cd, xn, B, smem_bytes,       \
+        stream);                                                             \
+  }                                                                          \
+  int reak_kte_core_split_##NJ##x##NV##_##SUFFIX(                            \
+      const void* x, const void* u, const void* table, int nj, int nv,       \
+      void* qdd, void* dqdd, void* minv, int B, int smem_bytes,              \
+      void* stream) {                                                        \
+    return reak::launch<T, NJ, NV, true, true>(x, u, table, nj, nv, 0.0, 1,  \
+                                               dqdd, minv, qdd, nullptr, B,  \
+                                               smem_bytes, stream);          \
   }                                                                          \
   int reak_kte_occupancy_##NJ##x##NV##_##SUFFIX(int core, int* blocks) {     \
     return core ? reak::occupancy<T, NJ, NV, true>(blocks)                   \
                 : reak::occupancy<T, NJ, NV, false>(blocks);                 \
+  }                                                                          \
+  int reak_kte_shape_##NJ##x##NV##_##SUFFIX(int core, int split, int* out) { \
+    return core ? (split ? reak::shape_of<T, NJ, NV, true, true>(out)        \
+                         : reak::shape_of<T, NJ, NV, true, false>(out))      \
+                : (split ? reak::shape_of<T, NJ, NV, false, true>(out)       \
+                         : reak::shape_of<T, NJ, NV, false, false>(out));    \
   }
 #define REAK_KTE_ENTRY_OF(NJ, NV, T, SUFFIX) REAK_KTE_ENTRY(NJ, NV, T, SUFFIX)
 

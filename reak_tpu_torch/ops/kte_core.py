@@ -13,11 +13,12 @@ library, or ``reak_kte_core_any_<type>`` of the runtime-width instance past
 
 What bounds it on the H100, and what the design does about it, is K1's
 (``ops/kte_step.py``): the hyper-dual kinematics of n directions a
-scenario, bound by per-thread state and latency (likely also the
-instruction stream); the kernel runs at compile-time chain widths, a warp
-of 32 scenarios per direction, the work all directions share done once per
-scenario, the q and q̇ directions on code of their own.  Each direction
-writes its column of ∂q̈/∂x (and of M⁻¹) straight to device memory.
+scenario, bound by the latency of each direction's chain; the kernel runs
+at compile-time chain widths, a block a tile of 16 scenarios × nv pair
+slots, each thread running a q direction (and its own factor of M) and
+then a q̇ direction, the work all directions share done once per scenario.
+Each thread writes its columns of ∂q̈/∂x (and of M⁻¹) straight to device
+memory as its runs end.
 """
 from __future__ import annotations
 

@@ -7,32 +7,36 @@ its LTV linearization — the Hopper port of the Pallas kernel
 launches ``csrc/kte_step.cu``; on CPU tensors it takes the plain version,
 ``make_step_plain`` (the step of ``kte/lanes.make_rollout_ltv_lanes``).
 
-What bounds it on the H100 is per-thread state and latency (likely also
-the instruction stream), not memory: a scenario moves ~100 values but
+What bounds it on the H100 is latency: a scenario moves ~100 values but
 evaluates the chain's kinematics in hyper-dual numbers along each of its n
-state directions.  The kernel is a template on the chain's widths (joints,
-dofs), built at first use into a library of its own per width and type
-(``kte_step@6x6_f32``), so its chain loops unroll and its per-joint arrays
-are indexed by constants (registers, with what exceeds them spilled).  A
-block is a tile of TS scenarios × n directions (a warp is 32 scenarios of
-one direction in f32); the value and inner tangent of the
-kinematics are computed once per scenario and shared through shared memory,
-as are the factor of M and q̈; the q and q̇ directions run code of their own
-(a q̇ direction moves no position and skips M); the chain's constants are a
-kernel parameter passed by value.  Chains of up to 16 joints run their
-compile-time instance (REVOLUTE, PRISMATIC and FIXED joints, offsets,
-springs, dampers, full inertia tensors), at any B ≥ 1, in float32 and
-float64; the tile halves where a block would pass 384 threads (8 scenarios
-at 16 dofs).  A wider fixed-base chain runs the runtime-width instance of
-its type (``kte_step@any_<type>``): the same recurrences with the joints
-and dofs as arguments, its per-scenario and per-direction work in a
-device-memory area that the wrapper allocates (a grid of at most
+state directions, a long dependent chain per direction.  The kernel is a
+template on the chain's widths (joints, dofs), built at first use into a
+library of its own per width and type (``kte_step@6x6_f32``), so its chain
+loops unroll and its per-joint arrays are indexed by constants.  A block is
+a tile of 16 scenarios × nv pair slots: each thread runs its q direction,
+factors M and solves for q̈ itself, then runs its q̇ direction (a q̇ run is
+under half a q run), so every warp carries the same work and a (6, 6) f32
+batch of 8192 runs in one wave (a grid under one wave, whose time one
+block's latency sets, takes the split mode instead: a thread a direction,
+``split_mode``); the value and inner tangent of the
+kinematics are computed once per scenario (one slot, first) and shared
+through shared memory, where each thread also keeps the outer parts of its
+joints' anchors and axes; the chain's constants are a kernel parameter
+passed by value.  Chains of up to 16 joints run their compile-time instance
+(REVOLUTE, PRISMATIC and FIXED joints, offsets, springs, dampers, full
+inertia tensors), at any B ≥ 1, in float32 and float64; the tile halves
+where a block would pass ``TILE_THREADS`` threads or the shared memory.  A
+wider fixed-base chain runs the runtime-width instance of its type
+(``kte_step@any_<type>``, on the earlier design of a warp a direction):
+the same recurrences with the joints and dofs as arguments, its
+per-scenario and per-direction work in a device-memory area that the
+wrapper allocates (a grid of at most
 ``RT_GRID`` blocks walks the batch, so the area does not grow with B), a
 thread taking several directions where TS × n would pass the block's
 threads.  The instance is chosen, and a free-base chain refused, at the first
 call on a device tensor, so a caller on CPU tensors never needs one.
-``ops/kte_variants.py`` re-measures the tile (TS) and the blocks an SM that
-``__launch_bounds__`` asks for.
+``ops/kte_variants.py`` re-measures the knobs of the launch shape;
+``ops/k1_phases.py`` splits a launch's cycles by phase.
 
 ``launch_shape`` mirrors the source's ``StepShape`` and ``rt_shape``: the
 wrapper hands the shared-memory size (or the runtime instance's tile, grid
@@ -42,6 +46,7 @@ differ.  ``chain_table`` is the one place that packs the chain's constants.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,9 +57,17 @@ from reak_tpu_torch.kte.spec import ChainSpec, JointType, FIXED, FREE
 from reak_tpu_torch.ops import _build
 
 UNROLLED_JOINTS = 16  # csrc/kte_step.cu: the widest compile-time instance
-STEP_THREADS = 384  # csrc/kte_step.cu: threads a block, at most
+STEP_THREADS = 384  # csrc/kte_step.cu: threads a runtime-width block, at most
+TILE_THREADS = 384  # csrc/kte_step.cu: threads a compile-time block, at most
+STEP_SHARED = 232448  # csrc/kte_step.cu: shared bytes a block, at most
+REGISTERS = 65536  # 32-bit registers an SM of an H100
 SLOTS = 21  # csrc/kte_step.cu: the values a joint leaves for the directions
 RT_GRID = 264  # csrc/kte_step.cu: blocks of a runtime-width launch, at most
+# csrc/kte_step.cu's knobs (ops/kte_variants.py re-measures them): the warps
+# an SM's registers are shared among for f32 chains of at most six joints
+# and for the others
+REG_WARPS_NARROW = 12
+REG_WARPS_WIDE = 8
 
 # launches of the kernel since the count was last set to 0
 launches = 0
@@ -90,43 +103,81 @@ class StepShape:
     """The launch shape of one instance (``csrc/kte_step.cu::StepShape``,
     or ``rt_shape`` for the runtime-width instance)."""
     widths: tuple   # (NJ, NV)
-    scenarios: int  # TS, scenarios a block
-    threads: int    # TS × directions a pass (a warp of scenarios per direction)
+    scenarios: int  # TS, scenarios a tile (a block of a compile-time launch)
+    threads: int    # threads a block
     shared_bytes: int
     runtime: bool = False  # the runtime-width instance
     directions: int = 0    # dy: direction threads a scenario (runtime)
     block_values: int = 0  # the work area of a block (runtime)
+    # compile-time instances: the slot that runs the primal kinematics,
+    # whether the anchors' and axes' outer parts are in shared memory, the
+    # blocks an SM that __launch_bounds__ asks for and the registers a
+    # thread that leaves
+    primal_slot: int = 0
+    outer_shared: bool = False
+    blocks_per_sm: int = 1
+    registers: int = 0
+    split: bool = False  # the split mode of a compile-time instance
 
     def blocks(self, B: int) -> int:
+        """Blocks of a launch over B scenarios: its tiles (a runtime
+        launch: at most ``RT_GRID``, which walk the tiles)."""
         tiles = -(-B // self.scenarios)
         return min(tiles, RT_GRID) if self.runtime else tiles
 
     def work_values(self, B: int) -> int:
         """Values of the device-memory work area a launch over B scenarios
         takes (0 for a compile-time instance)."""
-        return self.blocks(B) * self.block_values
+        return self.blocks(B) * self.block_values if self.runtime else 0
 
 
-def launch_shape(nj: int, nv: int, dtype, core: bool = False) -> StepShape:
-    """Scenarios a block, threads and shared memory of the instance (nj, nv)
-    in ``dtype``: rows of TS values for the factor of M, 1/its diagonal and
-    q̈ (joint and dof order), then the larger of the kinematics' anchors
-    (value and inner tangent, SLOTS a joint) and K1's series (∂q̈/∂x, M⁻¹,
-    S), which reuses their rows.  TS is 32 in float32 and 16 in float64 (one
-    128 B row), halved while the block would pass ``STEP_THREADS``.  Past
-    ``UNROLLED_JOINTS`` joints the rows lie in the runtime instance's work
-    area instead, beside each (direction, scenario) slot's own work (M and
-    f in Dual numbers, the anchors and axes in HD, the Jacobian columns in
-    Dual, three joint and three state vectors); TS halves down to 1 and a
-    thread takes every ``directions``-th direction."""
+def tile_rows(nj: int, nv: int, core: bool) -> int:
+    """Shared rows of TS values a tile (``kte_step.cu::tile_rows``): the
+    anchors, whose rows K1's series reuses."""
+    fk = 2 * SLOTS * nj
+    return fk if core or fk >= 7 * nv * nv else 7 * nv * nv
+
+
+def registers_a_thread(threads_an_sm: int) -> int:
+    """Registers a thread when an SM runs ``threads_an_sm``: each of its
+    four schedulers has a quarter of the 65,536, and a warp takes whole
+    steps of 8 a thread, at most 255."""
+    warps = -(-threads_an_sm // 32)
+    per_scheduler = -(-warps // 4)
+    return min(255, REGISTERS // 4 // (32 * per_scheduler) // 8 * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(nj: int, nv: int, dtype, core: bool = False,
+                 split: bool = False) -> StepShape:
+    """Scenarios a tile, threads and shared memory of the instance (nj, nv)
+    in ``dtype``.  A compile-time block is one tile: nv pair slots of TS
+    threads, whole warps (the thread of slot j runs the q direction j, then
+    the q̇ direction nv + j); the first spare slot (or the last slot) runs
+    the primal kinematics.  Its shared rows of TS values hold the
+    kinematics' anchors (value and inner tangent, SLOTS a joint), which
+    K1's series (∂q̈/∂x, M⁻¹, S) reuses; then, where they fit, each
+    thread's outer parts of the joints' anchors and axes (12 values a
+    joint).  TS is 16, halved while the threads pass ``TILE_THREADS`` or
+    the rows ``STEP_SHARED``.  An SM should hold as many blocks as
+    ``REG_WARPS_NARROW`` warps (f32, ≤ 6 joints) or ``REG_WARPS_WIDE``
+    warps allow.  ``split``: the split mode of a grid under one wave, a
+    thread a direction, the q ones on the pair slots' warps and the q̇
+    ones on as many more, at one block an SM.  Past ``UNROLLED_JOINTS`` joints the rows lie in the
+    runtime instance's work area instead, beside each (direction, scenario)
+    slot's own work (M and f in Dual numbers, the anchors and axes in HD,
+    the Jacobian columns in Dual, three joint and three state vectors); TS
+    is 32 in float32 and 16 in float64 (one 128 B row), halved down to 1,
+    and a thread takes every ``directions``-th direction.  A built library
+    reports its own shape (``SHAPE_FIELDS``)."""
     size = {"f32": 4, "f64": 8}[type_suffix(dtype)]
     n = 2 * nv
-    ts = 32 if size == 4 else 16
-    chol = nj * nj + 2 * nj + nv
-    fk = 2 * SLOTS * nj
-    series = 0 if core else nv * n + nv * nv + n * n
-    rows = chol + max(fk, series)
     if nj > UNROLLED_JOINTS:
+        ts = 32 if size == 4 else 16
+        chol = nj * nj + 2 * nj + nv
+        fk = 2 * SLOTS * nj
+        series = 0 if core else nv * n + nv * nv + n * n
+        rows = chol + max(fk, series)
         while ts > 1 and ts * n > STEP_THREADS:
             ts //= 2
         dy = min(n, STEP_THREADS // ts)
@@ -134,10 +185,28 @@ def launch_shape(nj: int, nv: int, dtype, core: bool = False) -> StepShape:
         return StepShape(widths=(nj, nv), scenarios=ts, threads=ts * dy,
                          shared_bytes=0, runtime=True, directions=dy,
                          block_values=rows * ts + slot * n * ts)
-    while ts * n > STEP_THREADS:
+    ts = 16
+    copies = 2 if split else 1
+    rows = tile_rows(nj, nv, core)
+    warps = lambda ts: -(-(ts * nv) // 32)  # the pair slots'
+    while ts > 1 and (copies * 32 * warps(ts) > TILE_THREADS
+                      or rows * ts * size > STEP_SHARED):
         ts //= 2
-    return StepShape(widths=(nj, nv), scenarios=ts, threads=ts * n,
-                     shared_bytes=size * ts * rows, directions=n)
+    threads = copies * 32 * warps(ts)
+    q_slots = 32 * warps(ts) // ts  # the first q̇ slot of the split mode
+    reg_warps = (REG_WARPS_NARROW if size == 4 and nj <= 6
+                 else REG_WARPS_WIDE)
+    want = 1 if split else max(1, reg_warps // warps(ts))
+    outer = (rows * ts + 12 * nj * threads) * size * want <= STEP_SHARED
+    shared = (rows * ts + (12 * nj * threads if outer else 0)) * size
+    blocks = min(want, STEP_SHARED // shared)
+    return StepShape(
+        widths=(nj, nv), scenarios=ts, threads=threads, shared_bytes=shared,
+        directions=n,
+        primal_slot=(nv if q_slots > nv
+                     else (q_slots if split else 0) + nv - 1),
+        outer_shared=outer, blocks_per_sm=blocks,
+        registers=registers_a_thread(threads * blocks), split=split)
 
 
 def library(widths, dtype) -> str:
@@ -149,20 +218,26 @@ def library(widths, dtype) -> str:
 
 def entry_point(kind: str, widths, dtype) -> str:
     """The C function ``reak_kte_<kind>_<NJ>x<NV>_<type>`` (kind: step,
-    core or occupancy), ``reak_kte_<kind>_any_<type>`` for ``widths=None``."""
+    core, occupancy or shape), ``reak_kte_<kind>_any_<type>`` for ``widths=None``."""
     tag = "any" if widths is None else f"{widths[0]}x{widths[1]}"
     return f"reak_kte_{kind}_{tag}_{type_suffix(dtype)}"
 
 
 _VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# {kind: argtypes}.  step: x, u, table, nj, nv, dt, order, Ad, Bd, cd,
-# x_new, B, shared bytes, stream; core: x, u, table, nj, nv, qdd, dqdd,
-# minv, B, shared bytes, stream; occupancy: core, blocks (out)
-SIGNATURES = {"step": [_VP, _VP, _VP, _CI, _CI, ctypes.c_double, _CI, _VP,
-                       _VP, _VP, _VP, _CI, _CI, _VP],
-              "core": [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _CI, _CI,
-                       _VP],
-              "occupancy": [_CI, ctypes.POINTER(ctypes.c_int)]}
+# {kind: argtypes}.  step (and its split mode): x, u, table, nj, nv, dt,
+# order, Ad, Bd, cd, x_new, B, shared bytes, stream; core (and its split
+# mode): x, u, table, nj, nv, qdd, dqdd, minv, B, shared bytes, stream;
+# occupancy: core, blocks (out); shape: core, split, SHAPE_FIELDS (out)
+_STEP = [_VP, _VP, _VP, _CI, _CI, ctypes.c_double, _CI, _VP, _VP, _VP, _VP,
+         _CI, _CI, _VP]
+_CORE = [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _CI, _CI, _VP]
+SIGNATURES = {"step": _STEP, "core": _CORE, "step_split": _STEP,
+              "core_split": _CORE,
+              "occupancy": [_CI, ctypes.POINTER(ctypes.c_int)],
+              "shape": [_CI, _CI, ctypes.POINTER(ctypes.c_int)]}
+# the StepShape fields a compile-time library's shape entry point reports
+SHAPE_FIELDS = ("scenarios", "threads", "shared_bytes", "primal_slot",
+                "outer_shared", "blocks_per_sm")
 # the runtime-width instance, the same with the joints' table after the
 # chain's and TS, the grid and the work area in place of the shared bytes;
 # occupancy: core, threads, blocks (out)
@@ -208,15 +283,21 @@ def joint_table(spec: ChainSpec, device) -> torch.Tensor:
 
 
 def launch(kind: str, spec: ChainSpec, x, u, outs, dt: float = 0.0,
-           order: int = 1, tables: dict = None) -> None:
+           order: int = 1, tables: dict = None, split: bool = None) -> None:
     """Launch the kernel of ``kind`` (step: K1; core: K5) that takes
     ``spec`` on x, u and the outputs ``outs`` (step: Ad, Bd, cd, x_new;
     core: qdd, dqdd, minv); raise on a CUDA error.  ``tables`` caches the
-    chain's tables per (type, device)."""
+    chain's tables per (type, device).  A compile-time instance takes its
+    split mode where ``split_mode`` says (or ``split``, where given)."""
     widths = instance_for(spec, f"the {kind} kernel")
     nj, nv = spec.n_joints, spec.nv
     core = kind == "core"
-    shape = launch_shape(nj, nv, x.dtype, core=core)
+    B = x.shape[-1]
+    if widths is None:
+        split = False
+    elif split is None:
+        split = split_mode(nj, nv, x.dtype, B, x.device, core)
+    shape = launch_shape(nj, nv, x.dtype, core=core, split=split)
     key = (x.dtype, x.device)
     if key not in tables:
         # the compile-time instances take the table by value (packed on the
@@ -228,10 +309,10 @@ def launch(kind: str, spec: ChainSpec, x, u, outs, dt: float = 0.0,
                        else joint_table(spec, x.device))
     table, joints = tables[key]
     name = library(widths, x.dtype)
-    fn = _build.function(name, entry_point(kind, widths, x.dtype),
-                         signatures(widths, x.dtype))
+    fn = _build.function(
+        name, entry_point(kind + "_split" if split else kind, widths,
+                          x.dtype), signatures(widths, x.dtype))
     p = _build.ptr
-    B = x.shape[-1]
     head = [p(x), p(u), p(table)]
     if widths is None:
         head.append(p(joints))
@@ -286,6 +367,39 @@ def make_step_lanes(spec: ChainSpec, dt: float, order: int = 4):
         return outs
 
     return fn
+
+
+def read_shape(fn, core: bool, split: bool = False) -> dict:
+    """{SHAPE_FIELDS: value} of K1's (K5's where ``core``; in the split mode
+    where ``split``) launch shape as a library was built, from its
+    ``shape`` entry point ``fn``."""
+    out = (ctypes.c_int * len(SHAPE_FIELDS))()
+    fn(int(core), int(split), out)
+    return dict(zip(SHAPE_FIELDS, out))
+
+
+def built_shape(widths, dtype, core: bool = False,
+                split: bool = False) -> dict:
+    """``read_shape`` of the compile-time library of ``widths``."""
+    return read_shape(_build.function(
+        library(widths, dtype), entry_point("shape", widths, dtype),
+        signatures(widths, dtype)), core, split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_mode(nj: int, nv: int, dtype, B: int, device,
+               core: bool = False) -> bool:
+    """Whether a compile-time launch over B scenarios on ``device`` takes
+    the split mode: its grid fills at most one wave (a block an SM), so a
+    block's latency, not the SMs' throughput, sets its time."""
+    if device.type != "cuda":
+        return False
+    shape = launch_shape(nj, nv, dtype, core=core, split=True)
+    return shape.blocks(B) <= _sms(device.index or 0) * shape.blocks_per_sm
 
 
 def occupancy(widths, dtype, core: bool = False, threads: int = 0) -> int:

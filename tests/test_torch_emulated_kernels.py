@@ -453,20 +453,51 @@ def test_runtime_tile_f32_within_twice_the_plain_error(emulated, nm):
                 pl.double() - r).abs().max(), key
 
 
-def _step_outputs(emulated, spec, x, u, dt, monkeypatch):
+def _step_outputs(emulated, spec, x, u, dt, monkeypatch, split=None,
+                  entries=None):
     """K1's and K5's outputs through the wrappers' launch, on the emulated
-    libraries."""
-    monkeypatch.setattr(_build, "function", lambda name, fn, sigs: _fn(
-        emulated(name), fn, sigs[fn]))
+    libraries (``split``: the mode, where given; ``entries`` collects the
+    C functions called)."""
+    def function(name, fn, sigs):
+        if entries is not None:
+            entries.append(fn)
+        return _fn(emulated(name), fn, sigs[fn])
+
+    monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: None)
     n, nv, B = x.shape[0], spec.nv, x.shape[1]
     k1 = (_nan(n, n, B, dtype=x.dtype), _nan(n, nv, B, dtype=x.dtype),
           _nan(n, B, dtype=x.dtype), _nan(n, B, dtype=x.dtype))
     k5 = (_nan(nv, B, dtype=x.dtype), _nan(nv, n, B, dtype=x.dtype),
           _nan(nv, nv, B, dtype=x.dtype))
-    kte_step.launch("step", spec, x, u, k1, dt, 4, {})
-    kte_step.launch("core", spec, x, u, k5, 0.0, 1, {})
+    kte_step.launch("step", spec, x, u, k1, dt, 4, {}, split=split)
+    kte_step.launch("core", spec, x, u, k5, 0.0, 1, {}, split=split)
     return k1, k5
+
+
+def _ragged_states(spec, batch):
+    rng = np.random.default_rng(batch)
+    nv = spec.nv
+    x = torch.as_tensor(np.concatenate([rng.uniform(-0.5, 0.5, (nv, batch)),
+                                        rng.uniform(-0.3, 0.3, (nv, batch))]))
+    return x, torch.as_tensor(rng.uniform(-5.0, 5.0, (nv, batch)))
+
+
+def _hold_to_plain(spec, k1, k5, x64, u64, dtype):
+    """f64 within 1e-9 relative of the plain step and core; f32 within
+    twice the plain f32 error against the plain f64 result."""
+    want = (kte_step.make_step_plain(spec, 0.01)(x64, u64)
+            + kte_core.make_core_plain(spec)(x64, u64))
+    if dtype == torch.float64:
+        for g, w in zip(k1 + k5, want):
+            assert float((g - w).abs().max() / w.abs().max()) <= 1e-9
+    else:
+        x, u = x64.to(dtype), u64.to(dtype)
+        plain = (kte_step.make_step_plain(spec, 0.01)(x, u)
+                 + kte_core.make_core_plain(spec)(x, u))
+        for g, p, w in zip(k1 + k5, plain, want):
+            assert (g.double() - w).abs().max() <= 2 * (
+                p.double() - w).abs().max()
 
 
 @pytest.mark.parametrize("spec,dt", [(models.planar_2link(), 0.01),
@@ -487,6 +518,62 @@ def test_step_kernel_matches_the_plain_step(emulated, spec, dt,
     want5 = kte_core.make_core_plain(spec)(x, u)
     for g, w in list(zip(k1, want1)) + list(zip(k5, want5)):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("chain,dtype,batch", [
+    ("planar_2link", torch.float64, 77),
+    ("manip_3r_planar", torch.float32, 77), ("mixed_chain", torch.float64, 41)])
+def test_step_kernel_pair_slots_on_ragged_batches(emulated, chain, dtype,
+                                                  batch, monkeypatch):
+    """K1 and K5 at compile-time widths on ragged batches of several tiles:
+    each thread's q run, its own factor of M, its columns, then its q̇ run
+    and column; the primal phase on the last slot ((2, 2): two pair slots
+    of 16 in one warp; the mixed chain) or on a spare one ((3, 3) f32:
+    three slots in two warps); the anchors' and axes' outer parts in
+    shared memory ((2, 2), (3, 3)) and in registers (the mixed chain's
+    (8, 6) f64: FIXED and PRISMATIC joints, offsets, springs, dampers, full
+    inertia).  f64 within 1e-9 relative of the plain step and core; f32
+    within twice the plain f32 error against the plain f64 result."""
+    spec = getattr(models, chain)()
+    shape = kte_step.launch_shape(spec.n_joints, spec.nv, dtype)
+    assert shape.blocks(batch) > 1 and batch % shape.scenarios
+    spare = shape.threads // shape.scenarios > spec.nv
+    assert spare == (chain == "manip_3r_planar")
+    assert shape.outer_shared == (chain != "mixed_chain")
+    x64, u64 = _ragged_states(spec, batch)
+    k1, k5 = _step_outputs(emulated, spec, x64.to(dtype), u64.to(dtype),
+                           0.01, monkeypatch)
+    _hold_to_plain(spec, k1, k5, x64, u64, dtype)
+
+
+@pytest.mark.parametrize("chain,dtype,batch", [
+    ("planar_2link", torch.float64, 77),
+    ("manip_3r_planar", torch.float32, 77), ("mixed_chain", torch.float64, 41)])
+def test_step_kernel_split_mode_on_ragged_batches(emulated, chain, dtype,
+                                                  batch, monkeypatch):
+    """K1 and K5 in the split mode (the grids under one wave) on ragged
+    batches of several tiles: a thread one direction, the q ones on the
+    pair slots' warps and the q̇ ones on as many more, a q̇ one factoring
+    the primal M it takes on its run; the primal phase on the last q̇ slot
+    ((2, 2), the mixed chain) or on a spare slot of the q warps ((3, 3)
+    f32, whose q̇ warps have a spare slot too); the outer parts in shared
+    memory (the mixed chain's too, at one block an SM).  The same bars as
+    the pair slots'."""
+    spec = getattr(models, chain)()
+    nv = spec.nv
+    shape = kte_step.launch_shape(spec.n_joints, nv, dtype, split=True)
+    assert shape.split and shape.blocks_per_sm == 1 and shape.outer_shared
+    q_slots = shape.threads // 2 // shape.scenarios
+    assert shape.primal_slot == (nv if q_slots > nv else q_slots + nv - 1)
+    assert (q_slots > nv) == (chain == "manip_3r_planar")
+    assert shape.blocks(batch) > 1 and batch % shape.scenarios
+    x64, u64 = _ragged_states(spec, batch)
+    entries = []
+    k1, k5 = _step_outputs(emulated, spec, x64.to(dtype), u64.to(dtype),
+                           0.01, monkeypatch, split=True, entries=entries)
+    assert [e.split("_")[2] for e in entries] == ["step", "core"]
+    assert all("_split_" in e for e in entries)
+    _hold_to_plain(spec, k1, k5, x64, u64, dtype)
 
 
 @pytest.mark.parametrize("nm,dtype,mode,batch,horizon,iters", [

@@ -59,16 +59,47 @@ def _assert_rel(got, want, rel=1e-10):
 
 # ---- launch shapes --------------------------------------------------------
 
+def _split_top(expr, sep):
+    """``expr`` split at the first ``sep`` outside parentheses, or None."""
+    depth = 0
+    for i, ch in enumerate(expr):
+        depth += ch == "("
+        depth -= ch == ")"
+        if depth == 0 and expr.startswith(sep, i):
+            return expr[:i], expr[i + len(sep):]
+    return None
+
+
 def _c_to_python(expr):
     """A C expression of the source as Python: ``int(sizeof(T))`` is
-    ``size``, ``a ? b : c`` is ``(b if a else c)``, ``/`` on ints ``//``."""
-    expr = re.sub(r"\s+", " ", expr).replace("int(sizeof(T))", "size")
-    expr = expr.replace("true", "True").replace("false", "False")
-    expr = expr.replace("/", "//")
-    while "?" in expr:
-        expr = re.sub(r"([^?()]+)\?([^:()]+):([^;()]+)",
-                      r"((\2) if (\1) else (\3))", expr, count=1)
-    return expr
+    ``size``, ``a ? b : c`` is ``(b if a else c)`` (right-associative, at
+    any depth of parentheses), ``&&``/``||``/``!=`` and ``/`` on ints
+    ``//``."""
+    expr = re.sub(r"\s+", " ", expr).strip()
+    expr = expr.replace("int(sizeof(T))", "size")
+    cond = _split_top(expr, "?")
+    if cond is not None:
+        then, other = _split_top(cond[1], ":")
+        return (f"(({_c_to_python(then)}) if ({_c_to_python(cond[0])}) "
+                f"else ({_c_to_python(other)}))")
+    # parenthesised parts may hold ternaries of their own
+    out, i = "", 0
+    while i < len(expr):
+        if expr[i] == "(":
+            depth, j = 1, i + 1
+            while depth:
+                depth += expr[j] == "("
+                depth -= expr[j] == ")"
+                j += 1
+            out += "(" + _c_to_python(expr[i + 1:j - 1]) + ")"
+            i = j
+        else:
+            out += expr[i]
+            i += 1
+    out = out.replace("&&", " and ").replace("||", " or ")
+    out = re.sub(r"!(?!=)", " not ", out)
+    out = out.replace("true", "True").replace("false", "False")
+    return out.replace("/", "//").replace("////", "//")
 
 
 def _source_constant(text, name):
@@ -80,99 +111,236 @@ def _source_constant(text, name):
 
 
 def _source_function(text, name, env):
-    """``constexpr int <name>(int a, int b) { return <expression>; }`` of
-    the source as a Python function over ``env`` (it may call itself)."""
+    """``constexpr int <name>(int a, ...) { return <expression>; }`` of the
+    source as a Python function over ``env`` (it may call itself and the
+    other functions of ``env``)."""
     m = re.search(rf"constexpr int {name}\(([^)]*)\) \{{\s*return ([^;]+);",
                   text)
     assert m, name
     params = [p.split()[-1] for p in m.group(1).split(",")]
-    cond, rest = m.group(2).split("?", 1)  # one ternary at the top level
-    then, other = rest.split(":", 1)
-    body = (f"(({_c_to_python(then)}) if ({_c_to_python(cond)}) "
-            f"else ({_c_to_python(other)}))")
+    body = _c_to_python(m.group(2))
     return lambda *args: eval(body, {}, {**env, **dict(zip(params, args))})
 
 
+def _source_shape(text, widths, size, core, split=False):
+    """{name: value} of ``kte_step.cu::StepShape`` for one instance (in the
+    split mode where ``split``), evaluated from the source's own
+    expressions."""
+    env = {"NJ": widths[0], "NV": widths[1], "size": size, "kCoreOnly": core,
+           "kSplit": split}
+    for name in ("SLOTS", "STEP_THREADS", "TILE_THREADS", "STEP_SHARED",
+                 "REG_WARPS_NARROW", "REG_WARPS_WIDE"):
+        env[name] = eval(_source_constant(text, name), {}, dict(env))
+    for name in ("warps_of", "tile_rows", "fit_tile"):
+        env[name] = _source_function(text, name, env)
+    for name in ("N", "COPIES", "TS0", "TS", "Q_WARPS", "NT", "QD_SLOT",
+                 "PRIMAL_SLOT", "ROWS", "REG_WARPS",
+                 "WANT_BLOCKS", "OUTER_SHARED", "SMEM", "MIN_BLOCKS"):
+        env[name] = eval(_source_constant(text, name), {}, dict(env))
+    return env
+
+
+@pytest.mark.parametrize("split", [False, True])
 @pytest.mark.parametrize("core", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("widths", [(6, 6), (2, 2), (8, 6), (8, 8), (1, 1),
                                     (9, 9), (16, 16), (16, 8)])
-def test_launch_shape_mirrors_the_source(widths, dtype, core):
-    """TS, threads and shared memory of ``launch_shape`` are what
-    ``kte_step.cu::StepShape`` computes for the same instance (the C entry
-    point refuses a launch whose shared size differs), inside an H100
-    block, with a warp of 32 scenarios per direction in f32 and whole
-    128 B rows unless that would pass the block's thread cap, which halves
-    the rows (TS = 8 at 16 dofs)."""
+def test_launch_shape_mirrors_the_source(widths, dtype, core, split):
+    """TS, threads, the primal slot, the blocks an SM and shared memory of
+    ``launch_shape`` are what ``kte_step.cu::StepShape`` computes for the
+    same instance, in either mode (the C entry point refuses a launch
+    whose shared size differs), inside an H100 block: tiles of TS0 = 16
+    scenarios unless the threads would pass ``TILE_THREADS`` or the rows
+    ``STEP_SHARED``, which halves TS; the split mode's threads are twice
+    the pair slots' warps (the q̇ directions on warps of their own) at one
+    block an SM."""
     text = SOURCE.read_text()
     size = 4 if dtype == torch.float32 else 8
-    env = {"NJ": widths[0], "NV": widths[1], "size": size, "kCoreOnly": core,
-           "STEP_THREADS": int(_source_constant(text, "STEP_THREADS"))}
-    env["fit_threads"] = _source_function(text, "fit_threads", env)
-    for name in ("SLOTS", "N", "TS0", "TS", "NT", "CHOL_ROWS", "FK_ROWS",
-                 "SERIES_ROWS", "ROWS", "SMEM"):
-        env[name] = eval(_source_constant(text, name), {}, dict(env))
+    env = _source_shape(text, widths, size, core, split)
     assert env["SLOTS"] == kte_step.SLOTS
     assert env["STEP_THREADS"] == kte_step.STEP_THREADS
-    shape = kte_step.launch_shape(*widths, dtype, core=core)
-    assert shape.widths == widths
+    assert env["TILE_THREADS"] == kte_step.TILE_THREADS
+    assert env["STEP_SHARED"] == kte_step.STEP_SHARED == _tile.MAX_SHARED_BYTES
+    shape = kte_step.launch_shape(*widths, dtype, core=core, split=split)
+    assert shape.widths == widths and not shape.runtime
+    assert shape.split == split and env["COPIES"] == (2 if split else 1)
+    if split:
+        assert shape.blocks_per_sm == 1
+        assert env["QD_SLOT"] * shape.scenarios == shape.threads // 2
     assert (shape.scenarios, shape.threads, shape.shared_bytes) == (
         env["TS"], env["NT"], env["SMEM"])
-    assert shape.threads == shape.scenarios * 2 * widths[1]
-    assert shape.threads <= kte_step.STEP_THREADS
+    assert (shape.primal_slot, shape.outer_shared, shape.blocks_per_sm) == (
+        env["PRIMAL_SLOT"], env["OUTER_SHARED"], env["MIN_BLOCKS"])
+    assert shape.threads <= kte_step.TILE_THREADS
     assert shape.threads <= 1024 == _tile.MAX_THREADS
-    assert shape.shared_bytes <= 232448 == _tile.MAX_SHARED_BYTES
-    full_rows = 128 // size
-    if full_rows * 2 * widths[1] <= kte_step.STEP_THREADS:
-        assert shape.scenarios * size == 128
-    else:
-        assert 2 * shape.threads > kte_step.STEP_THREADS
-    assert (shape.scenarios * size) % 16 == 0
-    assert shape.blocks(8192) * shape.scenarios == 8192
+    assert shape.shared_bytes * shape.blocks_per_sm <= 232448
+    ts = shape.scenarios
+    if ts < env["TS0"]:  # halved: twice the scenarios would not fit
+        assert (env["COPIES"] * 32 * env["warps_of"](2 * ts * widths[1])
+                > kte_step.TILE_THREADS
+                or env["tile_rows"](*widths, core) * 2 * ts * size
+                > kte_step.STEP_SHARED)
+    assert (ts * size) % 16 == 0 or ts < 4
+    assert shape.blocks(8192) * ts == 8192
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("widths", [(6, 6), (7, 7), (2, 2), (1, 1), (3, 3),
+                                    (8, 6), (16, 16), (9, 9)])
+def test_warp_roles(widths, dtype):
+    """Every warp runs one kind of direction at a time: the block is nv
+    pair slots of TS threads in whole warps, every slot inside one warp,
+    the thread of slot j running the q direction j and then the q̇
+    direction nv + j, so all lanes of a warp run q code, then q̇ code, and
+    every warp carries the same work; only a spare slot, which runs the
+    primal phase where a warp leaves one, differs.  No ``setmaxnreg``: no
+    warpgroup has registers to give another."""
+    shape = kte_step.launch_shape(*widths, dtype)
+    nv = widths[1]
+    ts = shape.scenarios
+    assert shape.threads % 32 == 0
+    assert 32 % ts == 0 or ts % 32 == 0
+    assert shape.threads // ts >= nv > (shape.threads - 32) // ts
+    slots = list(range(shape.threads // ts))
+    pairs = [(j, nv + j) for j in slots if j < nv]
+    assert sorted(d for p in pairs for d in p) == list(range(2 * nv))
+    spare = shape.threads // ts > nv
+    assert shape.primal_slot == (nv if spare else nv - 1)
+    text = SOURCE.read_text()
+    assert "regs_inc" not in text and "regs_dec" not in text
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("widths", [(6, 6), (7, 7), (2, 2), (1, 1), (3, 3),
+                                    (8, 6), (13, 13), (16, 16)])
+def test_split_mode_warp_roles(widths, dtype):
+    """The split mode runs a thread a direction and still no warp on two
+    kinds of direction: the q directions on the pair slots' warps (slot j:
+    q direction j), the q̇ ones on as many warps after them (slot
+    ``QD_SLOT`` + j: q̇ direction nv + j), every direction once; the primal
+    phase on a spare slot of the q warps, or else on the last q̇ slot."""
+    text = SOURCE.read_text()
+    size = 4 if dtype == torch.float32 else 8
+    env = _source_shape(text, widths, size, False, split=True)
+    shape = kte_step.launch_shape(*widths, dtype, split=True)
+    nv, ts = widths[1], shape.scenarios
+    qd = env["QD_SLOT"]
+    kind = {}
+    for slot in range(shape.threads // ts):
+        if slot < nv:
+            kind[slot] = ("q", slot)
+        elif qd <= slot < qd + nv:
+            kind[slot] = ("qd", nv + slot - qd)
+        else:
+            kind[slot] = ("spare", None)
+    dirs = sorted(d for k, d in kind.values() if k != "spare")
+    assert dirs == list(range(2 * nv))
+    for w in range(shape.threads // 32):
+        kinds = {kind[t // ts][0] for t in range(32 * w, 32 * w + 32)}
+        assert not {"q", "qd"} <= kinds, (w, kinds)
+    assert kind[shape.primal_slot][0] == "spare" or \
+        shape.primal_slot == qd + nv - 1
+    assert shape.primal_slot == env["PRIMAL_SLOT"]
+
+
+@pytest.mark.parametrize("widths,dtype", [
+    ((6, 6), torch.float32), ((7, 7), torch.float32), ((6, 6), torch.float64),
+    ((7, 7), torch.float64), ((2, 2), torch.float64), ((1, 1), torch.float64),
+    ((3, 3), torch.float64), ((8, 6), torch.float64),
+    ((16, 16), torch.float64)])
+def test_blocks_an_sm_and_registers(widths, dtype):
+    """The blocks an SM: as many as ``REG_WARPS_NARROW`` warps (f32, at
+    most six joints) or ``REG_WARPS_WIDE`` warps allow, and their shared
+    memory; the registers a thread are what that many warps leave of each
+    scheduler's quarter of the SM's 65,536 (168 at twelve warps, 255 at
+    eight)."""
+    shape = kte_step.launch_shape(*widths, dtype)
+    warps = shape.threads // 32
+    narrow = dtype == torch.float32 and widths[0] <= 6
+    reg_warps = kte_step.REG_WARPS_NARROW if narrow else \
+        kte_step.REG_WARPS_WIDE
+    want = max(1, reg_warps // warps)
+    assert shape.blocks_per_sm == min(want, 232448 // shape.shared_bytes)
+    on_sm = warps * shape.blocks_per_sm
+    assert shape.registers == min(255, 16384 // (32 * -(-on_sm // 4)) // 8
+                                  * 8)
+    assert kte_step.registers_a_thread(384) == 168
+    assert kte_step.registers_a_thread(256) == 255
 
 
 @pytest.mark.parametrize("widths,dtype,shape", [
-    ((6, 6), torch.float32, (32, 384)), ((6, 6), torch.float64, (16, 192)),
-    ((2, 2), torch.float64, (16, 64)), ((8, 6), torch.float64, (16, 192))])
+    ((6, 6), torch.float32, (16, 96)), ((6, 6), torch.float64, (16, 96)),
+    ((2, 2), torch.float64, (16, 32)), ((8, 6), torch.float64, (16, 96)),
+    ((7, 7), torch.float32, (16, 128))])
 def test_shipped_instances_keep_their_launch_shape(widths, dtype, shape):
-    """The instances the flagship arm, ``planar_2link`` and the mixed chain
-    run take the scenarios and threads a block they took before the thread
-    cap."""
+    """The instances the flagship arm, ``planar_2link``, the mixed chain
+    and the SSRMS run take the scenarios and threads a block of the design
+    of pair slots: a pair slot a dof, 16 scenarios a tile (the SSRMS's seven
+    slots round up to four warps, the eighth slot spare)."""
     got = kte_step.launch_shape(*widths, dtype)
     assert (got.scenarios, got.threads) == shape
 
 
 def test_source_constants_agree():
-    """The widest compile-time instance, the thread cap, the runtime
-    instance's grid cap and the anchor slots of the source are the
-    wrapper's, and the last slot ends where SLOTS says."""
+    """The widest compile-time instance, the thread caps, the shared cap,
+    the knobs, the runtime instance's grid cap and the anchor slots of the
+    source are the wrapper's, and the last slot ends where SLOTS says."""
     text = SOURCE.read_text()
     assert int(_source_constant(text, "UNROLLED_JOINTS")) == \
         kte_step.UNROLLED_JOINTS == 16
     assert int(_source_constant(text, "RT_GRID")) == kte_step.RT_GRID
     assert int(_source_constant(text, "STEP_THREADS")) == \
         kte_step.STEP_THREADS
+    assert int(_source_constant(text, "TILE_THREADS")) == \
+        kte_step.TILE_THREADS
+    assert int(_source_constant(text, "REG_WARPS_NARROW")) == \
+        kte_step.REG_WARPS_NARROW
+    assert int(_source_constant(text, "REG_WARPS_WIDE")) == \
+        kte_step.REG_WARPS_WIDE
     slots = dict(re.findall(r"(S_[A-Z]+) = (\d+)", text))
     assert int(slots["S_COM"]) + 3 == kte_step.SLOTS
     assert "__launch_bounds__" in text and "__grid_constant__" in text
     assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
 
 
-@pytest.mark.parametrize("B,blocks", [(1, 1), (32, 1), (77, 3), (1001, 32),
-                                      (8192, 256)])
+@pytest.mark.parametrize("B,blocks", [(1, 1), (16, 1), (77, 5), (1001, 63),
+                                      (8192, 512)])
 def test_ragged_batches_take_whole_tiles(B, blocks):
     assert kte_step.launch_shape(6, 6, torch.float32).blocks(B) == blocks
 
 
+def test_shape_entry_reports_the_fields_in_order():
+    """The library's ``shape`` entry point, which ``ops/kte_variants.py``
+    reads a patched copy's launch shape from, writes ``StepShape``'s
+    fields in the order of ``kte_step.SHAPE_FIELDS``."""
+    text = SOURCE.read_text()
+    m = re.search(r"int shape_of\(int\* out\) \{.*?\{([^}]*)\};", text,
+                  flags=re.S)
+    assert m
+    fields = [f.strip().replace("Shape::", "") for f in m.group(1).split(",")]
+    assert fields == ["TS", "NT", "SMEM", "PRIMAL_SLOT", "OUTER_SHARED",
+                      "MIN_BLOCKS"]
+    assert len(kte_step.SHAPE_FIELDS) == len(fields)
+    assert kte_step.SHAPE_FIELDS[:3] == ("scenarios", "threads",
+                                         "shared_bytes")
+    assert kte_step.SHAPE_FIELDS[3:] == ("primal_slot", "outer_shared",
+                                         "blocks_per_sm")
+
+
 def test_variants_patch_every_knob(tmp_path, monkeypatch):
-    """``ops/kte_variants.py`` reads the shipped launch shape from the source
-    (the TS ``launch_shape`` gives) and each variant's patched copy reads
-    back as that variant (no nvcc)."""
+    """``ops/kte_variants.py`` reads the shipped knobs from the source (the
+    TS ``launch_shape`` gives, the thread cap and the register warps) and
+    each variant's patched copy reads back as that variant, whose
+    ``StepShape`` at (6, 6) and (7, 7) takes the patched knobs and fits an
+    H100 SM (no nvcc; the measurement reads each patched library's own
+    shape)."""
     from reak_tpu_torch.ops import kte_variants
 
     base = kte_variants.shipped(SOURCE.read_text())
     assert base == {"ts": kte_step.launch_shape(6, 6, torch.float32).scenarios,
-                    "blocks": 1}
+                    "tile_threads": kte_step.TILE_THREADS,
+                    "narrow": kte_step.REG_WARPS_NARROW,
+                    "wide": kte_step.REG_WARPS_WIDE}
     monkeypatch.setattr(kte_variants.subprocess, "Popen",
                         lambda *args, **kwargs: None)
     monkeypatch.setattr(kte_variants._build, "_nvcc", lambda: "nvcc")
@@ -180,7 +348,15 @@ def test_variants_patch_every_knob(tmp_path, monkeypatch):
     for other in kte_variants.OTHERS:
         variant = {**base, **other}
         d, _, _ = kte_variants._variant(tmp_path, variant, base)
-        assert kte_variants.shipped((d / "kte_step.cu").read_text()) == variant
+        text = (d / "kte_step.cu").read_text()
+        assert kte_variants.shipped(text) == variant
+        for nj in (6, 7):
+            env = _source_shape(text, (nj, nj), 4, False)
+            assert (env["TS0"], env["TILE_THREADS"], env["REG_WARPS"]) == (
+                variant["ts"], variant["tile_threads"],
+                variant["narrow"] if nj <= 6 else variant["wide"])
+            assert env["NT"] <= env["TILE_THREADS"]
+            assert env["SMEM"] * env["MIN_BLOCKS"] <= kte_step.STEP_SHARED
         seen.add(d.name)
     assert len(seen) == len(kte_variants.OTHERS)
 
@@ -449,3 +625,35 @@ def test_mixed_chain_step_matches_jax(mixed_case, mixed_jax):
         _assert_rel(got, want)
     for got, want in zip(step, step_j):
         _assert_rel(got, want)
+
+
+def test_phase_stamps_fit_the_source(tmp_path):
+    """``ops/k1_phases.py`` builds K1/K5 with its stamps: the source calls
+    only the hooks the stamps define, empty unless they are inserted, each
+    slot of ``NEW_SLOTS`` once in its order, within the stamps' slots and
+    recorders (a recorder a pair slot, and the primal slot); the stamped
+    copy of the shipped source takes the new design's slots and defines
+    the hooks before the source's first include (no nvcc)."""
+    from reak_tpu_torch.ops import k1_phases
+
+    text = SOURCE.read_text()
+    hooks = set(re.findall(r"\b(REAK_K1_\w+)\(", text))
+    assert hooks == {"REAK_K1_BEGIN", "REAK_K1_STAMP", "REAK_K1_END"}
+    for hook in hooks:
+        assert f"#define {hook}(" in text
+        assert f"#define {hook}(" in k1_phases.STAMPS
+    stamps = [int(s) for s in re.findall(r"REAK_K1_STAMP\((\d+)\);", text)]
+    assert stamps == list(range(len(k1_phases.NEW_SLOTS)))
+    cap = lambda name: int(re.search(rf"#define {name} (\d+)",
+                                     k1_phases.STAMPS).group(1))
+    assert len(k1_phases.NEW_SLOTS) <= cap("REAK_K1_SLOTS")
+    widest = kte_step.launch_shape(16, 16, torch.float64)
+    assert widest.threads // widest.scenarios <= cap("REAK_K1_WHO")
+    slots = k1_phases.stamped_source(_build.CSRC, tmp_path / "csrc")
+    assert slots == k1_phases.NEW_SLOTS
+    stamped = (tmp_path / "csrc" / "kte_step.cu").read_text()
+    at = stamped.index("#define REAK_K1_STAMPS 1")
+    assert stamped.index("#define REAK_K1_STAMP(slot)") < at
+    assert at < stamped.index('#include "hyperdual.cuh"')
+    assert stamped.count("reak_k1_stamps_read") == 1
+    assert (tmp_path / "csrc" / "hyperdual.cuh").exists()
